@@ -1,0 +1,27 @@
+"""Arch-id -> ModelConfig registry (the paper's three classifiers)."""
+from __future__ import annotations
+
+import importlib
+from typing import Dict, List
+
+from repro_torch.config import ModelConfig
+
+# CLI id -> module name under repro_torch.configs
+ARCH_IDS: Dict[str, str] = {
+    "fedtest-cnn": "fedtest_cnn",
+    "fedtest-cnn-mnist": "fedtest_cnn_mnist",
+    "fedtest-mlp-mnist": "fedtest_mlp_mnist",
+}
+
+
+def get_config(arch_id: str) -> ModelConfig:
+    if arch_id not in ARCH_IDS:
+        raise KeyError(f"unknown arch {arch_id!r}; the port has "
+                       f"{sorted(ARCH_IDS)} (LM configs: ROADMAP.md "
+                       "queue 1 item 16)")
+    mod = importlib.import_module(f"repro_torch.configs.{ARCH_IDS[arch_id]}")
+    return mod.config()
+
+
+def list_configs() -> List[str]:
+    return sorted(ARCH_IDS)

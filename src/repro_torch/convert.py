@@ -1,0 +1,39 @@
+"""Weights converter: the reference's params -> the port's.
+
+Both packages keep the same tree (names, layouts, dtypes: conv weights
+HWIO, dense weights ``[in, out]``), so conversion is a checked,
+name-for-name copy of the leaves onto a device.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+
+def params_from_reference(tree_of_numpy: Dict[str, Any], device, *,
+                          model) -> Dict[str, Any]:
+    """Nested dict of numpy arrays (the JAX package's params) -> nested
+    dict of tensors on ``device`` in ``model``'s dtype. Refuses a missing
+    or extra leaf and a shape mismatch against ``model.param_shapes()``."""
+    def convert(node, shapes, path):
+        if isinstance(shapes, dict):
+            if not isinstance(node, dict):
+                raise ValueError(f"{path or 'params'}: expected a dict of "
+                                 f"{sorted(shapes)}, got {type(node).__name__}")
+            missing = sorted(set(shapes) - set(node))
+            extra = sorted(set(node) - set(shapes))
+            if missing or extra:
+                raise ValueError(f"{path or 'params'}: missing leaves "
+                                 f"{missing}, unexpected leaves {extra}")
+            return {k: convert(node[k], shapes[k], f"{path}.{k}".lstrip("."))
+                    for k in sorted(shapes)}
+        arr = np.asarray(node)
+        if tuple(arr.shape) != tuple(shapes):
+            raise ValueError(f"{path}: shape {tuple(arr.shape)} != expected "
+                             f"{tuple(shapes)}")
+        return torch.as_tensor(arr.astype(np.float32), device=device
+                               ).to(model.dtype)
+
+    return convert(tree_of_numpy, model.param_shapes(), "")

@@ -1,0 +1,15 @@
+"""The FedTest round engine of the port (counterpart of
+``repro.core.engine``): one :class:`RoundProgram` owning steps 1-7, the
+``local`` exchange backend, and the :class:`FederatedTrainer` driver."""
+from repro_torch.core.engine.backends import LocalBackend
+from repro_torch.core.engine.driver import (
+    FederatedTrainer, RoundState, resolve_device)
+from repro_torch.core.engine.program import (
+    RoundDraws, RoundProgram, aggregator_defaults, participation_mask,
+    renormalize_over_subset, resolve_strategies)
+
+__all__ = [
+    "FederatedTrainer", "LocalBackend", "RoundDraws", "RoundProgram",
+    "RoundState", "aggregator_defaults", "participation_mask",
+    "renormalize_over_subset", "resolve_device", "resolve_strategies",
+]

@@ -1,0 +1,205 @@
+"""The FedTest round program (Algorithm 1), counterpart of
+``repro/core/engine/program.py``. Step numbering as in DESIGN.md §2:
+
+  1.  broadcast the global model to all N users
+  2.  every user runs ``local_steps`` optimizer steps on its own shard
+  3.  malicious users swap in attacked models              (Sec. IV)
+  3b. non-participants' slots revert to the global model
+  4.  K testers evaluate all N models on their own data
+  6.  the server computes scores / weights
+  7.  score-weighted aggregation -> new global model (``weighted_aggregate``)
+
+Step 5 (lying testers) and the fault, coalition and compression seams
+are not ported yet; ``FedConfig`` refuses them.
+
+Randomness: where the reference derives every draw from
+``round_keys(fold_in(key, round_idx))``, the port takes every draw of a
+round from one :class:`RoundDraws`. Production draws it from a
+``torch.Generator`` on the device (:meth:`RoundProgram.draw_round`); the
+parity tests build it from the reference's key schedule, so both
+packages run a round on the same random numbers.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, NamedTuple, Optional
+
+import torch
+from torch.func import grad_and_value
+
+from repro_torch.config import FedConfig, TrainConfig
+from repro_torch.core.cross_testing import make_eval_fn
+from repro_torch.core.scoring import score_weights
+from repro_torch.data.pipeline import sample_batch_indices
+from repro_torch.optim import make_optimizer
+from repro_torch.strategies.base import AttackContext, RoundContext
+from repro_torch.utils import tree_leaves
+
+
+class RoundDraws(NamedTuple):
+    """Every random number one round consumes."""
+
+    batch_idx: torch.Tensor          # [N, steps, batch] int64 row indices
+    tester_ids: torch.Tensor         # [K] int32
+    part_mask: torch.Tensor          # [N] f32, all ones at participation 1
+    # malicious client -> one standard normal per param leaf (tree_leaves
+    # order); None when the attack draws no noise
+    noise: Optional[Dict[int, List[torch.Tensor]]] = None
+
+
+def participation_mask(gen: torch.Generator, num_users: int,
+                       participation: float) -> torch.Tensor:
+    """Per-round Bernoulli client-sampling mask ``[N]`` (1 = sampled),
+    ``uniform < p`` as ``jax.random.bernoulli`` draws it; everyone when
+    nobody was sampled, so a round is always well defined."""
+    u = torch.rand((num_users,), generator=gen, device=gen.device)
+    bern = (u < participation).float()
+    return torch.where(bern.any(), bern, torch.ones_like(bern))
+
+
+def renormalize_over_subset(weights: torch.Tensor, part_mask: torch.Tensor
+                            ) -> torch.Tensor:
+    """Zero non-participants and renormalise the simplex over the subset
+    (uniform over it if the subset got zero total weight)."""
+    w = weights * part_mask
+    total = w.sum()
+    return torch.where(total > 1e-12, w / torch.clamp(total, min=1e-12),
+                       part_mask / part_mask.sum())
+
+
+def aggregator_defaults(fed: FedConfig) -> Dict[str, Any]:
+    """Engine-derived default kwargs offered to aggregator constructors
+    (each takes only the ones its ``__init__`` accepts)."""
+    return dict(score_power=fed.score_power,
+                score_decay=fed.score_decay,
+                power_warmup_rounds=fed.power_warmup_rounds)
+
+
+def resolve_strategies(fed: FedConfig):
+    """Name -> object resolution for (aggregator, attack, selector)."""
+    from repro_torch.strategies import AGGREGATORS, ATTACKS, SELECTORS
+    agg = AGGREGATORS.build(fed.aggregator, fed.strategy_kwargs("aggregator"),
+                            aggregator_defaults(fed))
+    atk = ATTACKS.build(fed.attack, fed.strategy_kwargs("attack"),
+                        dict(num_malicious=fed.num_malicious,
+                             scale=fed.attack_scale))
+    sel = SELECTORS.build(fed.selector, fed.strategy_kwargs("selector"))
+    return agg, atk, sel
+
+
+class RoundProgram:
+    """Steps 1-7 of the FedTest round, with every strategy, the optimizer
+    and the shared eval function resolved once at construction."""
+
+    def __init__(self, model, fed: FedConfig, train_cfg: TrainConfig):
+        self.model = model
+        self.fed = fed
+        self.train_cfg = train_cfg
+        self.opt = make_optimizer(train_cfg)
+        # one eval fn, shared by cross-testing and the global accuracy
+        self.eval_fn = make_eval_fn(model)
+        self.aggregator, self.attack, self.selector = resolve_strategies(fed)
+        self.malicious_idx = self.attack.malicious_indices(fed.num_users)
+        self.use_participation = fed.participation < 1.0
+
+    # ---------------------------------------------------------- local phase
+    def local_train(self, params, bx, by):
+        """One client's local phase: ``local_steps`` optimizer steps on
+        ``bx [steps, batch, ...]``. The backend runs it for every client
+        at once under ``torch.func.vmap``."""
+        opt_state = self.opt.init(params)
+        step_grad = grad_and_value(self.model.loss, has_aux=True)
+        losses = []
+        for s in range(bx.shape[0]):
+            grads, (loss, _) = step_grad(params, {"images": bx[s],
+                                                  "labels": by[s]})
+            params, opt_state = self.opt.update(grads, opt_state, params)
+            losses.append(loss)
+        return params, torch.stack(losses).mean()
+
+    # ------------------------------------------------------- round plumbing
+    def draw_round(self, gen: torch.Generator, counts: torch.Tensor,
+                   round_idx: int, global_params, scores=None) -> RoundDraws:
+        """The round's random numbers, drawn from ``gen`` on its device.
+        ``scores`` are the ``[N]`` scores entering the round."""
+        fed = self.fed
+        tester_ids = self.selector.select(gen, fed.num_users,
+                                          fed.num_testers, round_idx,
+                                          scores=scores)
+        if self.use_participation:
+            part_mask = participation_mask(gen, fed.num_users,
+                                           fed.participation)
+        else:
+            part_mask = torch.ones((fed.num_users,), dtype=torch.float32,
+                                   device=counts.device)
+        batch_idx = sample_batch_indices(gen, counts, fed.local_steps,
+                                         self.train_cfg.batch_size)
+        noise = None
+        if self.attack.needs_noise:
+            noise = {c: [torch.randn(leaf.shape, generator=gen,
+                                     device=gen.device)
+                         for leaf in tree_leaves(global_params)]
+                     for c in self.malicious_idx}
+        return RoundDraws(batch_idx, tester_ids, part_mask, noise)
+
+    # ------------------------------------------------------------ the round
+    def run(self, backend, global_params, scores, *, bx, by, tx, ty,
+            draws: RoundDraws, round_idx: int, counts):
+        """One FedTest round on ``backend``; returns ``(new_global,
+        new_scores, metrics)``. ``bx, by`` are the round's training
+        batches ``[N, steps, batch, ...]`` and ``tx, ty`` every client's
+        local test shard ``[N, eval_batch, ...]``."""
+        fed = self.fed
+        pmask = draws.part_mask if self.use_participation else None
+        tester_ids = draws.tester_ids
+
+        # 1-2. broadcast + local training
+        models, local_loss = backend.train(self.local_train, global_params,
+                                           bx, by)
+
+        # 3. adversaries act; the AttackContext exposes the scores and
+        # weights entering the round
+        actx = AttackContext(scores=scores.scores,
+                             weights=score_weights(scores),
+                             round_idx=round_idx)
+        models = backend.apply_attack(self.attack, draws.noise, models,
+                                      global_params, actx)
+
+        # 3b. non-participants transmit nothing: their slot holds the
+        # stale global copy
+        if pmask is not None:
+            models = backend.mask_models(models, global_params, pmask)
+
+        # 4. the round's testers measure accuracies on their own data
+        acc = backend.cross_test(self.eval_fn, models, tx, ty, tester_ids)
+
+        # 6. scores, then weights, via the aggregation strategy
+        ctx = RoundContext(acc_matrix=acc, tester_ids=tester_ids,
+                           scores=scores, counts=counts,
+                           round_idx=round_idx, participation=pmask,
+                           report_mask=(pmask[tester_ids.long()]
+                                        if pmask is not None else None))
+        new_scores = self.aggregator.update_scores(ctx)
+        ctx = ctx._replace(scores=new_scores)
+        weights = self.aggregator.weights(ctx)
+        if pmask is not None:
+            weights = renormalize_over_subset(weights, pmask)
+
+        # 7. aggregation -> new global model
+        new_global = backend.weighted_sum(models, weights, global_params)
+
+        # the malicious set comes from the attack strategy, so the metric
+        # stays right for any placement (an empty set reads 0)
+        mal_w = (weights * self.attack.malicious_mask(
+            fed.num_users, weights.device)).sum()
+        metrics = {
+            "local_loss": ((local_loss * pmask).sum()
+                           / torch.clamp(pmask.sum(), min=1)
+                           if pmask is not None else local_loss.mean()),
+            "acc_matrix_mean": acc.mean(),
+            "weights": weights,
+            "malicious_weight": mal_w,
+            "scores": new_scores.scores,
+            "participation_rate": (pmask.mean() if pmask is not None
+                                   else torch.ones((), device=acc.device)),
+        }
+        return new_global, new_scores, metrics

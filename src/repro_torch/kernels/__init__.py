@@ -1,0 +1,16 @@
+"""Hand-written Hopper kernels of the port.
+
+Each kernel replaces one Pallas TPU kernel of ``repro.kernels`` and lives
+in its own subpackage:
+
+* ``ops.py`` — the wrapper: checks device, dtype, shape and contiguity,
+  launches the CUDA kernel for a CUDA tensor (counting launches in
+  ``<op>.launches``) and runs the plain version for a CPU tensor;
+* ``ref.py`` — the plain PyTorch version of the same function.
+
+CUDA sources are in ``csrc/``, built by :mod:`repro_torch.kernels.build`.
+
+Kernels:
+* ``weighted_aggregate`` — the FedTest server's score-weighted N-way
+  model reduction (CUDA C++, ``csrc/weighted_aggregate.cu``).
+"""

@@ -1,0 +1,12 @@
+"""The paper's classifiers in PyTorch (the cnn/mlp side of
+``repro.models``).
+
+Params are plain nested dicts of tensors in the reference's names,
+layouts and dtypes (conv weights HWIO, dense weights ``[in, out]``); each
+family's ``nn.Module`` holds no weights of its own and is driven through
+``torch.func.functional_call``, so one module serves a single model and a
+``vmap`` over a client-stacked param tree alike.
+"""
+from repro_torch.models.model import Model, build_model
+
+__all__ = ["Model", "build_model"]

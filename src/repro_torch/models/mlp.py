@@ -1,0 +1,42 @@
+"""The paper's MNIST fully-connected classifier (family ``mlp``)."""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from repro_torch.models.cnn import _Slot
+from repro_torch.models.common import dense_init
+
+
+def mlp_param_shapes(cfg) -> Dict:
+    dims = ((cfg.image_size * cfg.image_size * max(cfg.image_channels, 1),)
+            + tuple(cfg.mlp_hidden) + (cfg.num_classes,))
+    return {f"fc{i}": {"w": (dims[i], dims[i + 1]), "b": (dims[i + 1],)}
+            for i in range(len(dims) - 1)}
+
+
+def init_mlp(cfg, gen: torch.Generator, dtype=torch.float32) -> Dict:
+    return {name: {"w": dense_init(gen, s["w"], dtype=dtype),
+                   "b": torch.zeros(s["b"], dtype=dtype, device=gen.device)}
+            for name, s in mlp_param_shapes(cfg).items()}
+
+
+class MLP(nn.Module):
+    """images [B, H, W, C] (or [B, D]) -> logits [B, num_classes]."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        self.num_hidden = len(cfg.mlp_hidden)
+        for i in range(self.num_hidden + 1):
+            self.add_module(f"fc{i}", _Slot())
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        x = images.reshape(images.shape[0], -1)
+        for i in range(self.num_hidden):
+            layer = getattr(self, f"fc{i}")
+            x = F.relu(x @ layer.w + layer.b)
+        last = getattr(self, f"fc{self.num_hidden}")
+        return x @ last.w + last.b

@@ -1,0 +1,274 @@
+"""Strategy registry machinery + the round-context protocol (counterpart
+of ``repro/strategies/base.py``).
+
+Everything a strategy could vary — how aggregation weights are produced,
+how malicious clients corrupt their models, how testers are selected —
+is resolved to a plain Python object before the round runs. Three
+registries live in :mod:`repro_torch.strategies`:
+
+* ``AGGREGATORS`` — :class:`Aggregator`: ``weights(ctx) -> [N]`` simplex.
+* ``ATTACKS``     — :class:`Attack`: corrupt malicious clients' models.
+* ``SELECTORS``   — :class:`Selector`: pick the K tester ids per round.
+
+Randomness differs from the reference in one way: the port's round takes
+every random number from its :class:`RoundDraws`
+(``repro_torch.core.engine.program``), so the ``key`` a strategy is
+handed is a ``torch.Generator`` (selectors) or the draws themselves
+(attacks), never a JAX key.
+"""
+from __future__ import annotations
+
+import inspect
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.utils import tree_leaves, tree_map
+
+
+class AttackContext(NamedTuple):
+    """Per-round view handed to attack strategies (step 3): the scores
+    entering the round and the aggregation weights they imply."""
+
+    scores: torch.Tensor               # [N] moving-average scores (pre-round)
+    weights: torch.Tensor              # [N] implied aggregation weights
+    round_idx: int
+
+
+class RoundContext(NamedTuple):
+    """Per-round view handed to aggregation strategies."""
+
+    acc_matrix: torch.Tensor           # [K, N] tester-measured accuracies
+    tester_ids: torch.Tensor           # [K] ids of this round's testers
+    scores: Any                        # ScoreState (moving-average scores)
+    counts: torch.Tensor               # [N] per-client sample counts
+    round_idx: int
+    # [N] 0/1 participation mask when FedConfig.participation < 1; None
+    # means everyone participates
+    participation: Optional[torch.Tensor] = None
+    # [K] 0/1 mask over the rows of ``acc_matrix``: which of this round's
+    # testers reported (``participation[tester_ids]``), None under full
+    # participation
+    report_mask: Optional[torch.Tensor] = None
+
+    @property
+    def num_users(self) -> int:
+        return self.counts.shape[0]
+
+
+class Registry:
+    """Name -> strategy-class registry with decorator registration.
+
+    ``not_ported`` maps names the reference registers and the port does
+    not yet to the ``ROADMAP.md`` item that ports them, so asking for one
+    fails with that pointer instead of a bare unknown-name error.
+    """
+
+    def __init__(self, kind: str, not_ported: Optional[Dict[str, str]] = None):
+        self.kind = kind
+        self.not_ported = dict(not_ported or {})
+        self._entries: Dict[str, Callable] = {}
+
+    def register(self, name: str, entry: Callable) -> Callable:
+        if name in self._entries:
+            raise ValueError(
+                f"{self.kind} {name!r} is already registered "
+                f"({self._entries[name]!r})")
+        self._entries[name] = entry
+        return entry
+
+    def names(self) -> Tuple[str, ...]:
+        return tuple(sorted(self._entries))
+
+    def get(self, name: str) -> Callable:
+        if name in self._entries:
+            return self._entries[name]
+        if name in self.not_ported:
+            raise KeyError(
+                f"{self.kind} {name!r} is not ported yet (ROADMAP.md "
+                f"queue 1 {self.not_ported[name]}); ported "
+                f"{self.kind}s: {list(self.names())}")
+        raise KeyError(f"unknown {self.kind} {name!r}; registered "
+                       f"{self.kind}s: {list(self.names())}")
+
+    def build(self, name: str, kwargs: Optional[Dict[str, Any]] = None,
+              defaults: Optional[Dict[str, Any]] = None) -> Any:
+        """Instantiate ``name`` with ``kwargs`` (strict) + ``defaults``
+        (engine-derived, dropped when the strategy does not take them)."""
+        cls = self.get(name)
+        kwargs = dict(kwargs or {})
+        params = inspect.signature(cls).parameters
+        has_var_kw = any(p.kind is inspect.Parameter.VAR_KEYWORD
+                         for p in params.values())
+        merged = dict(kwargs)
+        for k, v in (defaults or {}).items():
+            if k not in merged and (has_var_kw or k in params):
+                merged[k] = v
+        if not has_var_kw:
+            bad = [k for k in kwargs if k not in params]
+            if bad:
+                raise TypeError(
+                    f"{self.kind} {name!r} got unexpected kwargs {bad}; "
+                    f"accepted: {sorted(p for p in params if p != 'self')}")
+        return cls(**merged)
+
+
+def register(registry: Registry, name: str) -> Callable:
+    """``@register(AGGREGATORS, "my_agg")`` class decorator."""
+    def deco(entry: Callable) -> Callable:
+        registry.register(name, entry)
+        entry.name = name
+        return entry
+    return deco
+
+
+class Aggregator:
+    """Turns a :class:`RoundContext` into a ``[N]`` simplex of aggregation
+    weights, which step 7 reduces with the ``weighted_aggregate`` kernel.
+
+    ``update_scores(ctx)`` lets stateful schemes (FedTest's moving
+    average) evolve the ``ScoreState``; the engine calls it first and
+    hands the updated scores back via ``ctx.scores`` before ``weights``.
+    """
+
+    name = "base"
+
+    def update_scores(self, ctx: RoundContext):
+        return ctx.scores
+
+    def weights(self, ctx: RoundContext) -> torch.Tensor:
+        raise NotImplementedError
+
+    def __repr__(self) -> str:
+        return f"<aggregator {self.name}>"
+
+
+def normalize_placement(size: int, placement: str,
+                        indices: Optional[Tuple[int, ...]]
+                        ) -> Tuple[int, str, Optional[Tuple[int, ...]]]:
+    """Validate and normalise a (size, placement, indices) ctor triple.
+    Explicit ``indices`` win and define the size."""
+    if indices is not None:
+        indices = tuple(int(i) for i in indices)
+        size = len(indices)
+    if placement not in ("last", "first", "spread"):
+        raise ValueError(
+            f"placement must be 'last'|'first'|'spread', got "
+            f"{placement!r}")
+    return int(size), placement, indices
+
+
+def resolve_placement(num_users: int, size: int, placement: str = "last",
+                      indices: Optional[Tuple[int, ...]] = None
+                      ) -> Tuple[int, ...]:
+    """Static client-index set for a named placement."""
+    if indices is not None:
+        return tuple(int(i) for i in indices)
+    if size == 0:
+        return ()
+    if placement == "first":
+        return tuple(range(size))
+    if placement == "spread":
+        stride = max(1, num_users // size)
+        return tuple(sorted(set(
+            min(i * stride, num_users - 1) for i in range(size))))
+    return tuple(range(num_users - size, num_users))
+
+
+def placement_mask(num_users: int, indices: Tuple[int, ...],
+                   device=None) -> torch.Tensor:
+    """0/1 float mask [N] for a static client-index set."""
+    mask = torch.zeros((num_users,), dtype=torch.float32, device=device)
+    mask[list(indices)] = 1.0
+    return mask
+
+
+class Attack:
+    """Corrupts the malicious clients' models after local training.
+
+    The malicious index set is static Python data, so the corruption and
+    the ``malicious_weight`` metric stay right for any placement.
+    ``needs_noise`` asks the round for one standard-normal tensor per
+    (malicious client, param leaf) in its :class:`RoundDraws`.
+    """
+
+    name = "base"
+    needs_noise = False
+
+    def __init__(self, *, num_malicious: int = 0, scale: float = 1.0,
+                 placement: str = "last",
+                 indices: Optional[Tuple[int, ...]] = None):
+        self.num_malicious, self.placement, self._indices = \
+            normalize_placement(num_malicious, placement, indices)
+        self.scale = float(scale)
+
+    def malicious_indices(self, num_users: int) -> Tuple[int, ...]:
+        """Static malicious id set (evaluation-side knowledge only)."""
+        return resolve_placement(num_users, self.num_malicious,
+                                 self.placement, self._indices)
+
+    def malicious_mask(self, num_users: int, device=None) -> torch.Tensor:
+        return placement_mask(num_users, self.malicious_indices(num_users),
+                              device)
+
+    def corrupt(self, key, trained, global_params, ctx=None,
+                client_idx=None):
+        """Produce one malicious client's model (tree -> tree).
+
+        ``key`` is this client's noise — a list of standard-normal
+        tensors in ``tree_leaves`` order — for attacks that set
+        ``needs_noise``, else None. ``ctx`` is the round's
+        :class:`AttackContext` and ``client_idx`` the client's index.
+        """
+        raise NotImplementedError
+
+    def apply(self, noise, stacked_params, global_params, ctx=None):
+        """Swap corrupted models into the malicious slots of the stack.
+        ``noise`` maps a malicious client index to its draws."""
+        num_users = tree_leaves(stacked_params)[0].shape[0]
+        idx = self.malicious_indices(num_users)
+        if not idx:
+            return stacked_params
+        bad = [self.corrupt(noise[c] if noise is not None else None,
+                            tree_map(lambda a, _c=c: a[_c], stacked_params),
+                            global_params, ctx, c)
+               for c in idx]
+
+        def merge(stack, *bad_leaves):
+            out = stack.clone()
+            for c, bl in zip(idx, bad_leaves):
+                out[c] = bl
+            return out
+
+        return tree_map(merge, stacked_params, *bad)
+
+    def __repr__(self) -> str:
+        return (f"<attack {self.name} m={self.num_malicious} "
+                f"placement={self.placement}>")
+
+
+class Selector:
+    """Picks the K tester ids for a round. ``key`` is the round's
+    ``torch.Generator``; ``scores`` (keyword-only) carries the ``[N]``
+    moving-average scores entering the round."""
+
+    name = "base"
+
+    def select(self, key, num_users: int, num_testers: int,
+               round_idx, *, scores=None) -> torch.Tensor:
+        raise NotImplementedError
+
+    def __repr__(self) -> str:
+        return f"<selector {self.name}>"
+
+
+AGGREGATORS = Registry("aggregator", not_ported={
+    "accuracy_based": "item 6", "krum": "item 6", "trimmed_mean": "item 6",
+    "median": "item 6", "trimmed_mean_coord": "item 12",
+    "median_coord": "item 12"})
+ATTACKS = Registry("attack", not_ported={
+    "label_flip_proxy": "item 6", "adaptive_scale": "item 6",
+    "scaled_collusion": "item 11"})
+SELECTORS = Registry("selector", not_ported={
+    "round_robin": "item 6", "coverage": "item 6",
+    "score_weighted": "item 6", "fixed": "item 6"})
