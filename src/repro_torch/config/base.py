@@ -77,7 +77,6 @@ _NOT_PORTED = (
     ("coalition_size", 0, "item 11 (adversary surface)"),
     ("lying_testers", 0, "item 11 (adversary surface)"),
     ("fault", "none", "item 10 (durability and faults)"),
-    ("compressor", "identity", "item 13 (compressed exchange)"),
     ("cohort", 0, "item 14 (population tier)"),
 )
 
@@ -85,8 +84,10 @@ _NOT_PORTED = (
 @dataclasses.dataclass(frozen=True)
 class FedConfig:
     """The paper's knobs (Sec. III, Algorithm 1), a subset of the
-    reference's fields. ``aggregator`` / ``attack`` / ``selector`` are
-    names in the port's registries (:mod:`repro_torch.strategies`)."""
+    reference's fields. ``aggregator`` / ``attack`` / ``selector`` /
+    ``compressor`` are names in the port's registries
+    (:mod:`repro_torch.strategies`); each ``*_kwargs`` mapping goes to
+    the strategy's constructor, stored as a sorted tuple."""
 
     num_users: int = 20
     num_testers: int = 5
@@ -109,6 +110,7 @@ class FedConfig:
     lying_testers: int = 0
     participation: float = 1.0
     compressor: str = "identity"
+    compressor_kwargs: Any = ()
     cohort: int = 0
     seed: int = 0
 
@@ -122,16 +124,20 @@ class FedConfig:
                      f"{field}={getattr(self, field)!r} is not ported yet "
                      f"(ROADMAP.md queue 1 {item}); the port runs "
                      f"{field}={default!r}")
-        for f in ("aggregator_kwargs", "attack_kwargs", "selector_kwargs"):
+        for f in ("aggregator_kwargs", "attack_kwargs", "selector_kwargs",
+                  "compressor_kwargs"):
             object.__setattr__(self, f, _freeze_kwargs(getattr(self, f)))
         # lazy import: repro_torch.strategies never imports the config
-        from repro_torch.strategies import AGGREGATORS, ATTACKS, SELECTORS
+        from repro_torch.strategies import (
+            AGGREGATORS, ATTACKS, COMPRESSORS, SELECTORS)
         AGGREGATORS.get(self.aggregator)
         ATTACKS.get(self.attack)
         SELECTORS.get(self.selector)
+        COMPRESSORS.get(self.compressor)
 
     def strategy_kwargs(self, field: str) -> dict:
-        """``aggregator`` | ``attack`` | ``selector`` kwargs as a dict."""
+        """``aggregator`` | ``attack`` | ``selector`` | ``compressor``
+        kwargs as a dict."""
         return dict(getattr(self, field + "_kwargs"))
 
 

@@ -1,8 +1,10 @@
-"""Weights converter: the reference's params -> the port's.
+"""State converter: the reference's params and error-feedback buffer ->
+the port's.
 
 Both packages keep the same tree (names, layouts, dtypes: conv weights
 HWIO, dense weights ``[in, out]``), so conversion is a checked,
-name-for-name copy of the leaves onto a device.
+name-for-name copy of the leaves onto a device, and the flat ``[N, D]``
+update layout is the same in both.
 """
 from __future__ import annotations
 
@@ -10,6 +12,8 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+
+from repro_torch.utils import flat_update_dim
 
 
 def params_from_reference(tree_of_numpy: Dict[str, Any], device, *,
@@ -37,3 +41,18 @@ def params_from_reference(tree_of_numpy: Dict[str, Any], device, *,
                                ).to(model.dtype)
 
     return convert(tree_of_numpy, model.param_shapes(), "")
+
+
+def comp_state_from_reference(comp_state, device, *, model,
+                              num_users: int) -> torch.Tensor:
+    """The reference's ``[N, D]`` error-feedback buffer (numpy) -> an f32
+    tensor on ``device``. Refuses a shape other than ``[num_users,
+    flat_update_dim(model)]`` and a non-finite entry."""
+    arr = np.asarray(comp_state)
+    want = (num_users, flat_update_dim(model))
+    if tuple(arr.shape) != want:
+        raise ValueError(f"comp_state shape {tuple(arr.shape)} != expected "
+                         f"{want} (num_users, flat update width)")
+    if not np.isfinite(arr).all():
+        raise ValueError("comp_state holds non-finite entries")
+    return torch.as_tensor(arr.astype(np.float32), device=device)

@@ -5,11 +5,13 @@ from repro_torch.core.engine.backends import LocalBackend
 from repro_torch.core.engine.driver import (
     FederatedTrainer, RoundState, resolve_device)
 from repro_torch.core.engine.program import (
-    RoundDraws, RoundProgram, aggregator_defaults, participation_mask,
-    renormalize_over_subset, resolve_strategies)
+    RoundDraws, RoundProgram, aggregator_defaults, flat_update_dim,
+    init_comp_state, participation_mask, renormalize_over_subset,
+    resolve_compressor, resolve_strategies)
 
 __all__ = [
     "FederatedTrainer", "LocalBackend", "RoundDraws", "RoundProgram",
-    "RoundState", "aggregator_defaults", "participation_mask",
-    "renormalize_over_subset", "resolve_device", "resolve_strategies",
+    "RoundState", "aggregator_defaults", "flat_update_dim",
+    "init_comp_state", "participation_mask", "renormalize_over_subset",
+    "resolve_compressor", "resolve_device", "resolve_strategies",
 ]

@@ -3,8 +3,11 @@
 Only the ``local`` backend is ported: the N client models are a stacked
 ``[N, ...]`` param tree on one device, local training and cross-testing
 run under ``torch.func.vmap`` over the client axis, and aggregation is
-the ``weighted_aggregate`` kernel, one launch per param leaf. The ring
-and all-gather pod backends are ROADMAP.md queue 1 item 15.
+the ``weighted_aggregate`` kernel, one launch per param leaf. The
+backend also builds the ``[N, D]`` f32 update matrix and runs the
+compressed exchange (encode with error feedback, decode, and the
+weighted sum in update space). The ring and all-gather pod backends are
+ROADMAP.md queue 1 item 15.
 """
 from __future__ import annotations
 
@@ -13,7 +16,16 @@ from torch.func import vmap
 
 from repro_torch.core.cross_testing import cross_test_batched
 from repro_torch.kernels.weighted_aggregate import aggregate_pytree
-from repro_torch.utils import tree_map
+from repro_torch.utils import tree_add_vector, tree_leaves, tree_map
+
+
+def _flatten_updates(stacked, global_params) -> torch.Tensor:
+    """[N, D] float32 matrix of flattened client updates (``tree_leaves``
+    order, each leaf raveled)."""
+    parts = tree_leaves(tree_map(
+        lambda s, g: (s.float() - g.float()[None]).reshape(s.shape[0], -1),
+        stacked, global_params))
+    return torch.cat(parts, dim=1)
 
 
 class LocalBackend:
@@ -48,6 +60,33 @@ class LocalBackend:
         ids = tester_ids.long()
         return cross_test_batched(eval_fn, models, tx[ids], ty[ids])
 
+    def updates(self, models, global_params):
+        """The [N, D] float32 flattened update matrix."""
+        return _flatten_updates(models, global_params)
+
     def weighted_sum(self, models, weights, global_params):
         """Step 7: sum_c w_c * model_c -> new global."""
         return aggregate_pytree(models, weights)
+
+    def compress_exchange(self, compressor, models, global_params,
+                          comp_state, part_mask):
+        """Step 3c: encode every client's flat update with error feedback
+        (all rows at once, each with one row's arithmetic) and rebuild
+        the models from the decoded updates. Returns ``(models, payloads,
+        decoded, new_comp_state)``."""
+        updates = _flatten_updates(models, global_params)       # [N, D]
+        payloads, new_state = compressor.encode(comp_state, updates)
+        decoded = compressor.decode(payloads)                   # [N, D]
+        if part_mask is not None:
+            # a masked client transmitted nothing: its error buffer must
+            # not be flushed and its decoded update is exactly 0, so its
+            # rebuilt slot is the stale global model
+            keep = (part_mask > 0)[:, None]
+            new_state = torch.where(keep, new_state, comp_state)
+            decoded = torch.where(keep, decoded, 0.0)
+        models = tree_add_vector(global_params, decoded)
+        return models, payloads, decoded, new_state
+
+    def compressed_sum(self, compressor, payloads, decoded, weights):
+        """Step 7, compressed: ``sum_c w_c * decoded_c`` -> flat [D] f32."""
+        return compressor.aggregate(payloads, decoded, weights)

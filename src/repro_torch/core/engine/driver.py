@@ -17,7 +17,8 @@ import torch
 
 from repro_torch.config import FedConfig, TrainConfig
 from repro_torch.core.engine.backends import LocalBackend
-from repro_torch.core.engine.program import RoundDraws, RoundProgram
+from repro_torch.core.engine.program import (
+    RoundDraws, RoundProgram, init_comp_state)
 from repro_torch.core.scoring import ScoreState, init_scores
 from repro_torch.data.pipeline import FederatedDataset, gather_client_batches
 
@@ -41,6 +42,9 @@ class RoundState(NamedTuple):
     scores: ScoreState
     round_idx: int
     gen: torch.Generator            # the run's randomness, on the device
+    # [N, D] error-feedback buffer of the compressed exchange; None when
+    # the exchange is uncompressed
+    comp_state: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass
@@ -69,7 +73,9 @@ class FederatedTrainer:
         return RoundState(global_params=self.model.init(gen),
                           scores=init_scores(self.fed.num_users,
                                              self.device),
-                          round_idx=0, gen=gen)
+                          round_idx=0, gen=gen,
+                          comp_state=init_comp_state(self.fed, self.model,
+                                                     self.device))
 
     # ------------------------------------------------------------------- API
     def run_round(self, state: RoundState, data: FederatedDataset,
@@ -84,12 +90,14 @@ class FederatedTrainer:
         # the legacy fixed eval prefix: every tester's first eval_batch rows
         tx = data.test.xs[:, :self.eval_batch]
         ty = data.test.ys[:, :self.eval_batch]
-        new_global, new_scores, metrics = self.program.run(
+        new_global, new_scores, new_comp, metrics = self.program.run(
             self.backend, state.global_params, state.scores,
             bx=bx, by=by, tx=tx, ty=ty, draws=draws,
-            round_idx=state.round_idx, counts=data.train.counts)
+            round_idx=state.round_idx, counts=data.train.counts,
+            comp_state=state.comp_state)
         return state._replace(global_params=new_global, scores=new_scores,
-                              round_idx=state.round_idx + 1), metrics
+                              round_idx=state.round_idx + 1,
+                              comp_state=new_comp), metrics
 
     def global_accuracy(self, state: RoundState, data: FederatedDataset
                         ) -> float:

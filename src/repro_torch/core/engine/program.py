@@ -5,12 +5,18 @@
   2.  every user runs ``local_steps`` optimizer steps on its own shard
   3.  malicious users swap in attacked models              (Sec. IV)
   3b. non-participants' slots revert to the global model
+  3c. compressed exchange: each client's update is encoded with error
+      feedback, and every later step sees the decoded models
   4.  K testers evaluate all N models on their own data
   6.  the server computes scores / weights
-  7.  score-weighted aggregation -> new global model (``weighted_aggregate``)
+  7.  aggregation -> new global model, one of three ways:
+      the score-weighted sum of the models (``weighted_aggregate``); a
+      per-coordinate combine of the ``[N, D]`` update matrix
+      (``robust_combine``); or, compressed, a weighted sum of the decoded
+      updates (``dequant_aggregate`` for int8)
 
-Step 5 (lying testers) and the fault, coalition and compression seams
-are not ported yet; ``FedConfig`` refuses them.
+Step 5 (lying testers) and the fault and coalition seams are not ported
+yet; ``FedConfig`` refuses them.
 
 Randomness: where the reference derives every draw from
 ``round_keys(fold_in(key, round_idx))``, the port takes every draw of a
@@ -31,8 +37,9 @@ from repro_torch.core.cross_testing import make_eval_fn
 from repro_torch.core.scoring import score_weights
 from repro_torch.data.pipeline import sample_batch_indices
 from repro_torch.optim import make_optimizer
-from repro_torch.strategies.base import AttackContext, RoundContext
-from repro_torch.utils import tree_leaves
+from repro_torch.strategies.base import (
+    AttackContext, RoundContext, uses_combine)
+from repro_torch.utils import flat_update_dim, tree_add_vector, tree_leaves
 
 
 class RoundDraws(NamedTuple):
@@ -71,7 +78,8 @@ def aggregator_defaults(fed: FedConfig) -> Dict[str, Any]:
     (each takes only the ones its ``__init__`` accepts)."""
     return dict(score_power=fed.score_power,
                 score_decay=fed.score_decay,
-                power_warmup_rounds=fed.power_warmup_rounds)
+                power_warmup_rounds=fed.power_warmup_rounds,
+                num_byzantine=fed.num_malicious)
 
 
 def resolve_strategies(fed: FedConfig):
@@ -84,6 +92,23 @@ def resolve_strategies(fed: FedConfig):
                              scale=fed.attack_scale))
     sel = SELECTORS.build(fed.selector, fed.strategy_kwargs("selector"))
     return agg, atk, sel
+
+
+def resolve_compressor(fed: FedConfig, model):
+    """Name -> object resolution for ``fed.compressor``, with the flat
+    update width ``dim`` injected."""
+    from repro_torch.strategies import COMPRESSORS
+    return COMPRESSORS.build(fed.compressor,
+                             fed.strategy_kwargs("compressor"),
+                             dict(dim=flat_update_dim(model)))
+
+
+def init_comp_state(fed: FedConfig, model, device=None):
+    """Initial ``[N, D]`` error-feedback buffer; ``None`` when the
+    exchange is uncompressed."""
+    if fed.compressor == "identity":
+        return None
+    return resolve_compressor(fed, model).init_state(fed.num_users, device)
 
 
 class RoundProgram:
@@ -100,6 +125,16 @@ class RoundProgram:
         self.aggregator, self.attack, self.selector = resolve_strategies(fed)
         self.malicious_idx = self.attack.malicious_indices(fed.num_users)
         self.use_participation = fed.participation < 1.0
+        # a non-None combine hook routes step 7 through the per-coordinate
+        # combine; the update matrix is built when either path reads it
+        self.uses_combine = uses_combine(self.aggregator)
+        self.needs_updates = (self.aggregator.needs_updates
+                              or self.uses_combine)
+        # 'identity' switches the compression seam off: the default round
+        # stays the uncompressed one (g + (m - g) in f32 is not bitwise m)
+        self.use_compression = fed.compressor != "identity"
+        self.compressor = (resolve_compressor(fed, model)
+                           if self.use_compression else None)
 
     # ---------------------------------------------------------- local phase
     def local_train(self, params, bx, by):
@@ -143,11 +178,14 @@ class RoundProgram:
 
     # ------------------------------------------------------------ the round
     def run(self, backend, global_params, scores, *, bx, by, tx, ty,
-            draws: RoundDraws, round_idx: int, counts):
+            draws: RoundDraws, round_idx: int, counts, comp_state=None):
         """One FedTest round on ``backend``; returns ``(new_global,
-        new_scores, metrics)``. ``bx, by`` are the round's training
-        batches ``[N, steps, batch, ...]`` and ``tx, ty`` every client's
-        local test shard ``[N, eval_batch, ...]``."""
+        new_scores, new_comp_state, metrics)``. ``bx, by`` are the round's
+        training batches ``[N, steps, batch, ...]`` and ``tx, ty`` every
+        client's local test shard ``[N, eval_batch, ...]``.
+        ``comp_state`` is the ``[N, D]`` error-feedback buffer of a
+        compressed exchange, ``None`` (and ``new_comp_state`` too)
+        otherwise."""
         fed = self.fed
         pmask = draws.part_mask if self.use_participation else None
         tester_ids = draws.tester_ids
@@ -169,13 +207,30 @@ class RoundProgram:
         if pmask is not None:
             models = backend.mask_models(models, global_params, pmask)
 
+        # 3c. compressed exchange: each participating client encodes its
+        # flat update, with error feedback banked in comp_state, and every
+        # later step sees only the decoded models. A masked client
+        # transmits nothing: its buffer stays and its decoded update is 0.
+        new_comp_state = comp_state
+        comp_payloads = comp_decoded = None
+        if self.use_compression:
+            models, comp_payloads, comp_decoded, new_comp_state = (
+                backend.compress_exchange(self.compressor, models,
+                                          global_params, comp_state,
+                                          pmask))
+
         # 4. the round's testers measure accuracies on their own data
         acc = backend.cross_test(self.eval_fn, models, tx, ty, tester_ids)
 
-        # 6. scores, then weights, via the aggregation strategy
+        # 6. scores, then weights, via the aggregation strategy; the
+        # [N, D] update matrix is built at most once a round, for
+        # ctx.updates and the combine path alike
+        updates = (backend.updates(models, global_params)
+                   if self.needs_updates else None)
         ctx = RoundContext(acc_matrix=acc, tester_ids=tester_ids,
                            scores=scores, counts=counts,
-                           round_idx=round_idx, participation=pmask,
+                           round_idx=round_idx, updates=updates,
+                           participation=pmask,
                            report_mask=(pmask[tester_ids.long()]
                                         if pmask is not None else None))
         new_scores = self.aggregator.update_scores(ctx)
@@ -184,8 +239,21 @@ class RoundProgram:
         if pmask is not None:
             weights = renormalize_over_subset(weights, pmask)
 
-        # 7. aggregation -> new global model
-        new_global = backend.weighted_sum(models, weights, global_params)
+        # 7. aggregation -> new global model: the per-coordinate combine
+        # of the update matrix; compressed, the weighted sum of the
+        # decoded updates taken from the wire representation; else the
+        # weighted sum of the models
+        if self.uses_combine:
+            new_global = tree_add_vector(
+                global_params, self.aggregator.combine(ctx, updates))
+        elif self.use_compression:
+            new_global = tree_add_vector(
+                global_params,
+                backend.compressed_sum(self.compressor, comp_payloads,
+                                       comp_decoded, weights))
+        else:
+            new_global = backend.weighted_sum(models, weights,
+                                              global_params)
 
         # the malicious set comes from the attack strategy, so the metric
         # stays right for any placement (an empty set reads 0)
@@ -202,4 +270,4 @@ class RoundProgram:
             "participation_rate": (pmask.mean() if pmask is not None
                                    else torch.ones((), device=acc.device)),
         }
-        return new_global, new_scores, metrics
+        return new_global, new_scores, new_comp_state, metrics

@@ -13,4 +13,9 @@ CUDA sources are in ``csrc/``, built by :mod:`repro_torch.kernels.build`.
 Kernels:
 * ``weighted_aggregate`` — the FedTest server's score-weighted N-way
   model reduction (CUDA C++, ``csrc/weighted_aggregate.cu``).
+* ``robust_combine`` — the per-coordinate trimmed mean / median of the
+  ``*_coord`` aggregators, a sorting network per column (CUDA C++,
+  ``csrc/robust_combine.cu``).
+* ``dequant_aggregate`` — the int8 compressor's fused dequantise and
+  weighted sum (CUDA C++, ``csrc/dequant_aggregate.cu``).
 """

@@ -7,8 +7,11 @@ Runs the FedTest round on the card by default:
       --malicious 3 --rounds 60
 
 ``--device cpu`` runs on the CPU; ``--device cuda`` without a card
-raises. The flags are the main-path subset of ``repro.launch.train``,
-with its defaults.
+raises. The flags are the subset of ``repro.launch.train`` that the
+port runs, with its defaults: the main path, plus the update-space
+aggregators (``--aggregator trimmed_mean_coord --agg-kwargs
+'{"score_gate": 0.5}'``) and the compressed exchange (``--compressor
+int8``).
 """
 from __future__ import annotations
 
@@ -24,7 +27,8 @@ from repro_torch.core.engine import resolve_device
 from repro_torch.data import (
     CIFAR_LIKE, MNIST_LIKE, make_federated_image_dataset)
 from repro_torch.models import build_model
-from repro_torch.strategies import AGGREGATORS, ATTACKS, SELECTORS
+from repro_torch.strategies import (
+    AGGREGATORS, ATTACKS, COMPRESSORS, SELECTORS)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -40,6 +44,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--attack-scale", type=float, default=1.0)
     ap.add_argument("--aggregator", default="fedtest",
                     choices=list(AGGREGATORS.names()))
+    ap.add_argument("--agg-kwargs", default=None, type=json.loads,
+                    help="JSON kwargs for the aggregator ctor, e.g. "
+                         '\'{"trim_fraction": 0.2, "score_gate": 0.5}\'')
     ap.add_argument("--selector", default="rotating",
                     choices=list(SELECTORS.names()))
     ap.add_argument("--rounds", type=int, default=40)
@@ -51,6 +58,14 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--samples", type=int, default=20000)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--participation", type=float, default=1.0)
+    ap.add_argument("--compressor", default="identity",
+                    choices=list(COMPRESSORS.names()),
+                    help="compressed update exchange: clients send encoded "
+                         "updates with per-client error feedback")
+    ap.add_argument("--compressor-kwargs", default=None, type=json.loads,
+                    help="JSON kwargs for the compressor ctor, e.g. "
+                         '\'{"k": 0.05}\' (topk) or \'{"chunk": 256}\' '
+                         "(int8)")
     ap.add_argument("--device", default="cuda",
                     help="torch device of the run; 'cuda' raises when no "
                          "card is present")
@@ -67,9 +82,13 @@ def build(args: argparse.Namespace):
     fed = FedConfig(num_users=args.users, num_testers=args.testers,
                     num_malicious=args.malicious, rounds=args.rounds,
                     local_steps=args.local_steps,
-                    aggregator=args.aggregator, attack=args.attack,
+                    aggregator=args.aggregator,
+                    aggregator_kwargs=args.agg_kwargs, attack=args.attack,
                     attack_scale=args.attack_scale, selector=args.selector,
-                    participation=args.participation, seed=args.seed)
+                    participation=args.participation,
+                    compressor=args.compressor,
+                    compressor_kwargs=args.compressor_kwargs,
+                    seed=args.seed)
     tc = TrainConfig(optimizer=args.optimizer, lr=args.lr,
                      schedule="constant", batch_size=args.batch,
                      grad_clip=0.0)
@@ -90,7 +109,9 @@ def main(argv=None):
     history["wall_s"] = time.time() - t0
     history["config"] = {"arch": cfg.name, "dataset": args.dataset,
                          "aggregator": fed.aggregator, "attack": fed.attack,
-                         "selector": fed.selector, "users": fed.num_users,
+                         "selector": fed.selector,
+                         "compressor": fed.compressor,
+                         "users": fed.num_users,
                          "testers": fed.num_testers,
                          "malicious": fed.num_malicious,
                          "device": str(trainer.device)}

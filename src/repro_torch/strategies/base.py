@@ -4,9 +4,10 @@ of ``repro/strategies/base.py``).
 Everything a strategy could vary — how aggregation weights are produced,
 how malicious clients corrupt their models, how testers are selected —
 is resolved to a plain Python object before the round runs. Three
-registries live in :mod:`repro_torch.strategies`:
+registries live here (the compressors' in ``strategies/compressors.py``):
 
-* ``AGGREGATORS`` — :class:`Aggregator`: ``weights(ctx) -> [N]`` simplex.
+* ``AGGREGATORS`` — :class:`Aggregator`: ``weights(ctx) -> [N]`` simplex,
+  or ``combine(ctx, updates) -> [D]``.
 * ``ATTACKS``     — :class:`Attack`: corrupt malicious clients' models.
 * ``SELECTORS``   — :class:`Selector`: pick the K tester ids per round.
 
@@ -43,6 +44,10 @@ class RoundContext(NamedTuple):
     scores: Any                        # ScoreState (moving-average scores)
     counts: torch.Tensor               # [N] per-client sample counts
     round_idx: int
+    # [N, D] float32 flattened client updates (trained - global), present
+    # only when the aggregator sets ``needs_updates`` or defines
+    # ``combine`` (the round builds the matrix at most once)
+    updates: Optional[torch.Tensor] = None
     # [N] 0/1 participation mask when FedConfig.participation < 1; None
     # means everyone participates
     participation: Optional[torch.Tensor] = None
@@ -123,15 +128,29 @@ def register(registry: Registry, name: str) -> Callable:
 
 
 class Aggregator:
-    """Turns a :class:`RoundContext` into a ``[N]`` simplex of aggregation
-    weights, which step 7 reduces with the ``weighted_aggregate`` kernel.
+    """Turns a :class:`RoundContext` into an aggregated model update.
 
+    * **weights path** (default): ``weights(ctx)`` returns a ``[N]``
+      simplex, which step 7 reduces with the ``weighted_aggregate``
+      kernel.
+    * **combine path**: an aggregator that is no weighted sum (the
+      per-coordinate trimmed mean and median) defines ``combine(ctx,
+      updates)``, taking the ``[N, D]`` f32 update matrix to the ``[D]``
+      combined update, applied as ``global + unflatten(combined)``. Its
+      ``weights`` then serves reporting only (the ``malicious_weight``
+      metric). ``combine`` left ``None`` keeps the weights path.
+
+    ``needs_updates`` asks the round for ``ctx.updates``.
     ``update_scores(ctx)`` lets stateful schemes (FedTest's moving
     average) evolve the ``ScoreState``; the engine calls it first and
-    hands the updated scores back via ``ctx.scores`` before ``weights``.
+    hands the updated scores back via ``ctx.scores`` before ``weights``
+    and ``combine``.
     """
 
     name = "base"
+    needs_updates = False
+    # optional hook: (ctx, updates [N, D]) -> [D] combined update
+    combine = None
 
     def update_scores(self, ctx: RoundContext):
         return ctx.scores
@@ -141,6 +160,12 @@ class Aggregator:
 
     def __repr__(self) -> str:
         return f"<aggregator {self.name}>"
+
+
+def uses_combine(aggregator: Aggregator) -> bool:
+    """True when ``aggregator`` routes through the combine path: the one
+    place the ``combine is None`` convention is read."""
+    return getattr(aggregator, "combine", None) is not None
 
 
 def normalize_placement(size: int, placement: str,
@@ -262,10 +287,7 @@ class Selector:
         return f"<selector {self.name}>"
 
 
-AGGREGATORS = Registry("aggregator", not_ported={
-    "accuracy_based": "item 6", "krum": "item 6", "trimmed_mean": "item 6",
-    "median": "item 6", "trimmed_mean_coord": "item 12",
-    "median_coord": "item 12"})
+AGGREGATORS = Registry("aggregator", not_ported={"accuracy_based": "item 6"})
 ATTACKS = Registry("attack", not_ported={
     "label_flip_proxy": "item 6", "adaptive_scale": "item 6",
     "scaled_collusion": "item 11"})

@@ -8,6 +8,7 @@ follow.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, Dict, List
 
 import torch
@@ -36,6 +37,36 @@ def tree_leaves(tree: Tree) -> List[Any]:
             out.extend(tree_leaves(tree[k]))
         return out
     return [tree]
+
+
+def flat_update_dim(model) -> int:
+    """Width D of the flattened update vector: the params of ``model``,
+    in the layout of ``_flatten_updates`` (``tree_leaves`` order, each
+    leaf raveled)."""
+    return sum(math.prod(shape) or 1
+               for shape in tree_leaves(model.param_shapes()))
+
+
+def tree_add_vector(tree: Tree, vec: torch.Tensor) -> Tree:
+    """``tree + unflatten(vec)``: scatter a flat ``[D]`` update onto the
+    leaves (``tree_leaves`` order, each leaf flattened — the layout of the
+    round's ``[N, D]`` update matrix), add in f32 and cast back to each
+    leaf's dtype. A ``[N, D]`` ``vec`` gives a tree stacked on a leading
+    ``[N]`` axis, one row per client."""
+    width = sum(leaf.numel() for leaf in tree_leaves(tree))
+    if vec.shape[-1] != width:
+        raise ValueError(f"vector width {vec.shape[-1]} != the tree's "
+                         f"{width} params")
+    off = 0
+
+    def add(leaf):
+        nonlocal off
+        n = leaf.numel()
+        part = vec[..., off:off + n].reshape(vec.shape[:-1] + leaf.shape)
+        off += n
+        return (leaf.float() + part).to(leaf.dtype)
+
+    return tree_map(add, tree)
 
 
 def flat_names(tree: Tree, prefix: str = "") -> Dict[str, torch.Tensor]:

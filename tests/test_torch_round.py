@@ -6,6 +6,9 @@
 * one full round with the reference's random draws replayed through
   ``RoundDraws``: the [K, N] accuracy counts exact, weights, scores and
   the new global params at rtol=1e-4, atol=1e-5 (conv summation order);
+  the same for the update-space paths (a coordinate-wise combine, Krum,
+  a compressed exchange), entering with non-zero scores and error
+  feedback, and the new error feedback too;
 * the port's own dynamics with ``torch.Generator`` draws;
 * the port imports neither ``jax`` nor ``repro``, and never falls back
   to the CPU on its own.
@@ -41,16 +44,19 @@ from repro.data import make_federated_image_dataset as jmake_data  # noqa: E402
 from repro.models import build_model as jbuild_model  # noqa: E402
 from repro_torch.config import FedConfig, TrainConfig  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.convert import params_from_reference  # noqa: E402
+from repro_torch.convert import (  # noqa: E402
+    comp_state_from_reference, params_from_reference)
 from repro_torch.core import (  # noqa: E402
     FederatedTrainer, RoundState, cross_test_batched, cross_test_reference,
     make_eval_fn)
 from repro_torch.core import scoring  # noqa: E402
 from repro_torch.core.attacks import (  # noqa: E402
     _random_weights, _scaled_update, _sign_flip)
-from repro_torch.core.engine import RoundDraws  # noqa: E402
+from repro_torch.core.engine import RoundDraws, flat_update_dim  # noqa: E402
 from repro_torch.core.selection import pick_testers  # noqa: E402
 from repro_torch.data import MNIST_LIKE, make_federated_image_dataset  # noqa: E402
+from repro_torch.kernels.dequant_aggregate import dequant_aggregate  # noqa: E402
+from repro_torch.kernels.robust_combine import robust_combine  # noqa: E402
 from repro_torch.kernels.weighted_aggregate import weighted_aggregate  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.utils import tree_leaves  # noqa: E402
@@ -173,6 +179,51 @@ def test_consensus_median_matches_reference(k):
         np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("n,part", [
+    (5, None), (6, None),
+    (6, [1, 0, 1, 1, 1, 0]),            # an even subset: two middles
+    (6, [1, 1, 0, 1, 1, 1]),            # an odd subset
+])
+def test_update_space_aggregators_match_reference(n, part):
+    """The weights-path aggregators over one ``[N, D]`` update matrix with
+    a far outlier row: the trimmed mean's consensus (``jnp.median``, or
+    ``jnp.nanmedian`` over the sampled subset) and the weights of Krum,
+    the trimmed mean and Weiszfeld."""
+    from repro.strategies import AGGREGATORS as JAGG
+    from repro.strategies.base import RoundContext as JCtx
+    from repro_torch.strategies import AGGREGATORS
+    from repro_torch.strategies.base import RoundContext
+    rng = np.random.default_rng(n)
+    u = rng.standard_normal((n, 300)).astype(np.float32)
+    u[1] = 40.0 * rng.standard_normal(300)
+    counts = np.full((n,), 10, np.int32)
+    jpart = None if part is None else jnp.asarray(part, jnp.float32)
+    tpart = None if part is None else _t(part, torch.float32)
+    if part is None:
+        want = np.asarray(jnp.median(jnp.asarray(u), axis=0))
+    else:
+        want = np.asarray(jnp.nanmedian(
+            jnp.where(jpart[:, None] > 0, jnp.asarray(u), jnp.nan), axis=0))
+    got = scoring._consensus_median(_t(u), tpart).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    jctx = JCtx(acc_matrix=None, tester_ids=None, scores=None,
+                counts=jnp.asarray(counts), round_idx=jnp.asarray(0),
+                key=None, updates=jnp.asarray(u), participation=jpart)
+    tctx = RoundContext(acc_matrix=None, tester_ids=None, scores=None,
+                        counts=_t(counts), round_idx=0, updates=_t(u),
+                        participation=tpart)
+    for name, kw in (("krum", {"num_byzantine": 1}),
+                     ("trimmed_mean", {"trim_fraction": 0.2}),
+                     ("trimmed_mean", {"trim_fraction": 0.5}),
+                     ("median", {})):
+        jw = np.asarray(JAGG.build(name, kw, {}).weights(jctx))
+        tw = AGGREGATORS.build(name, kw, {}).weights(tctx).numpy()
+        np.testing.assert_allclose(tw, jw, rtol=1e-5, atol=1e-7,
+                                   err_msg=f"{name} {kw}")
+        if part is not None:
+            assert (tw[np.asarray(part) == 0] == 0).all()
+
+
 def _tree(seed):
     rng = np.random.default_rng(seed)
     return {"conv0": {"b": rng.standard_normal(4).astype(np.float32),
@@ -220,6 +271,34 @@ def test_update_attacks_match_reference(name):
                                    atol=1e-6)
 
 
+def test_update_matrix_and_tree_add_vector_match_reference():
+    """``_flatten_updates`` gives the reference's [N, D] layout, and
+    ``tree_add_vector`` scatters a [D] row (or every row of [N, D]) back
+    as the reference does."""
+    from repro.core.engine.backends import _flatten_updates as j_flatten
+    from repro.utils.pytree import tree_add_vector as j_add
+    from repro_torch.core.engine.backends import _flatten_updates
+    from repro_torch.utils import tree_add_vector
+    g = _tree(4)
+    stacked = {k: {n: np.stack([a + i for i in range(3)]) for n, a in v.items()}
+               for k, v in _tree(5).items()}
+    got = _flatten_updates(_ttree(stacked), _ttree(g))
+    want = np.asarray(j_flatten(_jtree(stacked), _jtree(g)))
+    assert got.shape == want.shape == (3, 4 + 72 + 5 + 30)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+    rows = tree_add_vector(_ttree(g), got)
+    for i in range(3):
+        one = tree_add_vector(_ttree(g), got[i])
+        ref = j_add(_jtree(g), jnp.asarray(want[i]))
+        for b_, o, r in zip(tree_leaves(rows), tree_leaves(one),
+                            jax.tree_util.tree_leaves(ref)):
+            assert torch.equal(b_[i], o)
+            np.testing.assert_allclose(o.numpy(), np.asarray(r), rtol=1e-6,
+                                       atol=1e-6)
+    with pytest.raises(ValueError, match="width"):
+        tree_add_vector(_ttree(g), got[0, 1:])
+
+
 # ---------------------------------------------------- one round, replayed
 class _Recorder:
     """Wraps a backend's cross_test to keep the [K, N] accuracy matrix
@@ -240,6 +319,10 @@ class _Recorder:
 
 
 N, K, STEPS, BATCH, EVAL = 6, 2, 3, 16, 64
+# samples clients 0, 2, 3 and 4 in the replayed round: an even subset,
+# so its median averages the two middle values, and a trim of 0.5 keeps
+# three of the four
+PARTICIPATION = 0.81
 
 
 def _client_noise(attack_key, c, leaves):
@@ -250,17 +333,22 @@ def _client_noise(attack_key, c, leaves):
             for k, leaf in zip(ks, leaves)]
 
 
-@pytest.fixture(scope="module")
-def replayed_round():
+def _replay(aggregator="fedtest", aggregator_kwargs=(),
+            compressor="identity", participation=1.0, entering_state=False):
     """One round of the quickstart-sized config in both packages, the
-    port replaying the reference's draws."""
+    port replaying the reference's draws. ``entering_state`` starts the
+    round from non-zero scores (the malicious client's lowest) and, with
+    a compressor, a non-zero error-feedback buffer, both made with numpy
+    and handed to both packages."""
     kw = dict(num_samples=3000, global_test=400, seed=0)
     jdata = jmake_data(J_MNIST, N, **kw)
     tdata = make_federated_image_dataset(MNIST_LIKE, N, device="cpu", **kw)
     jmodel = jbuild_model(jget_config("fedtest-cnn-mnist").replace(**SMALL))
     tmodel = build_model(get_config("fedtest-cnn-mnist").replace(**SMALL))
     fed = dict(num_users=N, num_testers=K, num_malicious=1,
-               local_steps=STEPS, attack="random_weights")
+               local_steps=STEPS, attack="random_weights",
+               aggregator=aggregator, aggregator_kwargs=aggregator_kwargs,
+               compressor=compressor, participation=participation)
     tc = dict(optimizer="sgd", lr=0.1, schedule="constant",
               batch_size=BATCH, grad_clip=0.0)
     jtrainer = JTrainer(jmodel, JFedConfig(**fed),
@@ -268,14 +356,29 @@ def replayed_round():
     ttrainer = FederatedTrainer(tmodel, FedConfig(**fed), TrainConfig(**tc),
                                 eval_batch=EVAL, device="cpu")
 
+    jstate = jax.jit(jtrainer.init)(jax.random.PRNGKey(0))
+    comp_state = None
+    scores = scoring.init_scores(N, "cpu")
+    if entering_state:
+        rng = np.random.default_rng(11)
+        s = rng.uniform(0.4, 0.9, size=(N,)).astype(np.float32)
+        s[-1] = 0.05
+        trust = np.ones((N,), np.float32)
+        jstate = jstate._replace(scores=jscoring.ScoreState(
+            jnp.asarray(s), jnp.asarray(3, jnp.int32), jnp.asarray(trust)))
+        scores = scoring.ScoreState(_t(s), torch.tensor(3, dtype=torch.int32),
+                                    _t(trust))
+        if compressor != "identity":
+            comp_state = (rng.standard_normal(
+                (N, flat_update_dim(tmodel))) * 1e-3).astype(np.float32)
+
     # the reference's round 0 with its key schedule, plus the draws it
     # consumed, in one compiled program
-    jstate = jax.jit(jtrainer.init)(jax.random.PRNGKey(0))
     rows = jnp.arange(N)[:, None, None]
     malicious = jtrainer.attack.malicious_indices(N)
 
     @jax.jit
-    def jround(state):
+    def jround(state, comp):
         keys = round_keys(jax.random.fold_in(state.key, state.round_idx))
         tester_ids, part_mask = jtrainer.program.select_round(
             keys, state.round_idx, scores=state.scores.scores)
@@ -289,19 +392,21 @@ def replayed_round():
             by=jdata.train.ys[rows, batch_idx],
             tx=jdata.test.xs[:, :EVAL], ty=jdata.test.ys[:, :EVAL],
             tester_ids=tester_ids, part_mask=part_mask, keys=keys,
-            round_idx=state.round_idx, counts=jdata.train.counts)
+            round_idx=state.round_idx, counts=jdata.train.counts,
+            comp_state=comp)
         leaves = jax.tree_util.tree_leaves(state.global_params)
         noise = {c: _client_noise(keys.attack, c, leaves) for c in malicious}
         return (out, rec.acc, rec.models, tester_ids, part_mask,
                 batch_idx, noise, jselect(keys.test, N, K, 0))
 
-    ((jglobal, jscores, _, jmetrics), jacc, jmodels, tester_ids, part_mask,
-     batch_idx, noise, selected) = jround(jstate)
+    ((jglobal, jscores, jcomp, jmetrics), jacc, jmodels, tester_ids,
+     part_mask, batch_idx, noise, selected) = jround(
+        jstate, None if comp_state is None else jnp.asarray(comp_state))
     # the selector's ids are select_testers' on the round's test key
     np.testing.assert_array_equal(np.asarray(tester_ids),
                                   np.asarray(selected))
 
-    # the same draws, in the port's form
+    # the same draws and entering state, in the port's form
     noise = {c: [_t(z) for z in zs] for c, zs in noise.items()}
     draws = RoundDraws(batch_idx=_t(batch_idx).long(),
                        tester_ids=_t(tester_ids), part_mask=_t(part_mask),
@@ -309,15 +414,50 @@ def replayed_round():
     tparams = params_from_reference(
         jax.tree_util.tree_map(np.asarray, jstate.global_params), "cpu",
         model=tmodel)
-    tstate = RoundState(global_params=tparams,
-                        scores=scoring.init_scores(N, "cpu"), round_idx=0,
-                        gen=torch.Generator())
+    tstate = RoundState(
+        global_params=tparams, scores=scores, round_idx=0,
+        gen=torch.Generator(),
+        comp_state=(None if comp_state is None else comp_state_from_reference(
+            comp_state, "cpu", model=tmodel, num_users=N)))
     ttrainer.backend = _Recorder(ttrainer.backend)
     tnew, tmetrics = ttrainer.run_round(tstate, tdata, draws=draws)
     return dict(jmodel=jmodel, jacc=jacc, jmodels=jmodels, jdata=jdata,
                 tester_ids=np.asarray(tester_ids), jglobal=jglobal,
-                jscores=jscores, jmetrics=jmetrics,
-                tbackend=ttrainer.backend, tnew=tnew, tmetrics=tmetrics)
+                jscores=jscores, jcomp=jcomp, jmetrics=jmetrics,
+                tbackend=ttrainer.backend, tnew=tnew, tmetrics=tmetrics,
+                part_mask=np.asarray(part_mask),
+                gated=("score_gate" in dict(aggregator_kwargs)))
+
+
+@pytest.fixture(scope="module")
+def replayed_round():
+    """The paper's round (fedtest, uncompressed) from the reference's
+    init."""
+    return _replay()
+
+
+# the update-space paths: a coordinate-wise combine (gated and not), the
+# weights-path aggregators over the update matrix (Krum, the client-level
+# trimmed mean, Weiszfeld), the trimmed mean under client sampling, and
+# two compressed exchanges
+CASES = {
+    "trimmed_mean_coord": dict(aggregator="trimmed_mean_coord",
+                               aggregator_kwargs={"score_gate": 0.5}),
+    "median_coord": dict(aggregator="median_coord"),
+    "krum": dict(aggregator="krum"),
+    "trimmed_mean": dict(aggregator="trimmed_mean"),
+    "trimmed_mean_sampled": dict(aggregator="trimmed_mean",
+                                 aggregator_kwargs={"trim_fraction": 0.5},
+                                 participation=PARTICIPATION),
+    "median": dict(aggregator="median"),
+    "fedtest_int8": dict(compressor="int8"),
+    "fedtest_topk": dict(compressor="topk"),
+}
+
+
+@pytest.fixture(scope="module", params=list(CASES))
+def replayed_case(request):
+    return _replay(entering_state=True, **CASES[request.param])
 
 
 def _near_ties(jmodel, models, tx, tester_ids, margin=1e-4):
@@ -333,8 +473,7 @@ def _near_ties(jmodel, models, tx, tester_ids, margin=1e-4):
     return out
 
 
-def test_one_round_accuracy_counts_match_exactly(replayed_round):
-    r = replayed_round
+def _assert_counts_match(r):
     want = np.rint(np.asarray(r["jacc"]) * EVAL).astype(np.int64)
     got = np.rint(r["tbackend"].acc.numpy() * EVAL).astype(np.int64)
     assert want.shape == got.shape == (K, N)
@@ -344,8 +483,7 @@ def test_one_round_accuracy_counts_match_exactly(replayed_round):
     assert (np.abs(got - want) <= ties).all(), (got, want, ties)
 
 
-def test_one_round_weights_scores_and_global_match(replayed_round):
-    r = replayed_round
+def _assert_round_matches(r):
     np.testing.assert_allclose(r["tmetrics"]["weights"].numpy(),
                                np.asarray(r["jmetrics"]["weights"]),
                                rtol=RTOL, atol=ATOL)
@@ -362,6 +500,40 @@ def test_one_round_weights_scores_and_global_match(replayed_round):
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=RTOL,
                                    atol=ATOL)
+    if r["jcomp"] is None:
+        assert r["tnew"].comp_state is None
+    else:
+        np.testing.assert_allclose(r["tnew"].comp_state.numpy(),
+                                   np.asarray(r["jcomp"]), rtol=RTOL,
+                                   atol=ATOL)
+
+
+def test_one_round_accuracy_counts_match_exactly(replayed_round):
+    _assert_counts_match(replayed_round)
+
+
+def test_one_round_weights_scores_and_global_match(replayed_round):
+    _assert_round_matches(replayed_round)
+
+
+def test_update_space_round_accuracy_counts_match_exactly(replayed_case):
+    _assert_counts_match(replayed_case)
+
+
+def test_update_space_round_matches_reference(replayed_case):
+    """Weights, scores, the new global params and the new error feedback
+    at the file's tolerances; the round entered with non-zero scores, so
+    the score gate engages."""
+    _assert_round_matches(replayed_case)
+    part = replayed_case["part_mask"]
+    if part.min() == 0.0:
+        # the sampled case: four of six clients, one of them trimmed
+        np.testing.assert_array_equal(part, [1, 0, 1, 1, 1, 0])
+        w = replayed_case["tmetrics"]["weights"].numpy()
+        assert ((w > 0) <= (part > 0)).all() and (w > 0).sum() == 3
+    if replayed_case["gated"]:
+        # the malicious client entered with the lowest score: gated out
+        assert float(replayed_case["tmetrics"]["malicious_weight"]) == 0.0
 
 
 # ------------------------------------------------------ the port's dynamics
@@ -465,6 +637,26 @@ def test_cli_trains_the_mlp_on_the_cpu(tmp_path):
     assert all(np.isfinite(hist["global_accuracy"]))
 
 
+@pytest.mark.parametrize("flags,op", [
+    (["--aggregator", "trimmed_mean_coord", "--agg-kwargs",
+      '{"trim_fraction": 0.2, "score_gate": 0.5}'], robust_combine),
+    (["--compressor", "int8"], dequant_aggregate),
+])
+def test_cli_runs_an_update_space_path_on_the_cpu(tmp_path, flags, op):
+    """Paths B and C of ``chip_smoke.py``, small, on the CPU: the plain
+    versions run and no kernel is launched."""
+    from repro_torch.launch.train import main
+    before = (op.launches, weighted_aggregate.launches)
+    main(["--device", "cpu", "--arch", "fedtest-mlp-mnist", "--dataset",
+          "mnist_like", "--users", "4", "--testers", "2", "--malicious", "1",
+          "--rounds", "2", "--samples", "600", "--local-steps", "2",
+          "--batch", "8", "--out", str(tmp_path)] + flags)
+    hist = json.loads(next(tmp_path.glob("*.json")).read_text())
+    assert hist["round"] == [1, 2]
+    assert all(np.isfinite(hist["global_accuracy"]))
+    assert (op.launches, weighted_aggregate.launches) == before
+
+
 # ------------------------------------------------------- guards and config
 def _port_fed_config(ref):
     """A reference FedConfig as the port's. A field the port lacks must
@@ -485,13 +677,35 @@ def test_reference_fedconfig_maps_over_field_for_field():
     port_defaults = dataclasses.asdict(FedConfig())
     assert port_defaults == {k: ref_defaults[k] for k in port_defaults}
     ref = JFedConfig(num_users=20, num_testers=5, num_malicious=3,
-                     participation=0.5, attack="sign_flip")
+                     participation=0.5, attack="sign_flip",
+                     aggregator="trimmed_mean_coord",
+                     aggregator_kwargs={"score_gate": 0.5},
+                     compressor="int8", compressor_kwargs={"chunk": 64})
     port = dataclasses.asdict(_port_fed_config(ref))
     assert port == {k: v for k, v in dataclasses.asdict(ref).items()
                     if k in port}
+    assert port["compressor_kwargs"] == (("chunk", 64),)
     with pytest.raises(ValueError, match="item 11"):
         _port_fed_config(JFedConfig(coalition="mutual_boost",
                                     coalition_size=2))
+
+
+def test_comp_state_from_reference_checks_width_and_values():
+    model = build_model(get_config("fedtest-cnn-mnist").replace(**SMALL))
+    dim = flat_update_dim(model)
+    buf = np.random.default_rng(0).standard_normal((3, dim)).astype(
+        np.float32)
+    got = comp_state_from_reference(buf, "cpu", model=model, num_users=3)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), buf)
+    with pytest.raises(ValueError, match="flat update width"):
+        comp_state_from_reference(buf[:, 1:], "cpu", model=model,
+                                  num_users=3)
+    with pytest.raises(ValueError, match="flat update width"):
+        comp_state_from_reference(buf, "cpu", model=model, num_users=4)
+    buf[1, 2] = np.nan
+    with pytest.raises(ValueError, match="non-finite"):
+        comp_state_from_reference(buf, "cpu", model=model, num_users=3)
 
 
 @pytest.mark.parametrize("kw", [dict(server_test_fraction=0.2),
@@ -515,10 +729,10 @@ def test_default_device_raises_without_a_card(small_setup, monkeypatch):
     (dict(coalition="mutual_boost", coalition_size=1), "item 11"),
     (dict(lying_testers=1), "item 11"),
     (dict(fault="dropout"), "item 10"),
-    (dict(compressor="int8"), "item 13"),
+    (dict(compressor="no_such_thing"), "unknown compressor"),
     (dict(cohort=3, participation=0.5), "item 14"),
-    (dict(aggregator="krum"), "item 6"),
-    (dict(aggregator="median_coord"), "item 12"),
+    (dict(aggregator="accuracy_based"), "item 6"),
+    (dict(attack="adaptive_scale"), "item 6"),
     (dict(selector="coverage"), "item 6"),
     (dict(aggregator="no_such_thing"), "unknown aggregator"),
 ])
