@@ -18,6 +18,9 @@ toolkit (``nvcc``), and exits non-zero on the first phase that fails.
    captured in a CUDA graph and replayed, so no host work sits between
    them) and eagerly (back-to-back calls from Python, host dispatch
    included). One JSON line ``{"kernels": [...]}`` carries them.
+   The attention kernels are timed at the serve path's shapes and at one
+   long shape each, beside ``F.scaled_dot_product_attention`` as the
+   library yardstick (timed here only; the port never calls it).
 4. Three paths, three rounds each, of the paper's FedTest round at the
    full width of ``fedtest-cnn`` (188,810 params; 20 users, 5 testers, 3
    ``random_weights`` attackers), built by ``repro_torch.launch.train``'s
@@ -28,6 +31,19 @@ toolkit (``nvcc``), and exits non-zero on the first phase that fails.
    sum to 1, the launch counts must show each path went through its
    kernel and no other, and the last step-7 output must equal the plain
    version's on the same inputs.
+5. Serve: ``qwen2-0.5b`` at full width in bf16 (494,032,768 params drawn
+   from a seed) through ``repro_torch.launch.serve``'s code path: a
+   prompt batch of 8 x 512 tokens prefilled (``flash_attention``, one
+   launch a layer), then 31 greedy decode steps (``decode_attention``
+   and its merge kernel, one launch each a layer a step). Prefill ms,
+   decode ms per token and tokens/s are printed beside the card; the
+   launch counts must be 24 and 744 (and 744 merges) and no other
+   kernel; every step's logits must be finite; the last layer's last
+   prefill and decode attention calls must equal the plain versions on
+   their own inputs; decode step 1's logits must match a full forward
+   over the prompt and that token (teacher forcing). One prefill and one
+   decode step are also captured in a CUDA graph and replayed, which
+   gives the device's own time beside the host clock's.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -61,18 +77,38 @@ PATHS = (
      "robust_combine"),
     ("C", MAIN_PATH_ARGS + ["--compressor", "int8"], "dequant_aggregate"),
 )
-KERNELS = ("weighted_aggregate", "robust_combine", "dequant_aggregate")
+KERNELS = ("weighted_aggregate", "robust_combine", "dequant_aggregate",
+           "flash_attention", "decode_attention")
 SOURCES = {k: f"src/repro_torch/kernels/csrc/{k}.cu" for k in KERNELS}
 REPLACES = {
     "weighted_aggregate": "src/repro/kernels/weighted_aggregate/kernel.py:33",
     "robust_combine": "src/repro/kernels/robust_combine/kernel.py:94",
     "dequant_aggregate": "src/repro/kernels/dequant_aggregate/kernel.py:52",
+    "flash_attention": "src/repro/kernels/flash_attention/kernel.py:120",
+    "decode_attention": "src/repro/kernels/decode_attention/kernel.py:102",
 }
+# the serve phase: qwen2-0.5b at full width, batch 8, a 512-token prompt
+# and 32 generated tokens (the first from the prefill), greedy
+SERVE_ARGS = ["--device", "cuda", "--arch", "qwen2-0.5b", "--batch", "8",
+              "--prompt-len", "512", "--gen", "32", "--temperature", "0",
+              "--seed", "0"]
+# bf16 checks: one bf16 ulp (2**-7 relative) on top of a small absolute
+# slack for values near 0; f32: the softmax sums in another order
+ATTN_TOL = {"float32": dict(rtol=1e-5, atol=1e-5),
+            "bfloat16": dict(rtol=8e-3, atol=1e-3)}
+# teacher forcing in bf16: decode step 1's logits may differ from the full
+# forward's by at most these fractions of the logits' spread (std), in the
+# largest and in the mean |diff|. The two
+# paths round their bf16 activations at other places (GEMMs of 8 rows
+# against 8 x 513, the decode against the flash kernel) through 24
+# residual layers; bf16 keeps 8 bits, about 0.4 % of a value.
+SERVE_TF_TOL, SERVE_TF_MEAN_TOL = 0.15, 0.02
 
-# published peaks by card (NVIDIA data sheets, dense): HBM bytes/s and
-# fp32 FLOP/s outside the tensor cores
-PEAKS = {"H100 PCIe": (2.0e12, 51e12), "H100 NVL": (3.9e12, 60e12),
-         "H100": (3.35e12, 67e12), "H200": (4.8e12, 67e12)}
+# published peaks by card (NVIDIA data sheets, dense): HBM bytes/s, fp32
+# FLOP/s outside the tensor cores, bf16 FLOP/s on the tensor cores
+PEAKS = {"H100 PCIe": (2.0e12, 51e12, 756e12),
+         "H100 NVL": (3.9e12, 60e12, 835e12),
+         "H100": (3.35e12, 67e12, 989e12), "H200": (4.8e12, 67e12, 989e12)}
 
 
 def check(cond, what) -> None:
@@ -97,13 +133,23 @@ def card_peaks(name: str):
 
 
 def ops():
-    """The three kernel ops, by name."""
+    """The kernel ops, by name."""
+    from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.dequant_aggregate import dequant_aggregate
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.robust_combine import robust_combine
     from repro_torch.kernels.weighted_aggregate import weighted_aggregate
     return {"weighted_aggregate": weighted_aggregate,
             "robust_combine": robust_combine,
-            "dequant_aggregate": dequant_aggregate}
+            "dequant_aggregate": dequant_aggregate,
+            "flash_attention": flash_attention,
+            "decode_attention": decode_attention}
+
+
+def reset_counts(kernel_ops) -> None:
+    for op in kernel_ops.values():
+        op.launches = 0
+    kernel_ops["decode_attention"].merge_launches = 0
 
 
 def _events(torch, run, reps: int) -> float:
@@ -168,7 +214,11 @@ def phase_build():
     """Build every kernel, one nvcc each, all started together; print
     nvcc's register and spill report. robust_combine has one kernel per
     C = 1..64 (and a 4-column one for C <= 32): its report is summed up,
-    and the C=20 kernels the paths use must not spill."""
+    and the C=20 kernels the paths use must not spill. Every instance of
+    the attention kernels is printed (flash: D in {32, 64, 128} x {f32,
+    bf16}; decode: the same x the query-group bucket {1, 2, 4, 8}, and a
+    merge kernel per D and dtype); the bf16 D=64 ones the serve path
+    runs must not spill."""
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
@@ -187,15 +237,19 @@ def phase_build():
                 print(f"  {fn}: {regs} registers, {stack} bytes stack, "
                       f"{stores} bytes spill stores, {loads} bytes spill "
                       f"loads")
+        spills = [(fn, int(s), int(l)) for fn, _, s, l, _ in report
+                  if int(s) or int(l)]
         if name == "robust_combine":
-            spills = [(fn, int(s), int(l)) for fn, _, s, l, _ in report
-                      if int(s) or int(l)]
             c20 = [fn for fn, *_ in report if "ILi20E" in fn]
             check(len(c20) == 2 and not any(fn in c20 for fn, *_ in spills),
                   f"robust_combine at C=20 spills: {spills}")
-            print(f"  robust_combine: {len(spills)} of {len(report)} "
-                  f"kernels spill; max registers "
-                  f"{max(int(r[-1]) for r in report)}")
+        if name in ("flash_attention", "decode_attention"):
+            served = [fn for fn, *_ in report
+                      if "13__nv_bfloat16Li64E" in fn]
+            check(served and not any(fn in served for fn, *_ in spills),
+                  f"{name}'s bf16 D=64 kernels spill: {spills}")
+        print(f"  {name}: {len(spills)} of {len(report)} kernels spill; "
+              f"max registers {max(int(r[-1]) for r in report)}")
 
 
 def _shifted(torch, x, offset_bytes: int):
@@ -346,12 +400,145 @@ def check_dequant_aggregate(torch):
           f"refused")
 
 
+def _attn_inputs(torch, gen, shape_q, shape_kv, dtype):
+    def rnd(shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    return rnd(shape_q), rnd(shape_kv), rnd(shape_kv)
+
+
+def _hold(torch, got, want, dtype, worst, key="out"):
+    torch.testing.assert_close(got.float(), want.float(),
+                               **ATTN_TOL[str(dtype).split(".")[-1]])
+    k = f"{str(dtype).split('.')[-1]} {key}"
+    worst[k] = max(worst.get(k, 0.0), float((got.float() - want.float())
+                                             .abs().max()))
+
+
+# query heads over KV heads: groups 1, 2, 7 (qwen2-0.5b's) and 8
+ATTN_HEADS = ((4, 4), (4, 2), (14, 2), (8, 1))
+
+
+def check_flash_attention(torch):
+    """The flash kernel against its plain version in f32 and bf16: groups
+    1, 2, 7, 8; head_dim 32, 64, 128; causal and not; window None, 8,
+    100; S = T = 64 (whole tiles), S = T = 77 (ragged) and S=40 inside
+    T=131 at q_offset 91 (ragged, S < T)."""
+    from repro_torch.kernels.flash_attention import (
+        attention_ref, flash_attention)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    calls, worst = 0, {}
+    launches = flash_attention.launches
+    for dtype in (torch.float32, torch.bfloat16):
+        for Hq, Hkv in ATTN_HEADS:
+            for D in (32, 64, 128):
+                for S, T, off in ((64, 64, 0), (77, 77, 0), (40, 131, 91)):
+                    q, k, v = _attn_inputs(torch, gen, (2, S, Hq, D),
+                                           (2, T, Hkv, D), dtype)
+                    for causal in (True, False):
+                        for window in (None, 8, 100):
+                            kw = dict(causal=causal, sliding_window=window,
+                                      q_offset=off)
+                            got = flash_attention(q, k, v, **kw)
+                            want = attention_ref(q, k, v, **kw)
+                            torch.cuda.synchronize()
+                            calls += 1
+                            check(got.dtype == dtype
+                                  and got.shape == q.shape,
+                                  f"output {got.dtype} {tuple(got.shape)}")
+                            _hold(torch, got, want, dtype, worst)
+    check(flash_attention.launches == launches + calls,
+          f"{flash_attention.launches - launches} launches for {calls} "
+          f"calls")
+    q, k, v = _attn_inputs(torch, gen, (2, 8, 4, 64), (2, 8, 2, 64),
+                           torch.bfloat16)
+    must_raise(ValueError, lambda: flash_attention(
+        q.transpose(1, 2).contiguous().transpose(1, 2), k, v),
+        "a non-contiguous q")
+    must_raise(ValueError, lambda: flash_attention(
+        q[..., :48].contiguous(), k[..., :48].contiguous(),
+        v[..., :48].contiguous()), "head_dim 48")
+    must_raise(TypeError, lambda: flash_attention(q.half(), k.half(),
+                                                  v.half()), "float16")
+    check(flash_attention.launches == launches + calls,
+          "a refused input launches nothing")
+    print(f"flash_attention == plain version in {calls} cases (|err| <= "
+          f"{ATTN_TOL['float32']['atol']} + {ATTN_TOL['float32']['rtol']}"
+          f"|plain| in f32, <= {ATTN_TOL['bfloat16']['atol']} + "
+          f"{ATTN_TOL['bfloat16']['rtol']}|plain| in bf16); max |err| "
+          f"{worst}; a non-contiguous q, head_dim 48 and float16 are "
+          f"refused without a launch")
+
+
+def check_decode_attention(torch):
+    """The split-K decode kernel and its merge against the plain version,
+    out and lse, in f32 and bf16: groups 1, 2, 7, 8; head_dim 32, 64,
+    128; window None, 8, 100; caches of 64 keys (one split), 545 (the
+    serve capacity, 9 splits of 61) and 1000; lengths 1, 2 (shorter than
+    a split), 63 (across a split's edge) and the whole cache."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, decode_attention_ref)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    calls, worst = 0, {}
+    launches = decode_attention.launches
+    merges = decode_attention.merge_launches
+    for dtype in (torch.float32, torch.bfloat16):
+        for Hq, Hkv in ATTN_HEADS:
+            for D in (32, 64, 128):
+                for T in (64, 545, 1000):
+                    q, k, v = _attn_inputs(torch, gen, (4, Hq, D),
+                                           (4, T, Hkv, D), dtype)
+                    lengths = torch.tensor([1, 2, 63, T], dtype=torch.int32,
+                                           device="cuda")
+                    for window in (None, 8, 100):
+                        out, lse = decode_attention(q, k, v, lengths,
+                                                    window=window)
+                        want_out, want_lse = decode_attention_ref(
+                            q, k, v, lengths, window=window)
+                        torch.cuda.synchronize()
+                        calls += 1
+                        check(out.dtype == dtype and out.shape == q.shape
+                              and lse.dtype == torch.float32
+                              and lse.shape == (4, Hq),
+                              f"outputs {out.dtype} {tuple(out.shape)}, "
+                              f"{lse.dtype} {tuple(lse.shape)}")
+                        _hold(torch, out, want_out, dtype, worst)
+                        _hold(torch, lse, want_lse, torch.float32, worst,
+                              key=f"lse ({str(dtype).split('.')[-1]} in)")
+    check(decode_attention.launches == launches + calls
+          and decode_attention.merge_launches == merges + calls,
+          f"{decode_attention.launches - launches} launches and "
+          f"{decode_attention.merge_launches - merges} merges for {calls} "
+          f"calls")
+    q, k, v = _attn_inputs(torch, gen, (2, 4, 64), (2, 64, 2, 64),
+                           torch.bfloat16)
+    lengths = torch.tensor([64, 5], dtype=torch.int32, device="cuda")
+    must_raise(ValueError, lambda: decode_attention(
+        q, k[:, ::2], v[:, ::2], lengths), "a non-contiguous cache")
+    must_raise(TypeError, lambda: decode_attention(q, k, v, lengths.long()),
+               "int64 lengths")
+    q16, k16, v16 = _attn_inputs(torch, gen, (2, 16, 64), (2, 64, 1, 64),
+                                 torch.bfloat16)
+    must_raise(ValueError, lambda: decode_attention(q16, k16, v16, lengths),
+               "16 query heads a KV head")
+    check(decode_attention.launches == launches + calls,
+          "a refused input launches nothing")
+    print(f"decode_attention == plain version in {calls} cases, out and "
+          f"lse (|err| <= {ATTN_TOL['float32']['atol']} + "
+          f"{ATTN_TOL['float32']['rtol']}|plain| in f32 and for lse, <= "
+          f"{ATTN_TOL['bfloat16']['atol']} + {ATTN_TOL['bfloat16']['rtol']}"
+          f"|plain| for a bf16 out); max |err| {worst}; a non-contiguous "
+          f"cache, int64 lengths and a group of 16 are refused without a "
+          f"launch")
+
+
 def timing_row(torch, name, shape, fns, err, bytes_moved, operations,
-               peaks):
+               peaks, iters=None):
     """One timing row: each of ``fns`` ({"kernel", "plain", "library"})
-    on the device alone (``*_ms``) and eagerly (``*_eager_ms``)."""
+    on the device alone (``*_ms``) and eagerly (``*_eager_ms``), over
+    ``iters`` calls (by default 200, or 50 from 2**24 elements on)."""
     hbm, flops_peak = peaks
-    iters = 50 if math.prod(shape) >= 1 << 24 else 200
+    if iters is None:
+        iters = 50 if math.prod(shape) >= 1 << 24 else 200
     by_bytes, by_ops = bytes_moved / hbm, operations / flops_peak
     row = {"name": name, "shape": list(shape), "max_abs_err": err,
            "bound_ms": max(by_bytes, by_ops) * 1e3,
@@ -433,6 +620,75 @@ def phase_times(torch, peaks, leaves, dim, padded_dim):
     return rows
 
 
+def phase_attention_times(torch, peaks):
+    """flash_attention and decode_attention beside their plain versions,
+    ``F.scaled_dot_product_attention`` (GQA through ``enable_gqa``; for
+    decode a boolean mask built from ``lengths``) and the bound, in bf16:
+    at the serve path's shapes (flash B=8, S=T=512, Hq=14, Hkv=2, D=64,
+    causal; decode B=8, a 545-row cache, lengths 513..543) and at one long
+    shape each (flash B=1, S=T=4096; decode B=32, T=32,768). Bounds: each
+    input read once and the output written once over HBM's rate, against
+    the two products' 4 * D flops a (query head, attended key) pair at
+    the tensor cores' bf16 rate."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, decode_attention_ref)
+    from repro_torch.kernels.flash_attention import (
+        attention_ref, flash_attention)
+    hbm, bf16_peak = peaks[0], peaks[2]
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    Hq, Hkv, D = 14, 2, 64
+    rows = {"flash_attention": [], "decode_attention": []}
+    for B, S, iters in ((8, 512, None), (1, 4096, 5)):
+        q, k, v = _attn_inputs(torch, gen, (B, S, Hq, D), (B, S, Hkv, D),
+                               torch.bfloat16)
+        err = float((flash_attention(q, k, v).float()
+                     - attention_ref(q, k, v).float()).abs().max())
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        pairs = S * (S + 1) // 2                    # causal, q_offset 0
+        rows["flash_attention"].append(timing_row(
+            torch, "flash_attention", (B, S, S, Hq, Hkv, D), {
+                "kernel": lambda: flash_attention(q, k, v),
+                "plain": lambda: attention_ref(q, k, v),
+                "library": lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)},
+            err, 2 * (2 * q.numel() + k.numel() + v.numel()),
+            4 * D * Hq * B * pairs, (hbm, bf16_peak), iters=iters))
+    for B, T, lengths, iters in (
+            (8, 545, 513 + torch.arange(8) * 30 // 7, None),
+            (32, 32768, 32768 - torch.arange(32) * 64, 5)):
+        q, k, v = _attn_inputs(torch, gen, (B, Hq, D), (B, T, Hkv, D),
+                               torch.bfloat16)
+        lengths = lengths.to(device="cuda", dtype=torch.int32)
+        got, _ = decode_attention(q, k, v, lengths)
+        err = float((got.float() - decode_attention_ref(q, k, v, lengths)[0]
+                     .float()).abs().max())
+        keys = int(lengths.clamp(max=T).sum())
+        qs, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+        mask = (torch.arange(T, device="cuda")[None, :]
+                < lengths[:, None])[:, None, None, :]
+        rows["decode_attention"].append(timing_row(
+            torch, "decode_attention", (B, T, Hq, Hkv, D), {
+                "kernel": lambda: decode_attention(q, k, v, lengths),
+                "plain": lambda: decode_attention_ref(q, k, v, lengths),
+                "library": lambda: F.scaled_dot_product_attention(
+                    qs, kt, vt, attn_mask=mask, enable_gqa=True)},
+            err,
+            # the valid keys' k and v rows, q, out (bf16), lse (f32) and
+            # the lengths
+            2 * 2 * keys * Hkv * D + 2 * 2 * q.numel() + 4 * B * Hq + 4 * B,
+            4 * D * Hq * keys, (hbm, bf16_peak), iters=iters))
+    for name, found in rows.items():
+        for r in found:
+            print(f"{name} {r['shape']}: device {r['kernel_ms']:.5f} ms "
+                  f"(eager {r['kernel_eager_ms']:.5f}), plain "
+                  f"{r['plain_ms']:.5f}, sdpa {r['library_ms']:.5f}, bound "
+                  f"{r['bound_ms']:.5f} ({r['bound_by']}), max |err| "
+                  f"{r['max_abs_err']:.3g}")
+    return rows
+
+
 def phase_path(torch, path, argv, op_name):
     """Three full-width rounds of one path through the launcher's code
     path. Every kernel's launch count is set to 0 just before the rounds
@@ -490,8 +746,7 @@ def phase_path(torch, path, argv, op_name):
 
     kernel_ops = ops()
     torch.cuda.synchronize()
-    for op in kernel_ops.values():
-        op.launches = 0
+    reset_counts(kernel_ops)
     walls = []
     for _ in range(ROUNDS):
         step_ms.clear()
@@ -524,7 +779,9 @@ def phase_path(torch, path, argv, op_name):
                  if op_name == "weighted_aggregate" else 1)
     want = {name: (per_round * ROUNDS if name == op_name else 0)
             for name in kernel_ops}
-    check(counts == want, f"path {path} launches {counts}, want {want}")
+    check(counts == want
+          and kernel_ops["decode_attention"].merge_launches == 0,
+          f"path {path} launches {counts}, want {want}")
     print(f"path {path} launches: {counts} ({per_round} {op_name} a round "
           f"x {ROUNDS} rounds)")
 
@@ -564,6 +821,156 @@ def phase_path(torch, path, argv, op_name):
     return counts[op_name], walls
 
 
+def phase_serve(torch, card):
+    """qwen2-0.5b at full width in bf16 through the serve launcher's code
+    path (``repro_torch.launch.serve``: ``build`` then ``serve``): one
+    warm-up pass, then the measured pass with every kernel count set to 0
+    just before it and read just after. Returns (launch counts, the
+    numbers printed)."""
+    import repro_torch.models.attention as attn_mod
+    from repro_torch.kernels.decode_attention import decode_attention_ref
+    from repro_torch.kernels.flash_attention import attention_ref
+    from repro_torch.launch import serve as serve_mod
+
+    t0 = time.perf_counter()
+    args = serve_mod.parse_args(SERVE_ARGS)
+    model, params, tokens, gen = serve_mod.build(args)
+    torch.cuda.synchronize()
+    cfg = model.cfg
+    n_params = model.param_count(params)
+    check(n_params == 494_032_768, f"qwen2-0.5b has {n_params} params")
+    check(params["embed"].dtype == torch.bfloat16
+          and params["final_norm"]["scale"].dtype == torch.float32,
+          "bf16 weights, f32 norm scales")
+    B, S = tokens.shape
+    print(f"serve: {cfg.name} ({n_params:,} params, {cfg.num_layers} "
+          f"layers, d_model {cfg.d_model}, {cfg.num_heads}/"
+          f"{cfg.num_kv_heads} heads of {cfg.head_dim}, vocab "
+          f"{cfg.vocab_size}, {cfg.dtype}), batch {B}, prompt {S}, gen "
+          f"{args.gen}; set-up {time.perf_counter() - t0:.2f} s")
+
+    # the attention calls, recorded where the model makes them, so that
+    # the last ones can be held against the plain versions afterwards
+    seen = {}
+
+    def recorder(name, fn):
+        def run(*a, **kw):
+            out = fn(*a, **kw)
+            seen[name] = (a, kw, out)
+            return out
+        return run
+
+    finite, step1 = [], {}
+
+    def on_step(i, logits):
+        finite.append(torch.isfinite(logits).all())
+        if i == 1:
+            step1["logits"] = logits[:, 0].float().clone()
+
+    kernel_ops = ops()
+    originals = attn_mod.flash_attention, attn_mod.decode_attention
+    attn_mod.flash_attention = recorder("flash", originals[0])
+    attn_mod.decode_attention = recorder("decode", originals[1])
+    try:
+        warm = serve_mod.serve(model, params, tokens, args.gen,
+                               args.temperature, gen)
+        del warm
+        finite.clear()
+        torch.cuda.synchronize()
+        reset_counts(kernel_ops)
+        res = serve_mod.serve(model, params, tokens, args.gen,
+                              args.temperature, gen, on_step=on_step)
+        counts = {name: op.launches for name, op in kernel_ops.items()}
+        counts["decode_attention merge"] = (
+            kernel_ops["decode_attention"].merge_launches)
+    finally:
+        attn_mod.flash_attention, attn_mod.decode_attention = originals
+    steps = args.gen - 1
+    want = {name: 0 for name in counts}
+    want.update({"flash_attention": cfg.num_layers,
+                 "decode_attention": steps * cfg.num_layers,
+                 "decode_attention merge": steps * cfg.num_layers})
+    check(counts == want, f"serve launches {counts}, want {want}")
+    print(f"serve launches: {counts} (flash: 1 prefill x {cfg.num_layers} "
+          f"layers; decode: {steps} steps x {cfg.num_layers} layers)")
+    check(len(finite) == args.gen and all(bool(f) for f in finite),
+          "finite logits at the prefill and every decode step")
+    gen_tokens = res["tokens"]
+    check(gen_tokens.shape == (B, args.gen)
+          and bool(((gen_tokens >= 0) & (gen_tokens < cfg.vocab_size))
+                   .all()), f"tokens {tuple(gen_tokens.shape)} in range")
+
+    # the last layer's last prefill and decode attention calls against the
+    # plain versions on the same inputs
+    (q, k, v), kw, got = seen["flash"]
+    want_out = attention_ref(q, k, v, **kw)
+    worst = {"flash": float((got.float() - want_out.float()).abs().max())}
+    torch.testing.assert_close(got.float(), want_out.float(),
+                               **ATTN_TOL["bfloat16"])
+    (q, kc, vc, lengths), kw, (out, lse) = seen["decode"]
+    want_o, want_l = decode_attention_ref(q, kc, vc, lengths, **kw)
+    torch.testing.assert_close(out.float(), want_o.float(),
+                               **ATTN_TOL["bfloat16"])
+    torch.testing.assert_close(lse, want_l, **ATTN_TOL["float32"])
+    worst["decode out"] = float((out.float() - want_o.float()).abs().max())
+    worst["decode lse"] = float((lse - want_l).abs().max())
+    check(int(lengths.min()) == int(lengths.max()) == S + steps,
+          f"the last decode step attends {S + steps} keys: {lengths}")
+    print(f"serve: the last layer's last prefill and decode attention "
+          f"calls == plain versions on their own inputs (max |err| "
+          f"{worst})")
+
+    # teacher forcing: decode step 1 (the first generated token at
+    # position S) against a full forward over the prompt and that token
+    full = model.forward_train(params, {"tokens": torch.cat(
+        [tokens, gen_tokens[:, :1]], dim=1)})[:, S].float()
+    diff = (full - step1["logits"]).abs()
+    scale = float(full.std())
+    tf = {"max": float(diff.max()), "mean": float(diff.mean()),
+          "logit std": scale,
+          "argmax agree": float((full.argmax(-1) == step1["logits"]
+                                 .argmax(-1)).float().mean())}
+    print(f"serve: teacher-forced decode step 1 against the full forward "
+          f"over prompt + token: |diff| {tf}")
+    check(tf["max"] <= SERVE_TF_TOL * scale
+          and tf["mean"] <= SERVE_TF_MEAN_TOL * scale,
+          f"teacher-forced |diff| max {tf['max']:.4g} > {SERVE_TF_TOL} x "
+          f"or mean {tf['mean']:.4g} > {SERVE_TF_MEAN_TOL} x the logits' "
+          f"std {scale:.4g}")
+
+    # the device's own time for one prefill and one decode step: each
+    # captured in a CUDA graph and replayed, so no host work sits between
+    # its kernels; against the host clock above, the rest is the device
+    # idling while Python dispatches
+    cap = S + args.gen + 1
+    cache, last = res["cache"], gen_tokens[:, -1:]
+    device = {
+        "prefill_device_ms": graph_ms(torch, lambda: model.prefill(
+            params, {"tokens": tokens}, cache_len=cap), 1),
+        "decode_step_device_ms": graph_ms(torch, lambda: model.decode_step(
+            params, cache, last), 1, replays=20)}
+
+    prefill_ms = res["prefill_s"] * 1e3
+    decode_ms = res["decode_s"] * 1e3
+    numbers = {"prefill_ms": prefill_ms,
+               "prefill_tokens_per_s": B * S / res["prefill_s"],
+               "decode_ms": decode_ms, "decode_ms_per_step": decode_ms / steps,
+               "decode_tokens_per_s": B * steps / res["decode_s"],
+               **device, "card": card}
+    numbers["prefill_device_idle_share"] = (
+        1 - device["prefill_device_ms"] / prefill_ms)
+    numbers["decode_device_idle_share"] = (
+        1 - device["decode_step_device_ms"] / numbers["decode_ms_per_step"])
+    print(f"serve: prefill {prefill_ms:.2f} ms ({numbers['prefill_tokens_per_s']:.0f}"
+          f" tok/s); decode {decode_ms:.2f} ms for {steps} steps "
+          f"({numbers['decode_ms_per_step']:.3f} ms/step, "
+          f"{numbers['decode_tokens_per_s']:.1f} tok/s); on the device "
+          f"alone (CUDA graph) prefill {device['prefill_device_ms']:.2f} ms, "
+          f"a decode step {device['decode_step_device_ms']:.3f} ms ({card})")
+    print("serve: sample tokens", gen_tokens[0, :12].tolist())
+    return counts, numbers
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -590,17 +997,23 @@ def main() -> int:
     check_weighted_aggregate(torch)
     check_robust_combine(torch)
     check_dequant_aggregate(torch)
+    check_flash_attention(torch)
+    check_decode_attention(torch)
 
     model = build_model(get_config("fedtest-cnn"))
     leaves = [math.prod(s) for s in tree_leaves(model.param_shapes())]
     dim = flat_update_dim(model)
     padded_dim = COMPRESSORS.build("int8", {}, dict(dim=dim)).padded_dim
-    rows = phase_times(torch, peaks, leaves, dim, padded_dim)
+    rows = phase_times(torch, peaks[:2], leaves, dim, padded_dim)
+    rows.update(phase_attention_times(torch, peaks))
 
     launches, walls = {}, {}
     for path, argv, op_name in PATHS:
         launches[op_name], walls[path] = phase_path(torch, path, argv,
                                                     op_name)
+    serve_counts, serve_numbers = phase_serve(torch, card)
+    launches["flash_attention"] = serve_counts["flash_attention"]
+    launches["decode_attention"] = serve_counts["decode_attention"]
 
     def entry(name, path_rows, shape):
         def total(key):
@@ -632,7 +1045,15 @@ def main() -> int:
         entry("robust_combine", rows["robust_combine"][:1],
               f"C=20, M={dim}, trimmed mean at {TRIM}"),
         entry("dequant_aggregate", rows["dequant_aggregate"][:1],
-              f"C=20, M={padded_dim} int8, chunk 256")]}))
+              f"C=20, M={padded_dim} int8, chunk 256"),
+        # one call (one layer) of the serve path's prefill / decode step
+        entry("flash_attention", rows["flash_attention"][:1],
+              "one call: B=8, S=T=512, Hq=14, Hkv=2, D=64, bf16, causal"),
+        dict(entry("decode_attention", rows["decode_attention"][:1],
+                   "one call (split kernel + merge kernel): B=8, cache "
+                   "545, lengths 513..543, Hq=14, Hkv=2, D=64, bf16"),
+             merge_launches=serve_counts["decode_attention merge"])]}))
+    print(json.dumps({"serve": serve_numbers}))
     print(f"chip_smoke passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

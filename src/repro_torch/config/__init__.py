@@ -1,3 +1,4 @@
-from repro_torch.config.base import FedConfig, ModelConfig, TrainConfig
+from repro_torch.config.base import (
+    FedConfig, ModelConfig, TrainConfig, reduce_for_smoke)
 
-__all__ = ["FedConfig", "ModelConfig", "TrainConfig"]
+__all__ = ["FedConfig", "ModelConfig", "TrainConfig", "reduce_for_smoke"]

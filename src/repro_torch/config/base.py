@@ -1,7 +1,9 @@
 """Config dataclasses of the port (counterpart of ``repro/config/base.py``).
 
-``ModelConfig`` carries only the fields of the two families the port
-runs, ``cnn`` and ``mlp``. ``FedConfig`` keeps the reference's fields
+``ModelConfig`` carries the fields of the families the port runs: the
+paper's classifiers ``cnn`` and ``mlp``, and the ``dense`` decoder-only
+LM. The other LM families are refused with the ``ROADMAP.md`` item that
+ports them. ``FedConfig`` keeps the reference's fields
 that the round reads, with the reference's names and defaults; a field
 comes over with the slice that first reads it. The strategy names this
 slice does not run yet are refused with the ``ROADMAP.md`` item that
@@ -10,7 +12,7 @@ will port them.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Mapping, Tuple
+from typing import Any, Mapping, Optional, Tuple
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -18,10 +20,26 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
+# LM families the reference runs and the port does not yet, each with the
+# ROADMAP.md item that ports it
+_FAMILIES_NOT_PORTED = {
+    "moe": "queue 1 item 16 (models/moe.py)",
+    "ssm": "queue 1 item 16 (models/ssm.py, with the ssd_scan kernel of "
+           "queue 2 item 5)",
+    "hybrid": "queue 1 item 16 (models/ssm.py and models/moe.py, with the "
+              "ssd_scan kernel of queue 2 item 5)",
+    "encdec": "queue 1 item 16 (models/encdec.py, cross-attention)",
+    "vlm": "queue 1 item 16 (models/frontend_stub.py)",
+}
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Hyper-parameters of the paper's classifiers.
+    """Architecture hyper-parameters, with the reference's names and
+    defaults.
 
+    * ``dense`` — decoder-only transformer (GQA, optional qk-norm and
+      qkv-bias, RoPE, SwiGLU, RMSNorm).
     * ``cnn`` — 3x3 conv + relu + 2x2 max-pool per entry of
       ``cnn_channels``, then two dense layers (Sec. III).
     * ``mlp`` — the MNIST fully-connected classifier.
@@ -29,18 +47,55 @@ class ModelConfig:
 
     name: str
     family: str
+    num_layers: int = 0
+    d_model: int = 0
+    num_heads: int = 0
+    num_kv_heads: int = 0
+    head_dim: int = 0
+    d_ff: int = 0
+    vocab_size: int = 0
+
+    # --- attention details -------------------------------------------------
+    qk_norm: bool = False
+    qkv_bias: bool = False
+    rope_theta: float = 1_000_000.0
+    sliding_window: Optional[int] = None  # None = full causal attention
+    max_position: int = 131_072
+
+    # --- cnn / mlp (the paper's classifiers) --------------------------------
     image_size: int = 0
     image_channels: int = 0
     cnn_channels: Tuple[int, ...] = ()
     cnn_hidden: int = 0
     num_classes: int = 0
     mlp_hidden: Tuple[int, ...] = ()
-    dtype: str = "float32"
+
+    # --- numerics / misc -----------------------------------------------------
+    norm_eps: float = 1e-6
+    tie_embeddings: bool = False
+    dtype: str = "bfloat16"
+    source: str = ""            # citation for the config (paper / model card)
 
     def __post_init__(self) -> None:
-        _require(self.family in ("cnn", "mlp"),
-                 f"family {self.family!r} is not ported yet; the port runs "
-                 "'cnn' and 'mlp' (LM families: ROADMAP.md queue 1 item 16)")
+        if self.family in _FAMILIES_NOT_PORTED:
+            raise ValueError(
+                f"family {self.family!r} is not ported yet (ROADMAP.md "
+                f"{_FAMILIES_NOT_PORTED[self.family]}); the port runs "
+                "'dense', 'cnn' and 'mlp'")
+        _require(self.family in ("dense", "cnn", "mlp"),
+                 f"unknown family {self.family!r}")
+        if self.family == "dense":
+            _require(self.num_heads > 0 and self.num_kv_heads > 0,
+                     f"{self.name}: attention archs need heads")
+            _require(self.num_heads % self.num_kv_heads == 0,
+                     f"{self.name}: num_heads must be divisible by "
+                     "num_kv_heads")
+            _require(self.num_layers > 0 and self.d_model > 0
+                     and self.head_dim > 0 and self.d_ff > 0
+                     and self.vocab_size > 0,
+                     f"{self.name}: dense needs num_layers, d_model, "
+                     "head_dim, d_ff and vocab_size")
+            return
         _require(self.num_classes > 0 and self.image_size > 0,
                  f"{self.name}: needs num_classes and image_size")
         if self.family == "cnn":
@@ -53,8 +108,44 @@ class ModelConfig:
                      f"{self.name}: mlp needs mlp_hidden, num_classes "
                      "and image_size")
 
+    def uses_attention(self, layer_idx: int) -> bool:
+        """Every layer of the dense family attends."""
+        return self.family == "dense"
+
+    def uses_moe(self, layer_idx: int) -> bool:
+        """No family the port runs has a mixture-of-experts FFN."""
+        return False
+
     def replace(self, **kw: Any) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:
+    """Reduced variant of the same family for CPU smoke tests (the
+    reference's ``reduce_for_smoke`` for the families the port runs):
+    at most 2 layers, d_model <= 256, vocab <= 512, at most 4 query
+    heads of width 32, d_ff <= 512."""
+    kw: dict = dict(
+        name=cfg.name + "-smoke",
+        num_layers=min(cfg.num_layers, 2),
+        d_model=min(cfg.d_model, 256),
+        vocab_size=min(cfg.vocab_size, 512) if cfg.vocab_size else 0,
+        max_position=4096,
+    )
+    if cfg.num_heads:
+        heads = min(cfg.num_heads, 4)
+        kv = min(cfg.num_kv_heads, heads)
+        while heads % kv:
+            kv -= 1
+        kw.update(num_heads=heads, num_kv_heads=kv, head_dim=32)
+    if cfg.d_ff:
+        kw.update(d_ff=min(cfg.d_ff, 512))
+    if cfg.family == "cnn":
+        kw.update(cnn_channels=tuple(min(c, 16) for c in cfg.cnn_channels),
+                  cnn_hidden=min(cfg.cnn_hidden, 64))
+    if cfg.family == "mlp":
+        kw.update(mlp_hidden=tuple(min(h, 64) for h in cfg.mlp_hidden))
+    return cfg.replace(**kw)
 
 
 def _freeze_kwargs(kw: Any) -> Tuple[Tuple[str, Any], ...]:

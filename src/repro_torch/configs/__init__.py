@@ -1,4 +1,4 @@
-"""The paper's model configs (the cnn/mlp subset of ``repro.configs``).
+"""Model configs: the cnn/mlp and dense subset of ``repro.configs``.
 
 Each module defines ``config() -> ModelConfig`` with the values of its
 reference twin; ``get_config(arch_id)`` resolves the CLI ``--arch`` id.

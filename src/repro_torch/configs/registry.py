@@ -1,4 +1,5 @@
-"""Arch-id -> ModelConfig registry (the paper's three classifiers)."""
+"""Arch-id -> ModelConfig registry: the paper's three classifiers and the
+dense LMs the port serves."""
 from __future__ import annotations
 
 import importlib
@@ -11,14 +12,16 @@ ARCH_IDS: Dict[str, str] = {
     "fedtest-cnn": "fedtest_cnn",
     "fedtest-cnn-mnist": "fedtest_cnn_mnist",
     "fedtest-mlp-mnist": "fedtest_mlp_mnist",
+    "qwen2-0.5b": "qwen2_0p5b",
+    "qwen3-1.7b": "qwen3_1p7b",
 }
 
 
 def get_config(arch_id: str) -> ModelConfig:
     if arch_id not in ARCH_IDS:
         raise KeyError(f"unknown arch {arch_id!r}; the port has "
-                       f"{sorted(ARCH_IDS)} (LM configs: ROADMAP.md "
-                       "queue 1 item 16)")
+                       f"{sorted(ARCH_IDS)} (the other LM configs: "
+                       "ROADMAP.md queue 1 item 16)")
     mod = importlib.import_module(f"repro_torch.configs.{ARCH_IDS[arch_id]}")
     return mod.config()
 

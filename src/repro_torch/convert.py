@@ -2,9 +2,9 @@
 the port's.
 
 Both packages keep the same tree (names, layouts, dtypes: conv weights
-HWIO, dense weights ``[in, out]``), so conversion is a checked,
-name-for-name copy of the leaves onto a device, and the flat ``[N, D]``
-update layout is the same in both.
+HWIO, dense weights ``[in, out]``, decoder layers stacked ``[L, ...]``),
+so conversion is a checked, name-for-name copy of the leaves onto a
+device, and the flat ``[N, D]`` update layout is the same in both.
 """
 from __future__ import annotations
 
@@ -19,9 +19,13 @@ from repro_torch.utils import flat_update_dim
 def params_from_reference(tree_of_numpy: Dict[str, Any], device, *,
                           model) -> Dict[str, Any]:
     """Nested dict of numpy arrays (the JAX package's params) -> nested
-    dict of tensors on ``device`` in ``model``'s dtype. Refuses a missing
-    or extra leaf and a shape mismatch against ``model.param_shapes()``."""
-    def convert(node, shapes, path):
+    dict of tensors on ``device``, each leaf in its dtype in
+    ``model.param_dtypes()``: the model's dtype, and f32 for the LM's
+    RMSNorm scales, which the reference keeps in f32 in a bf16 model.
+    Refuses a missing or extra leaf and a shape mismatch against
+    ``model.param_shapes()``. A bf16 leaf arrives as an ``ml_dtypes``
+    bfloat16 array and goes through f32, which holds it exactly."""
+    def convert(node, shapes, dtypes, path):
         if isinstance(shapes, dict):
             if not isinstance(node, dict):
                 raise ValueError(f"{path or 'params'}: expected a dict of "
@@ -31,16 +35,18 @@ def params_from_reference(tree_of_numpy: Dict[str, Any], device, *,
             if missing or extra:
                 raise ValueError(f"{path or 'params'}: missing leaves "
                                  f"{missing}, unexpected leaves {extra}")
-            return {k: convert(node[k], shapes[k], f"{path}.{k}".lstrip("."))
+            return {k: convert(node[k], shapes[k], dtypes[k],
+                               f"{path}.{k}".lstrip("."))
                     for k in sorted(shapes)}
         arr = np.asarray(node)
         if tuple(arr.shape) != tuple(shapes):
             raise ValueError(f"{path}: shape {tuple(arr.shape)} != expected "
                              f"{tuple(shapes)}")
         return torch.as_tensor(arr.astype(np.float32), device=device
-                               ).to(model.dtype)
+                               ).to(dtypes)
 
-    return convert(tree_of_numpy, model.param_shapes(), "")
+    return convert(tree_of_numpy, model.param_shapes(), model.param_dtypes(),
+                   "")
 
 
 def comp_state_from_reference(comp_state, device, *, model,

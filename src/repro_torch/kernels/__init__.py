@@ -18,4 +18,10 @@ Kernels:
   ``csrc/robust_combine.cu``).
 * ``dequant_aggregate`` — the int8 compressor's fused dequantise and
   weighted sum (CUDA C++, ``csrc/dequant_aggregate.cu``).
+* ``flash_attention`` — GQA attention over a sequence with causal and
+  sliding-window masks, the LM prefill (CUDA C++,
+  ``csrc/flash_attention.cu``).
+* ``decode_attention`` — one query token a sequence over a KV cache,
+  split-K with a merge kernel, the LM decode step (CUDA C++,
+  ``csrc/decode_attention.cu``); ``merge_partials`` is plain torch.
 """

@@ -1,0 +1,5 @@
+from repro_torch.kernels.decode_attention.ops import (
+    decode_attention, merge_partials)
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+__all__ = ["decode_attention", "decode_attention_ref", "merge_partials"]

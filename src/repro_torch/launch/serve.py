@@ -1,0 +1,144 @@
+"""Batched serving entry point of the port: prefill a prompt batch, then
+decode token by token (the dense side of ``repro.launch.serve``).
+
+Serves a dense LM at full width on the card by default, with weights
+drawn from ``--seed``:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
+      --batch 8 --prompt-len 512 --gen 32
+
+Prefill runs each layer's attention through the ``flash_attention``
+kernel, decode through ``decode_attention``. ``--device cpu --smoke``
+runs the reduced config in f32 on the CPU (the kernels' plain versions);
+``--device cuda`` without a card raises. Prompt tokens and sampling come
+from a ``torch.Generator``, so the tokens differ from the reference's
+JAX draws. Serving a training run's checkpoint (``--ckpt-dir``) waits
+for checkpointing (ROADMAP.md queue 1 item 10).
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Dict, List
+
+import torch
+
+from repro_torch.config import reduce_for_smoke
+from repro_torch.configs import get_config, list_configs
+from repro_torch.core.engine import resolve_device
+from repro_torch.models import build_model
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen2-0.5b", choices=list_configs())
+    ap.add_argument("--smoke", action="store_true",
+                    help="the reduced config (reduce_for_smoke) in f32")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device of the run; 'cuda' raises when no "
+                         "card is present")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="not ported yet: serving a checkpoint waits for "
+                         "ROADMAP.md queue 1 item 10")
+    args = ap.parse_args(argv)
+    if args.ckpt_dir is not None:
+        ap.error("--ckpt-dir is not ported yet (ROADMAP.md queue 1 item 10, "
+                 "checkpointing); the port serves weights drawn from --seed")
+    if args.gen < 1 or args.prompt_len < 1 or args.batch < 1:
+        ap.error("--batch, --prompt-len and --gen must be positive")
+    return args
+
+
+def build(args: argparse.Namespace):
+    """(model, params, prompt tokens [B, S] int32, generator) for the
+    parsed flags, on the run's device."""
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = reduce_for_smoke(cfg).replace(dtype="float32")
+    if cfg.family != "dense":
+        raise SystemExit(f"{cfg.name} ({cfg.family}) has no serving path")
+    model = build_model(cfg)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    params = model.init(gen)
+    tokens = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
+                           generator=gen, device=device, dtype=torch.int32)
+    return model, params, tokens, gen
+
+
+def sample(logits: torch.Tensor, temperature: float,
+           gen: torch.Generator) -> torch.Tensor:
+    """Next tokens [B, 1] int32 from the last position's logits: greedy at
+    temperature 0, else drawn from softmax(logits / temperature)."""
+    last = logits[:, -1].float()
+    if temperature <= 0:
+        tok = last.argmax(dim=-1)
+    else:
+        tok = torch.multinomial(torch.softmax(last / temperature, dim=-1), 1,
+                                generator=gen)[:, 0]
+    return tok[:, None].to(torch.int32)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def serve(model, params, tokens: torch.Tensor, gen_len: int,
+          temperature: float, gen: torch.Generator,
+          on_step=None) -> Dict[str, object]:
+    """Prefill ``tokens``, then decode ``gen_len - 1`` more tokens (the
+    first comes from the prefill's logits). ``on_step(i, logits)`` sees
+    the prefill's logits (i = 0) and each decode step's (i >= 1).
+    Returns the generated tokens [B, gen_len] and the host-clock times,
+    each ending in a device synchronisation."""
+    B, S = tokens.shape
+    device = tokens.device
+    cap = S + gen_len + 1
+    _sync(device)
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, {"tokens": tokens}, cache_len=cap)
+    _sync(device)
+    t_prefill = time.perf_counter() - t0
+    if on_step is not None:
+        on_step(0, logits)
+    toks = sample(logits, temperature, gen)
+    out: List[torch.Tensor] = [toks]
+    t0 = time.perf_counter()
+    for i in range(gen_len - 1):
+        logits, cache = model.decode_step(params, cache, toks)
+        if on_step is not None:
+            on_step(i + 1, logits)
+        toks = sample(logits, temperature, gen)
+        out.append(toks)
+    _sync(device)
+    t_decode = time.perf_counter() - t0
+    return {"tokens": torch.cat(out, dim=1), "prefill_s": t_prefill,
+            "decode_s": t_decode, "cache": cache}
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    model, params, tokens, gen = build(args)
+    B, S = tokens.shape
+    res = serve(model, params, tokens, args.gen, args.temperature, gen)
+    t_prefill, t_decode = res["prefill_s"], res["decode_s"]
+    steps = args.gen - 1
+    print(f"arch={model.cfg.name} batch={B} prompt={S} gen={args.gen} "
+          f"device={tokens.device}")
+    print(f"prefill: {t_prefill * 1e3:.1f} ms "
+          f"({B * S / max(t_prefill, 1e-9):.0f} tok/s)")
+    print(f"decode : {t_decode * 1e3:.1f} ms "
+          f"({t_decode * 1e3 / max(steps, 1):.2f} ms/step, "
+          f"{B * steps / max(t_decode, 1e-9):.1f} tok/s)")
+    print("sample tokens:", res["tokens"][0, :12].tolist())
+    return res
+
+
+if __name__ == "__main__":
+    main()

@@ -1,11 +1,13 @@
-"""The paper's classifiers in PyTorch (the cnn/mlp side of
-``repro.models``).
+"""The paper's classifiers and the dense decoder LM in PyTorch (the
+cnn/mlp/dense side of ``repro.models``).
 
 Params are plain nested dicts of tensors in the reference's names,
-layouts and dtypes (conv weights HWIO, dense weights ``[in, out]``); each
-family's ``nn.Module`` holds no weights of its own and is driven through
+layouts and dtypes (conv weights HWIO, dense weights ``[in, out]``,
+decoder layers stacked ``[L, ...]``). Each classifier family's
+``nn.Module`` holds no weights of its own and is driven through
 ``torch.func.functional_call``, so one module serves a single model and a
-``vmap`` over a client-stacked param tree alike.
+``vmap`` over a client-stacked param tree alike; the decoder is plain
+functions over its param tree.
 """
 from repro_torch.models.model import Model, build_model
 

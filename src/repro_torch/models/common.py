@@ -1,4 +1,5 @@
-"""Shared pieces of the classifiers: initializer, loss and accuracy."""
+"""Shared building blocks: initializers, RMSNorm, rotary embeddings, loss
+and accuracy (the port's side of ``repro/models/common.py``)."""
 from __future__ import annotations
 
 import torch
@@ -12,6 +13,44 @@ def dense_init(gen: torch.Generator, shape, in_axis: int = 0,
     t = torch.empty(shape, dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return (t * fan_in ** -0.5).to(dtype)
+
+
+def embed_init(gen: torch.Generator, shape, dtype=torch.float32
+               ) -> torch.Tensor:
+    """N(0, 0.02^2) embedding table, drawn in f32 on ``gen``'s device."""
+    t = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    t.normal_(0.0, 1.0, generator=gen)
+    return (t * 0.02).to(dtype)
+
+
+def rms_norm_init(dim: int, device=None):
+    """The RMSNorm scale, kept in f32 whatever the model's dtype, as the
+    reference keeps it."""
+    return {"scale": torch.ones((dim,), dtype=torch.float32, device=device)}
+
+
+def rms_norm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the last axis, computed in f32 against the f32
+    ``scale``, then cast back to ``x``'s dtype."""
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * p["scale"]).to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+         ) -> torch.Tensor:
+    """Rotary embedding, the half-split form (the first and second halves
+    of the head dim rotate as pairs), computed in f32 and cast back.
+    x [..., S, H, D]; positions [..., S]."""
+    half = x.shape[-1] // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    angles = positions[..., None].float() * freqs        # [..., S, half]
+    cos = torch.cos(angles)[..., None, :]                # [..., S, 1, half]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
 
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

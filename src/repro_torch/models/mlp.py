@@ -1,4 +1,5 @@
-"""The paper's MNIST fully-connected classifier (family ``mlp``)."""
+"""Feed-forward blocks: the SwiGLU FFN of the dense LMs, and the paper's
+MNIST fully-connected classifier (family ``mlp``)."""
 from __future__ import annotations
 
 from typing import Dict
@@ -9,6 +10,26 @@ import torch.nn.functional as F
 
 from repro_torch.models.cnn import _Slot
 from repro_torch.models.common import dense_init
+
+
+def swiglu_shapes(d_model: int, d_ff: int) -> Dict:
+    return {"w_gate": (d_model, d_ff), "w_up": (d_model, d_ff),
+            "w_down": (d_ff, d_model)}
+
+
+def swiglu_init(gen: torch.Generator, d_model: int, d_ff: int, dtype,
+                lead=()) -> Dict:
+    """Fan-in truncated-normal weights; ``lead`` prepends stacked axes."""
+    return {name: dense_init(gen, lead + shape, in_axis=len(lead),
+                             dtype=dtype)
+            for name, shape in swiglu_shapes(d_model, d_ff).items()}
+
+
+def swiglu(p, x: torch.Tensor) -> torch.Tensor:
+    """SiLU of the gate in f32, cast back, times the up projection, then
+    the down projection."""
+    h = F.silu((x @ p["w_gate"]).float()).to(x.dtype)
+    return (h * (x @ p["w_up"])) @ p["w_down"]
 
 
 def mlp_param_shapes(cfg) -> Dict:

@@ -1,27 +1,31 @@
-"""Family-independent model facade (the cnn/mlp side of
+"""Family-independent model facade (the cnn/mlp/dense side of
 ``repro/models/model.py``).
 
     m = build_model(cfg)
     params = m.init(gen)                       # on gen's device
-    logits = m.forward_train(params, {"images": x})
-    loss, metrics = m.loss(params, {"images": x, "labels": y})
+    logits = m.forward_train(params, batch)
+    loss, metrics = m.loss(params, batch)
+    logits, cache = m.prefill(params, batch, cache_len=...)   # dense
+    logits, cache = m.decode_step(params, cache, tokens)      # dense
 
-Batches are ``{"images": [B,H,W,C], "labels": [B]}``.
+Batches are ``{"images": [B,H,W,C], "labels": [B]}`` for cnn/mlp and
+``{"tokens": [B,S], "labels": [B,S]}`` for the dense LM.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch.func import functional_call
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import cnn as cnn_mod
+from repro_torch.models import decoder as dec_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.common import softmax_cross_entropy, token_accuracy
-from repro_torch.utils import flat_names, tree_leaves
+from repro_torch.utils import flat_names, tree_leaves, tree_map
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -30,33 +34,55 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
-    # the family's weightless module, driven through functional_call
-    net: torch.nn.Module = dataclasses.field(init=False, repr=False,
-                                             compare=False)
+    sliding_window: Optional[int] = None   # long-context serving variant
+    # the classifier family's weightless module, driven through
+    # functional_call (None for the dense LM, which is plain functions)
+    net: Optional[torch.nn.Module] = dataclasses.field(
+        init=False, repr=False, compare=False)
 
     def __post_init__(self):
-        object.__setattr__(self, "net", cnn_mod.CNN(self.cfg)
-                           if self.cfg.family == "cnn"
-                           else mlp_mod.MLP(self.cfg))
+        nets = {"cnn": cnn_mod.CNN, "mlp": mlp_mod.MLP}
+        object.__setattr__(self, "net", nets[self.cfg.family](self.cfg)
+                           if self.cfg.family in nets else None)
 
     @property
     def dtype(self) -> torch.dtype:
         return _DTYPES[self.cfg.dtype]
 
+    def _lm(self) -> bool:
+        return self.cfg.family == "dense"
+
     def param_shapes(self) -> Dict[str, Any]:
         """Nested dict of leaf shapes, in the reference's tree."""
+        if self._lm():
+            return tree_map(lambda s: s[0],
+                            dec_mod.decoder_specs(self.cfg, self.dtype))
         if self.cfg.family == "cnn":
             return cnn_mod.cnn_param_shapes(self.cfg)
         return mlp_mod.mlp_param_shapes(self.cfg)
 
+    def param_dtypes(self) -> Dict[str, Any]:
+        """Nested dict of leaf dtypes: the model's dtype, except the dense
+        LM's RMSNorm scales, which stay f32 as the reference keeps them."""
+        if self._lm():
+            return tree_map(lambda s: s[1],
+                            dec_mod.decoder_specs(self.cfg, self.dtype))
+        return tree_map(lambda _: self.dtype, self.param_shapes())
+
     def init(self, gen: torch.Generator) -> Dict[str, Any]:
         """Fresh params, drawn from ``gen`` on its device."""
+        if self._lm():
+            return dec_mod.init_decoder(self.cfg, gen, self.dtype)
         if self.cfg.family == "cnn":
             return cnn_mod.init_cnn(self.cfg, gen, self.dtype)
         return mlp_mod.init_mlp(self.cfg, gen, self.dtype)
 
     def forward_train(self, params, batch) -> torch.Tensor:
-        """Logits ``[B, num_classes]``."""
+        """Logits: ``[B, num_classes]`` (cnn/mlp) or ``[B, S, V]`` (LM)."""
+        if self._lm():
+            return dec_mod.decoder_forward(
+                params, self.cfg, batch["tokens"],
+                sliding_window=self.sliding_window)[0]
         return functional_call(self.net, flat_names(params),
                                (batch["images"],))
 
@@ -67,11 +93,39 @@ class Model:
         acc = token_accuracy(logits, batch["labels"])
         return nll, {"nll": nll, "accuracy": acc}
 
+    def _require_lm(self, what: str) -> None:
+        if not self._lm():
+            raise ValueError(f"{self.cfg.family} has no {what} path")
+
+    def prefill(self, params, batch, *, cache_len: int = 0
+                ) -> Tuple[torch.Tensor, Dict]:
+        """Logits ``[B, S, V]`` of the prompt and its KV cache, padded to
+        ``cache_len`` rows."""
+        self._require_lm("serving")
+        return dec_mod.decoder_forward(
+            params, self.cfg, batch["tokens"], want_cache=True,
+            cache_len=cache_len, sliding_window=self.sliding_window)
+
+    def decode_step(self, params, cache, tokens) -> Tuple[torch.Tensor, Dict]:
+        """Logits ``[B, 1, V]`` of one token a sequence; writes the cache
+        in place and returns it with ``length + 1``."""
+        self._require_lm("serving")
+        return dec_mod.decoder_decode_step(
+            params, self.cfg, cache, tokens,
+            sliding_window=self.sliding_window)
+
+    def make_cache(self, params, batch_size: int, capacity: int, *,
+                   length: Optional[int] = None) -> Dict:
+        self._require_lm("serving")
+        return dec_mod.make_empty_cache(
+            self.cfg, batch_size, capacity, self.dtype, length=length,
+            device=params["embed"].device)
+
     def param_count(self, params=None) -> int:
         if params is None:
             return sum(math.prod(s) for s in tree_leaves(self.param_shapes()))
         return sum(x.numel() for x in tree_leaves(params))
 
 
-def build_model(cfg: ModelConfig) -> Model:
-    return Model(cfg=cfg)
+def build_model(cfg: ModelConfig, **kw) -> Model:
+    return Model(cfg=cfg, **kw)

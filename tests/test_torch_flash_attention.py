@@ -1,0 +1,110 @@
+"""The port's flash_attention against the reference.
+
+On the CPU the op runs its plain version (``attention_ref`` in
+``repro_torch/kernels/flash_attention/ref.py``), held here against the
+JAX package's oracle and its Pallas kernel in interpret mode on the same
+numpy inputs, f32. Tolerance 2e-5: the softmax sums are taken in other
+orders, and the Pallas kernel's is online. The CUDA kernel itself runs
+only on a card: ``chip_smoke.py`` holds it against the plain version
+there.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.flash_attention.kernel import (  # noqa: E402
+    flash_attention_pallas)
+from repro.kernels.flash_attention.ref import (  # noqa: E402
+    attention_ref as jax_attention_ref)
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    attention_ref, flash_attention)
+
+TOL = 2e-5
+
+
+def _inputs(B, S, T, Hq, Hkv, D, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, S, Hq, D)).astype(np.float32)
+    k = rng.standard_normal((B, T, Hkv, D)).astype(np.float32)
+    v = rng.standard_normal((B, T, Hkv, D)).astype(np.float32)
+    return q, k, v
+
+
+# (B, S, T, Hq, Hkv, D, causal, window, q_offset); S and T are multiples of
+# the Pallas block (32) so the interpret-mode kernel takes them
+CASES = [
+    (2, 64, 64, 4, 4, 32, True, None, 0),       # group 1
+    (2, 64, 64, 4, 4, 32, False, None, 0),
+    (1, 64, 64, 4, 2, 32, True, None, 0),       # group 2
+    (1, 64, 64, 7, 1, 32, True, None, 0),       # group 7
+    (1, 64, 64, 7, 1, 32, False, None, 0),
+    (1, 64, 64, 4, 2, 32, True, 8, 0),          # sliding window
+    (1, 64, 64, 7, 1, 32, True, 40, 0),
+    (1, 32, 96, 4, 2, 32, True, None, 64),      # q_offset, S < T
+    (1, 32, 96, 4, 2, 32, True, 16, 64),
+    (1, 32, 64, 4, 4, 64, False, None, 0),      # head_dim 64, S < T
+]
+
+
+@pytest.mark.parametrize("case", CASES, ids=lambda c: "-".join(map(str, c)))
+def test_plain_matches_reference_and_pallas(case):
+    B, S, T, Hq, Hkv, D, causal, window, q_offset = case
+    q, k, v = _inputs(B, S, T, Hq, Hkv, D, seed=sum(case[:6]))
+    got = flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                          torch.from_numpy(v), causal=causal,
+                          sliding_window=window, q_offset=q_offset)
+    assert got.shape == (B, S, Hq, D) and got.dtype == torch.float32
+    jq, jk, jv = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
+    want = np.asarray(jax_attention_ref(jq, jk, jv, causal=causal,
+                                        sliding_window=window,
+                                        q_offset=q_offset))
+    np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
+    pallas = np.asarray(flash_attention_pallas(
+        jq, jk, jv, causal=causal, sliding_window=window, q_offset=q_offset,
+        block_q=32, block_k=32, interpret=True))
+    np.testing.assert_allclose(got.numpy(), pallas, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("S,T,q_offset", [(13, 13, 0), (5, 37, 32),
+                                          (50, 71, 3)])
+def test_plain_matches_reference_at_ragged_sizes(S, T, q_offset):
+    """S and T that no block divides (the CUDA kernel masks its edges)."""
+    q, k, v = _inputs(2, S, T, 6, 2, 32, seed=S * 100 + T)
+    for causal, window in ((True, None), (False, None), (True, 8)):
+        got = attention_ref(torch.from_numpy(q), torch.from_numpy(k),
+                            torch.from_numpy(v), causal=causal,
+                            sliding_window=window, q_offset=q_offset)
+        want = jax_attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), causal=causal,
+                                 sliding_window=window, q_offset=q_offset)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,
+                                   atol=TOL)
+
+
+def test_bf16_plain_matches_reference():
+    """bf16 inputs, f32 softmax, bf16 output: one bf16 ulp of |out| < 1."""
+    q, k, v = _inputs(1, 32, 32, 4, 2, 32, seed=7)
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    got = flash_attention(tq, tk, tv, causal=True)
+    assert got.dtype == torch.bfloat16
+    jq, jk, jv = (jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v))
+    want = jax_attention_ref(jq, jk, jv, causal=True)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=8e-3,
+                               atol=8e-3)
+
+
+def test_cpu_route_launches_nothing_and_refuses_bad_inputs():
+    q, k, v = (torch.from_numpy(a) for a in _inputs(1, 8, 8, 4, 2, 32, 0))
+    before = flash_attention.launches
+    flash_attention(q, k, v)
+    assert flash_attention.launches == before
+    with pytest.raises(TypeError):
+        flash_attention(q.double(), k.double(), v.double())
+    with pytest.raises(ValueError):
+        flash_attention(q, k[:, :, :1].expand(1, 8, 3, 32), v)
+    with pytest.raises(ValueError):
+        flash_attention(q, k, v, sliding_window=0)

@@ -755,6 +755,11 @@ def test_port_imports_neither_jax_nor_the_reference():
                 rel = os.path.relpath(path, os.path.join(ROOT, "src"))
                 mods.append(rel[:-3].replace(os.sep, ".")
                             .replace(".__init__", ""))
+    assert {"repro_torch.launch.serve", "repro_torch.models.attention",
+            "repro_torch.models.decoder",
+            "repro_torch.kernels.flash_attention.ops",
+            "repro_torch.kernels.decode_attention.ops",
+            "repro_torch.configs.qwen2_0p5b"} <= set(mods)
     for path in files:
         tree = ast.parse(open(path).read())
         for node in ast.walk(tree):
