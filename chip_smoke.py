@@ -21,6 +21,9 @@ toolkit (``nvcc``), and exits non-zero on the first phase that fails.
    The attention kernels are timed at the serve path's shapes and at one
    long shape each, beside ``F.scaled_dot_product_attention`` as the
    library yardstick (timed here only; the port never calls it).
+   ``ssd_scan`` is timed at the Mamba2 serve path's shape and at one long
+   shape; no single PyTorch call computes the scan, so it has no library
+   row.
 4. Three paths, three rounds each, of the paper's FedTest round at the
    full width of ``fedtest-cnn`` (188,810 params; 20 users, 5 testers, 3
    ``random_weights`` attackers), built by ``repro_torch.launch.train``'s
@@ -44,6 +47,19 @@ toolkit (``nvcc``), and exits non-zero on the first phase that fails.
    over the prompt and that token (teacher forcing). One prefill and one
    decode step are also captured in a CUDA graph and replayed, which
    gives the device's own time beside the host clock's.
+5b. Mamba2 serve: ``mamba2-2.7b`` at full width in bf16 (2,702,579,200
+   params drawn from a seed, bf16 weights with f32 ``dt_bias``,
+   ``A_log``, ``D`` and norm scales) through the same code path: 8 x 512
+   tokens prefilled (``ssd_scan``, one launch a layer, two chunks of
+   256), then 31 greedy decode steps (the plain recurrence, no kernel).
+   The launch counts must be 64 in the prefill and none in decode and no
+   other kernel; every step's logits must be finite; the last layer's
+   prefill scan must equal the plain version on its own inputs, y and
+   state; decode step 1 must match a full forward over 513 tokens, which
+   reaches the kernel's ragged last chunk (teacher forcing, on the bf16
+   run and on the same weights in f32). Host-clock and
+   CUDA-graph device times as for qwen2, and the device time of one
+   prefill and one decode step by kernel (``torch.profiler``).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -78,7 +94,7 @@ PATHS = (
     ("C", MAIN_PATH_ARGS + ["--compressor", "int8"], "dequant_aggregate"),
 )
 KERNELS = ("weighted_aggregate", "robust_combine", "dequant_aggregate",
-           "flash_attention", "decode_attention")
+           "flash_attention", "decode_attention", "ssd_scan")
 SOURCES = {k: f"src/repro_torch/kernels/csrc/{k}.cu" for k in KERNELS}
 REPLACES = {
     "weighted_aggregate": "src/repro/kernels/weighted_aggregate/kernel.py:33",
@@ -86,6 +102,7 @@ REPLACES = {
     "dequant_aggregate": "src/repro/kernels/dequant_aggregate/kernel.py:52",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:120",
     "decode_attention": "src/repro/kernels/decode_attention/kernel.py:102",
+    "ssd_scan": "src/repro/kernels/ssd_scan/kernel.py:92",
 }
 # the serve phase: qwen2-0.5b at full width, batch 8, a 512-token prompt
 # and 32 generated tokens (the first from the prefill), greedy
@@ -103,6 +120,28 @@ ATTN_TOL = {"float32": dict(rtol=1e-5, atol=1e-5),
 # against 8 x 513, the decode against the flash kernel) through 24
 # residual layers; bf16 keeps 8 bits, about 0.4 % of a value.
 SERVE_TF_TOL, SERVE_TF_MEAN_TOL = 0.15, 0.02
+# the Mamba2 serve phase: mamba2-2.7b at full width, the same batch, prompt
+# (two chunks of 256) and generation
+SSM_SERVE_ARGS = ["--device", "cuda", "--arch", "mamba2-2.7b", "--batch",
+                  "8", "--prompt-len", "512", "--gen", "32", "--temperature",
+                  "0", "--seed", "0"]
+# ssd_scan against its sequential plain version: f32 at rtol=atol=1e-3, the
+# tolerance tests/test_kernels_ssd.py holds the chunked forms to (a
+# chunk's decays are differences of a prefix sum of dt A, about 1e-4
+# relative in fp32); a bf16 y at one bf16 ulp (2**-7) plus that slack
+SSD_TOL = {"float32": dict(rtol=1e-3, atol=1e-3),
+           "bfloat16": dict(rtol=1e-2, atol=1e-2)}
+# Mamba2 teacher forcing, on the served weights upcast to f32: the two
+# paths differ only in summation order (GEMMs over 8 x 512 and 8 x 513
+# rows; the scan chunked against the decode recurrence for row 512), which
+# 64 residual layers amplify but keep far below the logits' spread; a
+# wrong ragged chunk or hand-off moves them by that whole spread. In bf16
+# the two paths round at other places, which the random-init stack
+# amplifies (on an H100 the served bf16 run read a largest |diff| of 0.44
+# and a mean of 0.055 of the std): the bf16 bounds leave twice that
+# headroom and still fail a hand-off that moves the logits by their std.
+SSM_TF_TOL, SSM_TF_MEAN_TOL = 1e-2, 1e-3
+SSM_TF_BF16_TOL, SSM_TF_BF16_MEAN_TOL = 1.0, 0.15
 
 # published peaks by card (NVIDIA data sheets, dense): HBM bytes/s, fp32
 # FLOP/s outside the tensor cores, bf16 FLOP/s on the tensor cores
@@ -138,12 +177,14 @@ def ops():
     from repro_torch.kernels.dequant_aggregate import dequant_aggregate
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.robust_combine import robust_combine
+    from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.kernels.weighted_aggregate import weighted_aggregate
     return {"weighted_aggregate": weighted_aggregate,
             "robust_combine": robust_combine,
             "dequant_aggregate": dequant_aggregate,
             "flash_attention": flash_attention,
-            "decode_attention": decode_attention}
+            "decode_attention": decode_attention,
+            "ssd_scan": ssd_scan}
 
 
 def reset_counts(kernel_ops) -> None:
@@ -218,7 +259,9 @@ def phase_build():
     the attention kernels is printed (flash: D in {32, 64, 128} x {f32,
     bf16}; decode: the same x the query-group bucket {1, 2, 4, 8}, and a
     merge kernel per D and dtype); the bf16 D=64 ones the serve path
-    runs must not spill."""
+    runs must not spill. ssd_scan has one kernel per head dim P in {32,
+    64} x state N in {16, 128} x {f32, bf16}; the bf16 P=64, N=128 one
+    the Mamba2 serve path runs must not spill."""
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
@@ -248,6 +291,11 @@ def phase_build():
                       if "13__nv_bfloat16Li64E" in fn]
             check(served and not any(fn in served for fn, *_ in spills),
                   f"{name}'s bf16 D=64 kernels spill: {spills}")
+        if name == "ssd_scan":
+            served = [fn for fn, *_ in report
+                      if "13__nv_bfloat16Li64ELi128E" in fn]
+            check(served and not any(fn in served for fn, *_ in spills),
+                  f"ssd_scan's bf16 P=64 N=128 kernel spills: {spills}")
         print(f"  {name}: {len(spills)} of {len(report)} kernels spill; "
               f"max registers {max(int(r[-1]) for r in report)}")
 
@@ -531,11 +579,107 @@ def check_decode_attention(torch):
           f"launch")
 
 
+def _ssd_inputs(torch, gen, Bt, S, H, P, G, N, dtype, *, mamba_init,
+                strided):
+    """x, dt, A, B, C, D on the card. ``mamba_init``: A = -linspace(1, 16,
+    H), as the model draws it (a chunk's cum of dt A then reaches the
+    thousands), else -exp(N(0, 1)); dt = softplus(N(0, 1)). ``strided``:
+    x, B and C are slices of one [Bt, S, H P + 2 G N] tensor, the layout
+    in which the model hands them over."""
+    def rnd(shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    if strided:
+        u = rnd((Bt, S, H * P + 2 * G * N)).to(dtype)
+        x = u[..., :H * P].view(Bt, S, H, P)
+        B = u[..., H * P:H * P + G * N].view(Bt, S, G, N)
+        C = u[..., H * P + G * N:].view(Bt, S, G, N)
+    else:
+        x, B, C = (rnd(shape).to(dtype) for shape in (
+            (Bt, S, H, P), (Bt, S, G, N), (Bt, S, G, N)))
+    dt = torch.nn.functional.softplus(rnd((Bt, S, H)))
+    A = (-torch.linspace(1.0, 16.0, H, device="cuda") if mamba_init
+         else -torch.exp(rnd((H,))))
+    return x, dt, A, B, C, rnd((H,))
+
+
+def _hold_ssd(torch, got, want, dtype, worst):
+    (y, st), (yr, sr) = got, want
+    name = str(dtype).split(".")[-1]
+    torch.testing.assert_close(y.float(), yr.float(), **SSD_TOL[name])
+    torch.testing.assert_close(st, sr, **SSD_TOL["float32"])
+    for key, a, b in ((f"{name} y", y, yr), (f"state ({name} in)", st, sr)):
+        worst[key] = max(worst.get(key, 0.0),
+                         float((a.float() - b.float()).abs().max()))
+
+
+def check_ssd_scan(torch):
+    """The SSD scan kernel against its sequential plain version, y and the
+    final state, in f32 and bf16: chunk 32, 64, 256; S ragged (two chunks
+    and 13 rows) and S shorter than a chunk; head dim P 32, 64; state N
+    16, 128; groups G 1, 2 with H/G 1, 4, 80 (A as the model draws it at
+    H/G = 80). Every other case reads x, B, C as slices of one wider
+    tensor, as the model passes them."""
+    from repro_torch.kernels.ssd_scan import ssd_ref, ssd_scan
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    calls, worst = 0, {}
+    launches = ssd_scan.launches
+    for dtype in (torch.float32, torch.bfloat16):
+        for chunk in (32, 64, 256):
+            for S in (2 * chunk + 13, chunk // 2 + 3):
+                for P, N in ((32, 16), (64, 128), (32, 128), (64, 16)):
+                    for G, rep in ((1, 1), (2, 1), (1, 4), (2, 4), (1, 80),
+                                   (2, 80)):
+                        H = G * rep
+                        args = _ssd_inputs(torch, gen, 2, S, H, P, G, N,
+                                           dtype, mamba_init=rep == 80,
+                                           strided=calls % 2 == 0)
+                        y, st = ssd_scan(*args, chunk=chunk)
+                        want = ssd_ref(*args)
+                        torch.cuda.synchronize()
+                        calls += 1
+                        check(y.dtype == dtype and y.shape == (2, S, H, P)
+                              and st.dtype == torch.float32
+                              and st.shape == (2, H, P, N),
+                              f"outputs {y.dtype} {tuple(y.shape)}, "
+                              f"{st.dtype} {tuple(st.shape)}")
+                        _hold_ssd(torch, (y, st), want, dtype, worst)
+    check(ssd_scan.launches == launches + calls,
+          f"{ssd_scan.launches - launches} launches for {calls} calls")
+    x, dt, A, B, C, D = _ssd_inputs(torch, gen, 1, 40, 4, 64, 2, 16,
+                                    torch.bfloat16, mamba_init=False,
+                                    strided=False)
+    must_raise(ValueError, lambda: ssd_scan(
+        x[..., :48], dt, A, B, C, D), "head dim 48")
+    must_raise(ValueError, lambda: ssd_scan(
+        x, dt, A, B[..., :8], C[..., :8], D), "state 8")
+    must_raise(ValueError, lambda: ssd_scan(
+        x, dt, A, B, C, D, chunk=4096), "chunk 4096")
+    must_raise(ValueError, lambda: ssd_scan(
+        x.transpose(2, 3).contiguous().transpose(2, 3), dt, A, B, C, D),
+        "an x strided in its last dimension")
+    must_raise(ValueError, lambda: ssd_scan(
+        x, dt, A, B[:, :, :1].expand(1, 40, 3, 16),
+        C[:, :, :1].expand(1, 40, 3, 16), D), "H=4 over G=3")
+    must_raise(TypeError, lambda: ssd_scan(x.half(), dt, A, B.half(),
+                                           C.half(), D), "float16")
+    check(ssd_scan.launches == launches + calls,
+          "a refused input launches nothing")
+    print(f"ssd_scan == plain version in {calls} cases, y and state (|err| "
+          f"<= {SSD_TOL['float32']['atol']} + {SSD_TOL['float32']['rtol']}"
+          f"|plain| in f32 and for the state, <= "
+          f"{SSD_TOL['bfloat16']['atol']} + {SSD_TOL['bfloat16']['rtol']}"
+          f"|plain| for a bf16 y); max |err| {worst}; head dim 48, state 8, "
+          f"chunk 4096, a strided last dimension, H % G != 0 and float16 "
+          f"are refused without a launch")
+
+
 def timing_row(torch, name, shape, fns, err, bytes_moved, operations,
                peaks, iters=None):
     """One timing row: each of ``fns`` ({"kernel", "plain", "library"})
-    on the device alone (``*_ms``) and eagerly (``*_eager_ms``), over
-    ``iters`` calls (by default 200, or 50 from 2**24 elements on)."""
+    on the device alone (``*_ms``, CUDA-graph replay) and eagerly
+    (``*_eager_ms``), over ``iters`` calls
+    (by default 200, or 50 from 2**24 elements on; a dict gives each of
+    ``fns`` its own)."""
     hbm, flops_peak = peaks
     if iters is None:
         iters = 50 if math.prod(shape) >= 1 << 24 else 200
@@ -544,8 +688,9 @@ def timing_row(torch, name, shape, fns, err, bytes_moved, operations,
            "bound_ms": max(by_bytes, by_ops) * 1e3,
            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
     for key, fn in fns.items():
-        row[key + "_ms"] = graph_ms(torch, fn, iters)
-        row[key + "_eager_ms"] = eager_ms(torch, fn, iters)
+        n = iters[key] if isinstance(iters, dict) else iters
+        row[key + "_ms"] = graph_ms(torch, fn, n)
+        row[key + "_eager_ms"] = eager_ms(torch, fn, n)
     return row
 
 
@@ -687,6 +832,56 @@ def phase_attention_times(torch, peaks):
                   f"{r['bound_ms']:.5f} ({r['bound_by']}), max |err| "
                   f"{r['max_abs_err']:.3g}")
     return rows
+
+
+def ssd_work(Bt, S, H, P, G, N, chunk, itemsize):
+    """(bytes, operations) of one scan: x and y, B, C (``itemsize`` bytes
+    each), dt and the final state (f32) moved once; per (b, h, chunk) of q
+    rows, the four products q (q + 1) (N + P) + 4 q P N: C B^T and its
+    product with x over the q (q + 1) / 2 pairs i >= j that the causal
+    decay keeps (the mask zeroes the rest), C h0^T and the state update."""
+    bytes_moved = (itemsize * (2 * Bt * S * H * P + 2 * Bt * S * G * N)
+                   + 4 * (Bt * S * H + Bt * H * P * N + 2 * H))
+    rows = [min(chunk, S - c0) for c0 in range(0, S, chunk)]
+    operations = Bt * H * sum(q * (q + 1) * (N + P) + 4 * q * P * N
+                              for q in rows)
+    return bytes_moved, operations
+
+
+def phase_ssd_times(torch, peaks):
+    """ssd_scan beside its plain version and the bound, bf16, at the
+    Mamba2 serve path's shape (Bt=8, S=512, H=80, P=64, G=1, N=128, chunk
+    256: one call, one layer of the prefill) and a long one (Bt=1,
+    S=8192). x, B, C are slices of one tensor as the model passes them; A
+    as the model draws it. Bound: ``ssd_work`` over HBM's rate and the
+    tensor cores' bf16 rate. No single PyTorch call computes the scan, so
+    there is no library row."""
+    from repro_torch.kernels.ssd_scan import ssd_ref, ssd_scan
+    hbm, bf16_peak = peaks[0], peaks[2]
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    H, P, G, N, chunk = 80, 64, 1, 128, 256
+    rows = []
+    for Bt, S, iters in ((8, 512, {"kernel": 20, "plain": 2}),
+                         (1, 8192, {"kernel": 5, "plain": 1})):
+        args = _ssd_inputs(torch, gen, Bt, S, H, P, G, N, torch.bfloat16,
+                           mamba_init=True, strided=True)
+        y, st = ssd_scan(*args, chunk=chunk)
+        yr, sr = ssd_ref(*args)
+        err = max(float((y.float() - yr.float()).abs().max()),
+                  float((st - sr).abs().max()))
+        rows.append(timing_row(
+            torch, "ssd_scan", (Bt, S, H, P, G, N), {
+                "kernel": lambda: ssd_scan(*args, chunk=chunk),
+                "plain": lambda: ssd_ref(*args)},
+            err, *ssd_work(Bt, S, H, P, G, N, chunk, 2), (hbm, bf16_peak),
+            iters=iters))
+    for r in rows:
+        print(f"ssd_scan {r['shape']}: device {r['kernel_ms']:.5f} ms "
+              f"(eager {r['kernel_eager_ms']:.5f}), plain {r['plain_ms']:.3f}"
+              f" (eager {r['plain_eager_ms']:.3f}), no library call, bound "
+              f"{r['bound_ms']:.5f} ({r['bound_by']}), max |err| "
+              f"{r['max_abs_err']:.3g}")
+    return {"ssd_scan": rows}
 
 
 def phase_path(torch, path, argv, op_name):
@@ -920,30 +1115,47 @@ def phase_serve(torch, card):
           f"calls == plain versions on their own inputs (max |err| "
           f"{worst})")
 
-    # teacher forcing: decode step 1 (the first generated token at
-    # position S) against a full forward over the prompt and that token
+    serve_teacher_forcing(torch, "serve", model, params, tokens,
+                          gen_tokens, step1["logits"], SERVE_TF_TOL,
+                          SERVE_TF_MEAN_TOL)
+    numbers = serve_numbers(torch, "serve", model, params, tokens, res,
+                            args.gen, card)
+    return counts, numbers
+
+
+def serve_teacher_forcing(torch, label, model, params, tokens, gen_tokens,
+                          step1_logits, tol, mean_tol):
+    """Decode step 1 (the first generated token, at position S) against a
+    full forward over the prompt and that token: the largest and the mean
+    |diff| must stay within ``tol`` and ``mean_tol`` of the logits' std.
+    Returns the numbers."""
+    S = tokens.shape[1]
     full = model.forward_train(params, {"tokens": torch.cat(
         [tokens, gen_tokens[:, :1]], dim=1)})[:, S].float()
-    diff = (full - step1["logits"]).abs()
+    diff = (full - step1_logits).abs()
     scale = float(full.std())
     tf = {"max": float(diff.max()), "mean": float(diff.mean()),
           "logit std": scale,
-          "argmax agree": float((full.argmax(-1) == step1["logits"]
+          "argmax agree": float((full.argmax(-1) == step1_logits
                                  .argmax(-1)).float().mean())}
-    print(f"serve: teacher-forced decode step 1 against the full forward "
-          f"over prompt + token: |diff| {tf}")
-    check(tf["max"] <= SERVE_TF_TOL * scale
-          and tf["mean"] <= SERVE_TF_MEAN_TOL * scale,
-          f"teacher-forced |diff| max {tf['max']:.4g} > {SERVE_TF_TOL} x "
-          f"or mean {tf['mean']:.4g} > {SERVE_TF_MEAN_TOL} x the logits' "
-          f"std {scale:.4g}")
+    print(f"{label}: teacher-forced decode step 1 against the full forward "
+          f"over prompt + token ({S + 1} tokens): |diff| {tf}")
+    check(tf["max"] <= tol * scale and tf["mean"] <= mean_tol * scale,
+          f"{label}: teacher-forced |diff| max {tf['max']:.4g} > {tol} x "
+          f"or mean {tf['mean']:.4g} > {mean_tol} x the logits' std "
+          f"{scale:.4g}")
+    return tf
 
-    # the device's own time for one prefill and one decode step: each
-    # captured in a CUDA graph and replayed, so no host work sits between
-    # its kernels; against the host clock above, the rest is the device
-    # idling while Python dispatches
-    cap = S + args.gen + 1
-    cache, last = res["cache"], gen_tokens[:, -1:]
+
+def serve_numbers(torch, label, model, params, tokens, res, gen_len, card):
+    """The serve metrics of one ``serve`` run, beside the device's own time
+    for one prefill and one decode step: each captured in a CUDA graph and
+    replayed, so no host work sits between its kernels; against the host
+    clock, the rest is the device idling while Python dispatches."""
+    B, S = tokens.shape
+    steps = gen_len - 1
+    cap = S + gen_len + 1
+    cache, last = res["cache"], res["tokens"][:, -1:]
     device = {
         "prefill_device_ms": graph_ms(torch, lambda: model.prefill(
             params, {"tokens": tokens}, cache_len=cap), 1),
@@ -961,13 +1173,181 @@ def phase_serve(torch, card):
         1 - device["prefill_device_ms"] / prefill_ms)
     numbers["decode_device_idle_share"] = (
         1 - device["decode_step_device_ms"] / numbers["decode_ms_per_step"])
-    print(f"serve: prefill {prefill_ms:.2f} ms ({numbers['prefill_tokens_per_s']:.0f}"
-          f" tok/s); decode {decode_ms:.2f} ms for {steps} steps "
+    print(f"{label}: prefill {prefill_ms:.2f} ms "
+          f"({numbers['prefill_tokens_per_s']:.0f} tok/s); decode "
+          f"{decode_ms:.2f} ms for {steps} steps "
           f"({numbers['decode_ms_per_step']:.3f} ms/step, "
           f"{numbers['decode_tokens_per_s']:.1f} tok/s); on the device "
           f"alone (CUDA graph) prefill {device['prefill_device_ms']:.2f} ms, "
           f"a decode step {device['decode_step_device_ms']:.3f} ms ({card})")
-    print("serve: sample tokens", gen_tokens[0, :12].tolist())
+    print(f"{label}: sample tokens", res["tokens"][0, :12].tolist())
+    return numbers
+
+
+def device_breakdown(torch, label, fn, top=6):
+    """Device time of one call of ``fn`` by kernel, from a
+    ``torch.profiler`` trace (CUPTI): the total, the launches, and the
+    ``top`` kernels by their summed time with their launch counts.
+    Returns ``{"total_ms", "launches", "top": [[name, ms, count], ...]}``;
+    ``None`` (printed "not measured") where the trace holds no device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    if not kernels:
+        print(f"{label}: device time by kernel not measured (the trace "
+              f"holds no device time)")
+        return None
+    kernels.sort(key=lambda k: -k[1])
+    total = sum(k[1] for k in kernels)
+    launches = sum(k[2] for k in kernels)
+    print(f"{label}: {total:.3f} ms on the device in {launches} launches "
+          f"of {len(kernels)} kernels; the top {top}: " + "; ".join(
+              f"{name[:70]} {ms:.3f} ms x{n}"
+              for name, ms, n in kernels[:top]))
+    return {"total_ms": total, "launches": launches,
+            "top": [[name[:120], ms, n] for name, ms, n in kernels[:top]]}
+
+
+def phase_ssm_serve(torch, card):
+    """mamba2-2.7b at full width in bf16 through the serve launcher's code
+    path, as ``phase_serve`` drives qwen2-0.5b: one warm-up pass, then the
+    measured pass with every kernel count set to 0 just before it, read
+    after the prefill and again after the decode steps. Returns (launch
+    counts of the whole pass, the numbers printed)."""
+    import repro_torch.models.ssm as ssm_mod
+    from repro_torch.kernels.ssd_scan import ssd_ref
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import build_model
+    from repro_torch.utils import tree_map
+
+    t0 = time.perf_counter()
+    args = serve_mod.parse_args(SSM_SERVE_ARGS)
+    model, params, tokens, gen = serve_mod.build(args)
+    torch.cuda.synchronize()
+    cfg = model.cfg
+    n_params = model.param_count(params)
+    check(n_params == 2_702_579_200, f"mamba2-2.7b has {n_params} params")
+    slot = params["layers"]["slot_0"]
+    mamba = slot["mamba"]
+    bf16 = [params["embed"], mamba["in_proj"], mamba["conv_w"],
+            mamba["conv_b"], mamba["out_proj"]]
+    f32 = [mamba["dt_bias"], mamba["A_log"], mamba["D"],
+           mamba["norm_scale"]["scale"], slot["norm1"]["scale"],
+           params["final_norm"]["scale"]]
+    check(all(t.dtype == torch.bfloat16 for t in bf16)
+          and all(t.dtype == torch.float32 for t in f32),
+          "bf16 weights; f32 dt_bias, A_log, D and norm scales")
+    B, S = tokens.shape
+    print(f"ssm serve: {cfg.name} ({n_params:,} params, {cfg.num_layers} "
+          f"layers, d_model {cfg.d_model}, {cfg.ssm_heads} heads of "
+          f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, {cfg.ssm_ngroups} "
+          f"group, chunk {cfg.ssm_chunk}, vocab {cfg.vocab_size}, "
+          f"{cfg.dtype}), batch {B}, prompt {S}, gen {args.gen}; set-up "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    seen = {}
+
+    def recorder(*a, **kw):
+        out = originals(*a, **kw)
+        seen["ssd"] = (a, kw, out)
+        return out
+
+    kernel_ops = ops()
+    finite, step1, prefill_counts = [], {}, {}
+
+    def on_step(i, logits):
+        finite.append(torch.isfinite(logits).all())
+        if i == 0:
+            prefill_counts.update(
+                {name: op.launches for name, op in kernel_ops.items()})
+        if i == 1:
+            step1["logits"] = logits[:, 0].float().clone()
+
+    originals = ssm_mod.ssd_scan
+    ssm_mod.ssd_scan = recorder
+    try:
+        warm = serve_mod.serve(model, params, tokens, args.gen,
+                               args.temperature, gen)
+        del warm
+        finite.clear()
+        torch.cuda.synchronize()
+        reset_counts(kernel_ops)
+        res = serve_mod.serve(model, params, tokens, args.gen,
+                              args.temperature, gen, on_step=on_step)
+        counts = {name: op.launches for name, op in kernel_ops.items()}
+        merges = kernel_ops["decode_attention"].merge_launches
+    finally:
+        ssm_mod.ssd_scan = originals
+    steps = args.gen - 1
+    want = {name: 0 for name in counts}
+    want["ssd_scan"] = cfg.num_layers
+    decode_counts = {name: counts[name] - prefill_counts[name]
+                     for name in counts}
+    check(prefill_counts == want and counts == want and merges == 0,
+          f"ssm serve launches: prefill {prefill_counts}, whole pass "
+          f"{counts}, merges {merges}; want {want} and none in decode")
+    print(f"ssm serve launches: prefill {prefill_counts}; {steps} decode "
+          f"steps {decode_counts} (ssd_scan: 1 prefill x {cfg.num_layers} "
+          f"layers; decode steps the plain recurrence)")
+    check(len(finite) == args.gen and all(bool(f) for f in finite),
+          "finite logits at the prefill and every decode step")
+    gen_tokens = res["tokens"]
+    check(gen_tokens.shape == (B, args.gen)
+          and bool(((gen_tokens >= 0) & (gen_tokens < cfg.vocab_size))
+                   .all()), f"tokens {tuple(gen_tokens.shape)} in range")
+
+    # the last layer's prefill scan against the plain version on its own
+    # inputs; x, B and C reach the kernel as views of the conv output
+    (x, dt, A, Bm, Cm, D), kw, (y, st) = seen["ssd"]
+    check(tuple(x.shape) == (B, S, cfg.ssm_heads, cfg.ssm_head_dim)
+          and kw == {"chunk": cfg.ssm_chunk} and not x.is_contiguous()
+          and x.stride(1) == cfg.d_inner + 2 * cfg.ssm_ngroups
+          * cfg.ssm_state, f"the last scan's x {tuple(x.shape)} strides "
+          f"{x.stride()}, {kw}")
+    worst = {}
+    _hold_ssd(torch, (y, st), ssd_ref(x, dt, A, Bm, Cm, D),
+              torch.bfloat16, worst)
+    print(f"ssm serve: the last layer's prefill ssd_scan == plain version "
+          f"on its own inputs (x read in place, strides {x.stride()}; max "
+          f"|err| {worst})")
+
+    # teacher forcing. The full forward over S + 1 = 513 tokens runs the
+    # scan in chunks of 256, 256 and 1 rows: the kernel's ragged last
+    # chunk, whose row 512 must give what the decode recurrence gives from
+    # the prefill's state. Checked on the served bf16 run, and tighter on
+    # the same weights in f32 (the kernel's f32 route)
+    tf_bf16 = serve_teacher_forcing(
+        torch, "ssm serve (bf16)", model, params, tokens, gen_tokens,
+        step1["logits"], SSM_TF_BF16_TOL, SSM_TF_BF16_MEAN_TOL)
+    model32 = build_model(cfg.replace(dtype="float32"))
+    params32 = tree_map(lambda t: t.float(), params)
+    _, cache32 = model32.prefill(params32, {"tokens": tokens})
+    step1_32, _ = model32.decode_step(params32, cache32, gen_tokens[:, :1])
+    del cache32
+    tf_f32 = serve_teacher_forcing(
+        torch, "ssm serve (f32 weights)", model32, params32, tokens,
+        gen_tokens, step1_32[:, 0].float(), SSM_TF_TOL, SSM_TF_MEAN_TOL)
+    del params32
+    numbers = serve_numbers(torch, "ssm serve", model, params, tokens, res,
+                            args.gen, card)
+    cache, last = res["cache"], gen_tokens[:, -1:]
+    numbers.update(
+        teacher_forcing_bf16=tf_bf16, teacher_forcing_f32=tf_f32,
+        prefill_by_kernel=device_breakdown(
+            torch, "ssm serve prefill", lambda: model.prefill(
+                params, {"tokens": tokens})),
+        decode_step_by_kernel=device_breakdown(
+            torch, "ssm serve decode step", lambda: model.decode_step(
+                params, cache, last)))
     return counts, numbers
 
 
@@ -999,6 +1379,7 @@ def main() -> int:
     check_dequant_aggregate(torch)
     check_flash_attention(torch)
     check_decode_attention(torch)
+    check_ssd_scan(torch)
 
     model = build_model(get_config("fedtest-cnn"))
     leaves = [math.prod(s) for s in tree_leaves(model.param_shapes())]
@@ -1006,17 +1387,22 @@ def main() -> int:
     padded_dim = COMPRESSORS.build("int8", {}, dict(dim=dim)).padded_dim
     rows = phase_times(torch, peaks[:2], leaves, dim, padded_dim)
     rows.update(phase_attention_times(torch, peaks))
+    rows.update(phase_ssd_times(torch, peaks))
 
     launches, walls = {}, {}
     for path, argv, op_name in PATHS:
         launches[op_name], walls[path] = phase_path(torch, path, argv,
                                                     op_name)
-    serve_counts, serve_numbers = phase_serve(torch, card)
+    serve_counts, serve_out = phase_serve(torch, card)
     launches["flash_attention"] = serve_counts["flash_attention"]
     launches["decode_attention"] = serve_counts["decode_attention"]
+    ssm_counts, ssm_out = phase_ssm_serve(torch, card)
+    launches["ssd_scan"] = ssm_counts["ssd_scan"]
 
     def entry(name, path_rows, shape):
-        def total(key):
+        def total(key):    # None where no PyTorch call computes the same
+            if any(key not in r for r in path_rows):
+                return None
             return sum(r[key] for r in path_rows)
         return {
             "name": name, "route": "cuda", "source": SOURCES[name],
@@ -1052,8 +1438,12 @@ def main() -> int:
         dict(entry("decode_attention", rows["decode_attention"][:1],
                    "one call (split kernel + merge kernel): B=8, cache "
                    "545, lengths 513..543, Hq=14, Hkv=2, D=64, bf16"),
-             merge_launches=serve_counts["decode_attention merge"])]}))
-    print(json.dumps({"serve": serve_numbers}))
+             merge_launches=serve_counts["decode_attention merge"]),
+        # one call (one layer) of the Mamba2 serve path's prefill
+        entry("ssd_scan", rows["ssd_scan"][:1],
+              "one call: Bt=8, S=512, H=80, P=64, G=1, N=128, chunk 256, "
+              "bf16")]}))
+    print(json.dumps({"serve": serve_out, "ssm_serve": ssm_out}))
     print(f"chip_smoke passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,13 +1,13 @@
 """Config dataclasses of the port (counterpart of ``repro/config/base.py``).
 
 ``ModelConfig`` carries the fields of the families the port runs: the
-paper's classifiers ``cnn`` and ``mlp``, and the ``dense`` decoder-only
-LM. The other LM families are refused with the ``ROADMAP.md`` item that
-ports them. ``FedConfig`` keeps the reference's fields
-that the round reads, with the reference's names and defaults; a field
-comes over with the slice that first reads it. The strategy names this
-slice does not run yet are refused with the ``ROADMAP.md`` item that
-will port them.
+paper's classifiers ``cnn`` and ``mlp``, the ``dense`` decoder-only LM
+and the attention-free Mamba2 ``ssm`` stack. The other LM families are
+refused with the ``ROADMAP.md`` item that ports them. ``FedConfig`` keeps
+the reference's fields that the round reads, with the reference's names
+and defaults; a field comes over with the slice that first reads it. The
+strategy names this slice does not run yet are refused with the
+``ROADMAP.md`` item that will port them.
 """
 from __future__ import annotations
 
@@ -24,10 +24,8 @@ def _require(cond: bool, msg: str) -> None:
 # ROADMAP.md item that ports it
 _FAMILIES_NOT_PORTED = {
     "moe": "queue 1 item 16 (models/moe.py)",
-    "ssm": "queue 1 item 16 (models/ssm.py, with the ssd_scan kernel of "
-           "queue 2 item 5)",
-    "hybrid": "queue 1 item 16 (models/ssm.py and models/moe.py, with the "
-              "ssd_scan kernel of queue 2 item 5)",
+    "hybrid": "queue 1 item 16 (models/moe.py and the decoder's stack of "
+              "attention/mamba periods)",
     "encdec": "queue 1 item 16 (models/encdec.py, cross-attention)",
     "vlm": "queue 1 item 16 (models/frontend_stub.py)",
 }
@@ -40,6 +38,7 @@ class ModelConfig:
 
     * ``dense`` — decoder-only transformer (GQA, optional qk-norm and
       qkv-bias, RoPE, SwiGLU, RMSNorm).
+    * ``ssm`` — attention-free Mamba2 (SSD) stack.
     * ``cnn`` — 3x3 conv + relu + 2x2 max-pool per entry of
       ``cnn_channels``, then two dense layers (Sec. III).
     * ``mlp`` — the MNIST fully-connected classifier.
@@ -62,6 +61,14 @@ class ModelConfig:
     sliding_window: Optional[int] = None  # None = full causal attention
     max_position: int = 131_072
 
+    # --- state-space (Mamba2 / SSD) ------------------------------------------
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_conv_width: int = 4
+    ssm_chunk: int = 256
+    ssm_ngroups: int = 1
+
     # --- cnn / mlp (the paper's classifiers) --------------------------------
     image_size: int = 0
     image_channels: int = 0
@@ -81,9 +88,16 @@ class ModelConfig:
             raise ValueError(
                 f"family {self.family!r} is not ported yet (ROADMAP.md "
                 f"{_FAMILIES_NOT_PORTED[self.family]}); the port runs "
-                "'dense', 'cnn' and 'mlp'")
-        _require(self.family in ("dense", "cnn", "mlp"),
+                "'dense', 'ssm', 'cnn' and 'mlp'")
+        _require(self.family in ("dense", "ssm", "cnn", "mlp"),
                  f"unknown family {self.family!r}")
+        if self.family == "ssm":
+            _require(self.ssm_state > 0, f"{self.name}: ssm needs state size")
+            _require(self.num_layers > 0 and self.d_model > 0
+                     and self.vocab_size > 0,
+                     f"{self.name}: ssm needs num_layers, d_model and "
+                     "vocab_size")
+            return
         if self.family == "dense":
             _require(self.num_heads > 0 and self.num_kv_heads > 0,
                      f"{self.name}: attention archs need heads")
@@ -108,8 +122,21 @@ class ModelConfig:
                      f"{self.name}: mlp needs mlp_hidden, num_classes "
                      "and image_size")
 
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def d_inner(self) -> int:
+        """Mamba2 inner width."""
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim if self.ssm_state else 0
+
     def uses_attention(self, layer_idx: int) -> bool:
-        """Every layer of the dense family attends."""
+        """Every layer of the dense family attends; no ssm layer does."""
         return self.family == "dense"
 
     def uses_moe(self, layer_idx: int) -> bool:
@@ -124,7 +151,8 @@ def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:
     """Reduced variant of the same family for CPU smoke tests (the
     reference's ``reduce_for_smoke`` for the families the port runs):
     at most 2 layers, d_model <= 256, vocab <= 512, at most 4 query
-    heads of width 32, d_ff <= 512."""
+    heads of width 32, d_ff <= 512; an SSM state <= 16 in heads of 32,
+    chunk 32."""
     kw: dict = dict(
         name=cfg.name + "-smoke",
         num_layers=min(cfg.num_layers, 2),
@@ -140,6 +168,9 @@ def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:
         kw.update(num_heads=heads, num_kv_heads=kv, head_dim=32)
     if cfg.d_ff:
         kw.update(d_ff=min(cfg.d_ff, 512))
+    if cfg.ssm_state:
+        kw.update(ssm_state=min(cfg.ssm_state, 16), ssm_head_dim=32,
+                  ssm_chunk=32)
     if cfg.family == "cnn":
         kw.update(cnn_channels=tuple(min(c, 16) for c in cfg.cnn_channels),
                   cnn_hidden=min(cfg.cnn_hidden, 64))

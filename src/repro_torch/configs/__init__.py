@@ -1,4 +1,4 @@
-"""Model configs: the cnn/mlp and dense subset of ``repro.configs``.
+"""Model configs: the cnn/mlp, dense and ssm subset of ``repro.configs``.
 
 Each module defines ``config() -> ModelConfig`` with the values of its
 reference twin; ``get_config(arch_id)`` resolves the CLI ``--arch`` id.

@@ -1,5 +1,5 @@
 """Arch-id -> ModelConfig registry: the paper's three classifiers and the
-dense LMs the port serves."""
+LMs the port serves (dense and Mamba2)."""
 from __future__ import annotations
 
 import importlib
@@ -14,6 +14,7 @@ ARCH_IDS: Dict[str, str] = {
     "fedtest-mlp-mnist": "fedtest_mlp_mnist",
     "qwen2-0.5b": "qwen2_0p5b",
     "qwen3-1.7b": "qwen3_1p7b",
+    "mamba2-2.7b": "mamba2_2p7b",
 }
 
 

@@ -20,8 +20,9 @@ def params_from_reference(tree_of_numpy: Dict[str, Any], device, *,
                           model) -> Dict[str, Any]:
     """Nested dict of numpy arrays (the JAX package's params) -> nested
     dict of tensors on ``device``, each leaf in its dtype in
-    ``model.param_dtypes()``: the model's dtype, and f32 for the LM's
-    RMSNorm scales, which the reference keeps in f32 in a bf16 model.
+    ``model.param_dtypes()``: the model's dtype, and f32 for the LMs'
+    RMSNorm scales and the mamba block's ``dt_bias``, ``A_log`` and ``D``,
+    which the reference keeps in f32 in a bf16 model.
     Refuses a missing or extra leaf and a shape mismatch against
     ``model.param_shapes()``. A bf16 leaf arrives as an ``ml_dtypes``
     bfloat16 array and goes through f32, which holds it exactly."""

@@ -24,4 +24,7 @@ Kernels:
 * ``decode_attention`` — one query token a sequence over a KV cache,
   split-K with a merge kernel, the LM decode step (CUDA C++,
   ``csrc/decode_attention.cu``); ``merge_partials`` is plain torch.
+* ``ssd_scan`` — the Mamba2 SSD chunked scan, one block a (batch, head)
+  walking its chunks, the ssm prefill (CUDA C++, ``csrc/ssd_scan.cu``);
+  its single-token decode ``ssd_decode_ref`` is plain torch.
 """

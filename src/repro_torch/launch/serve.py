@@ -1,14 +1,18 @@
 """Batched serving entry point of the port: prefill a prompt batch, then
-decode token by token (the dense side of ``repro.launch.serve``).
+decode token by token (the dense and ssm side of ``repro.launch.serve``).
 
-Serves a dense LM at full width on the card by default, with weights
-drawn from ``--seed``:
+Serves a dense or Mamba2 LM at full width on the card by default, with
+weights drawn from ``--seed``:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
       --batch 8 --prompt-len 512 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \\
+      --batch 8 --prompt-len 512 --gen 32
 
-Prefill runs each layer's attention through the ``flash_attention``
-kernel, decode through ``decode_attention``. ``--device cpu --smoke``
+For a dense LM, prefill runs each layer's attention through the
+``flash_attention`` kernel, decode through ``decode_attention``; for
+Mamba2, prefill runs each layer's scan through the ``ssd_scan`` kernel
+and decode steps the recurrence in plain torch. ``--device cpu --smoke``
 runs the reduced config in f32 on the CPU (the kernels' plain versions);
 ``--device cuda`` without a card raises. Prompt tokens and sampling come
 from a ``torch.Generator``, so the tokens differ from the reference's
@@ -61,7 +65,7 @@ def build(args: argparse.Namespace):
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = reduce_for_smoke(cfg).replace(dtype="float32")
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "ssm"):
         raise SystemExit(f"{cfg.name} ({cfg.family}) has no serving path")
     model = build_model(cfg)
     gen = torch.Generator(device=device).manual_seed(args.seed)

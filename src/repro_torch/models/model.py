@@ -1,15 +1,15 @@
-"""Family-independent model facade (the cnn/mlp/dense side of
+"""Family-independent model facade (the cnn/mlp/dense/ssm side of
 ``repro/models/model.py``).
 
     m = build_model(cfg)
     params = m.init(gen)                       # on gen's device
     logits = m.forward_train(params, batch)
     loss, metrics = m.loss(params, batch)
-    logits, cache = m.prefill(params, batch, cache_len=...)   # dense
-    logits, cache = m.decode_step(params, cache, tokens)      # dense
+    logits, cache = m.prefill(params, batch, cache_len=...)   # dense, ssm
+    logits, cache = m.decode_step(params, cache, tokens)      # dense, ssm
 
 Batches are ``{"images": [B,H,W,C], "labels": [B]}`` for cnn/mlp and
-``{"tokens": [B,S], "labels": [B,S]}`` for the dense LM.
+``{"tokens": [B,S], "labels": [B,S]}`` for the LMs.
 """
 from __future__ import annotations
 
@@ -36,7 +36,7 @@ class Model:
     cfg: ModelConfig
     sliding_window: Optional[int] = None   # long-context serving variant
     # the classifier family's weightless module, driven through
-    # functional_call (None for the dense LM, which is plain functions)
+    # functional_call (None for the LMs, which are plain functions)
     net: Optional[torch.nn.Module] = dataclasses.field(
         init=False, repr=False, compare=False)
 
@@ -50,7 +50,7 @@ class Model:
         return _DTYPES[self.cfg.dtype]
 
     def _lm(self) -> bool:
-        return self.cfg.family == "dense"
+        return self.cfg.family in ("dense", "ssm")
 
     def param_shapes(self) -> Dict[str, Any]:
         """Nested dict of leaf shapes, in the reference's tree."""
@@ -62,8 +62,9 @@ class Model:
         return mlp_mod.mlp_param_shapes(self.cfg)
 
     def param_dtypes(self) -> Dict[str, Any]:
-        """Nested dict of leaf dtypes: the model's dtype, except the dense
-        LM's RMSNorm scales, which stay f32 as the reference keeps them."""
+        """Nested dict of leaf dtypes: the model's dtype, except the LMs'
+        RMSNorm scales and the mamba block's ``dt_bias``, ``A_log`` and
+        ``D``, which stay f32 as the reference keeps them."""
         if self._lm():
             return tree_map(lambda s: s[1],
                             dec_mod.decoder_specs(self.cfg, self.dtype))
@@ -99,8 +100,9 @@ class Model:
 
     def prefill(self, params, batch, *, cache_len: int = 0
                 ) -> Tuple[torch.Tensor, Dict]:
-        """Logits ``[B, S, V]`` of the prompt and its KV cache, padded to
-        ``cache_len`` rows."""
+        """Logits ``[B, S, V]`` of the prompt and its cache: the KV cache
+        padded to ``cache_len`` rows, or an attention-free stack's conv and
+        ssm states (``cache_len`` unused, as in the reference)."""
         self._require_lm("serving")
         return dec_mod.decoder_forward(
             params, self.cfg, batch["tokens"], want_cache=True,

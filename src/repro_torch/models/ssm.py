@@ -1,0 +1,165 @@
+"""Mamba2 (SSD) block, full-sequence chunked scan and single-token decode
+(the port's side of ``repro/models/ssm.py``).
+
+Block layout follows the Mamba2 paper: fused in-projection producing
+(z, x, B, C, dt), short causal depthwise conv over (x, B, C), softplus dt,
+the SSD scan (the ``ssd_scan`` kernel op for a sequence, the plain
+recurrence ``ssd_decode_ref`` for one token), gated RMSNorm,
+out-projection. Params keep the reference's tree: ``in_proj [D,
+2 d_in + 2 G N + H]``, ``conv_w [W, conv_dim]``, ``conv_b``, ``out_proj
+[d_in, D]`` in the model's dtype; ``dt_bias``, ``A_log``, ``D [H]`` and
+``norm_scale.scale [d_in]`` in f32.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.ssd_scan import ssd_decode_ref, ssd_scan
+from repro_torch.models.common import dense_init, rms_norm
+
+
+def _dims(cfg):
+    d_in = cfg.d_inner
+    H = cfg.ssm_heads
+    P = cfg.ssm_head_dim
+    G = cfg.ssm_ngroups
+    N = cfg.ssm_state
+    conv_dim = d_in + 2 * G * N
+    return d_in, H, P, G, N, conv_dim
+
+
+def ssm_specs(cfg, dtype) -> Dict:
+    """Leaf shapes and dtypes of one Mamba2 block: ``{name: (shape,
+    dtype)}``."""
+    D = cfg.d_model
+    d_in, H, P, G, N, conv_dim = _dims(cfg)
+    W = cfg.ssm_conv_width
+    f32 = torch.float32
+    return {"in_proj": ((D, 2 * d_in + 2 * G * N + H), dtype),
+            "conv_w": ((W, conv_dim), dtype),
+            "conv_b": ((conv_dim,), dtype),
+            "dt_bias": ((H,), f32),
+            "A_log": ((H,), f32),
+            "D": ((H,), f32),
+            "norm_scale": {"scale": ((d_in,), f32)},
+            "out_proj": ((d_in, D), dtype)}
+
+
+def ssm_init(gen: torch.Generator, cfg, dtype, lead=()) -> Dict:
+    """Fresh params drawn on ``gen``'s device, as the reference draws
+    them; ``lead`` prepends stacked axes (the decoder's layer axis):
+    projections fan-in truncated normal, ``conv_w`` N(0, 1/W), ``A_log``
+    the log of ``linspace(1, 16, H)``, ``D`` and the norm scale one,
+    biases zero."""
+    specs = ssm_specs(cfg, dtype)
+    dev = gen.device
+    H = cfg.ssm_heads
+
+    def full(name, value):
+        shape, dt = specs[name]
+        return torch.full(lead + shape, value, dtype=dt, device=dev)
+
+    conv_shape, _ = specs["conv_w"]
+    conv_w = torch.empty(lead + conv_shape, dtype=torch.float32, device=dev)
+    conv_w.normal_(0.0, 1.0, generator=gen)
+    a_log = torch.log(torch.linspace(1.0, 16.0, H, dtype=torch.float32,
+                                     device=dev))
+    return {
+        "in_proj": dense_init(gen, lead + specs["in_proj"][0],
+                              in_axis=len(lead), dtype=dtype),
+        "conv_w": (conv_w * cfg.ssm_conv_width ** -0.5).to(dtype),
+        "conv_b": full("conv_b", 0.0),
+        "dt_bias": full("dt_bias", 0.0),
+        "A_log": a_log.expand(lead + (H,)).clone(),
+        "D": full("D", 1.0),
+        "norm_scale": {"scale": torch.ones(
+            lead + specs["norm_scale"]["scale"][0], dtype=torch.float32,
+            device=dev)},
+        "out_proj": dense_init(gen, lead + specs["out_proj"][0],
+                               in_axis=len(lead), dtype=dtype),
+    }
+
+
+def _split_proj(proj: torch.Tensor, cfg):
+    d_in, H, P, G, N, conv_dim = _dims(cfg)
+    z = proj[..., :d_in]
+    rest = proj[..., d_in:d_in + conv_dim]
+    dt = proj[..., d_in + conv_dim:]
+    return z, rest, dt                          # rest = (x, B, C) pre-conv
+
+
+def _split_conv_out(u: torch.Tensor, cfg):
+    d_in, H, P, G, N, _ = _dims(cfg)
+    x = u[..., :d_in]
+    Bm = u[..., d_in:d_in + G * N]
+    Cm = u[..., d_in + G * N:]
+    return x, Bm, Cm
+
+
+def _causal_conv_full(p, u: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv. u [B,S,C] -> [B,S,C]."""
+    W = p["conv_w"].shape[0]
+    S = u.shape[1]
+    pad = F.pad(u, (0, 0, W - 1, 0))
+    out = sum(pad[:, i:i + S, :] * p["conv_w"][i] for i in range(W))
+    return out + p["conv_b"]
+
+
+def _gate_out(p, cfg, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """Gated RMSNorm of y by silu(z), then the out-projection."""
+    y = rms_norm(p["norm_scale"], y * F.silu(z.float()).to(y.dtype),
+                 cfg.norm_eps)
+    return y @ p["out_proj"]
+
+
+def ssm_full(p, cfg, x: torch.Tensor, *, return_state: bool = False):
+    """x [B,S,D] -> y [B,S,D] (+ (conv_state [B,W-1,conv_dim], ssm_state
+    [B,H,P,N] f32) for the serve hand-off). The scan's x, B and C are
+    views of the conv output, which the kernel reads in place."""
+    B, S, _ = x.shape
+    d_in, H, P, G, N, conv_dim = _dims(cfg)
+    W = cfg.ssm_conv_width
+
+    proj = x @ p["in_proj"]
+    z, pre, dt_raw = _split_proj(proj, cfg)
+    u = F.silu(_causal_conv_full(p, pre).float()).to(x.dtype)
+    xs, Bm, Cm = _split_conv_out(u, cfg)
+    dt = F.softplus(dt_raw.float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    y, state = ssd_scan(xs.reshape(B, S, H, P), dt, A,
+                        Bm.reshape(B, S, G, N), Cm.reshape(B, S, G, N),
+                        p["D"], chunk=cfg.ssm_chunk)
+    out = _gate_out(p, cfg, y.reshape(B, S, d_in), z)
+    if return_state:
+        # the last W-1 pre-conv rows, zero-padded in front when S < W-1
+        conv_state = F.pad(pre, (0, 0, W - 1, 0))[:, S:S + W - 1]
+        return out, (conv_state, state)
+    return out
+
+
+def ssm_decode(p, cfg, x: torch.Tensor, conv_state: torch.Tensor,
+               ssm_state: torch.Tensor
+               ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Single-token recurrent step. x [B,1,D]; conv_state [B,W-1,conv_dim];
+    ssm_state [B,H,P,N] f32. Returns (y [B,1,D], (new conv state, new
+    ssm state)); the inputs are not modified."""
+    B = x.shape[0]
+    d_in, H, P, G, N, conv_dim = _dims(cfg)
+
+    proj = x[:, 0] @ p["in_proj"]                  # [B, proj_dim]
+    z, pre, dt_raw = _split_proj(proj, cfg)
+    window = torch.cat([conv_state, pre[:, None, :]], dim=1)   # [B,W,C]
+    u = torch.einsum("bwc,wc->bc", window, p["conv_w"]) + p["conv_b"]
+    u = F.silu(u.float()).to(x.dtype)
+    xs, Bm, Cm = _split_conv_out(u, cfg)
+    dt = F.softplus(dt_raw.float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    y, ssm_state = ssd_decode_ref(
+        xs.reshape(B, H, P), dt, A, Bm.reshape(B, G, N), Cm.reshape(B, G, N),
+        p["D"], ssm_state)
+    out = _gate_out(p, cfg, y.reshape(B, d_in), z)[:, None, :]
+    return out, (window[:, 1:], ssm_state)
+

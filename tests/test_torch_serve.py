@@ -89,7 +89,7 @@ def test_qwen2_full_width_param_count():
 
 
 @pytest.mark.parametrize("family,what", [
-    ("moe", "models/moe.py"), ("ssm", "ssd_scan"), ("hybrid", "ssd_scan"),
+    ("moe", "models/moe.py"), ("hybrid", "periods"),
     ("encdec", "encdec"), ("vlm", "frontend_stub")])
 def test_modelconfig_refuses_unported_families(family, what):
     with pytest.raises(ValueError, match="item 16") as err:
