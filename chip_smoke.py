@@ -10,7 +10,9 @@ toolkit (``nvcc``), and exits non-zero on the first phase that fails.
    both TF32 flags (off: the port runs fp32 models in full fp32).
 2. Every kernel of the port is built from ``src/repro_torch/kernels/
    csrc`` (one ``nvcc`` per source, all at once) and held against its
-   plain PyTorch version on the card; bad inputs must be refused.
+   plain PyTorch version on the card; bad inputs must be refused. The
+   bf16 attention kernels must show tensor-core instructions (HMMA) in
+   their machine code (``cuobjdump -sass``).
 3. Times, with CUDA events: each kernel at the shapes its path gives it
    and at M=2**22, beside its plain version, one PyTorch library call
    computing the same function, and the least time the card could take
@@ -251,17 +253,51 @@ def phase_environment(torch):
     return smi
 
 
+# the bf16 attention kernels on the tensor cores (D = 32, 64, 128), by
+# their names: flash runs D=64 as warpgroup products (wgmma), the rest as
+# mma.sync; and the instances the qwen2 serve path runs (D=64)
+MMA_KERNELS = {"flash_attention": ("flash_fwd_mma_kernel",
+                                   "flash_fwd_wgmma_kernel"),
+               "decode_attention": ("decode_split_mma_kernel",)}
+SERVED = {"flash_attention": ("flash_fwd_wgmma_kernel",),
+          "decode_attention": ("decode_split_mma_kernelILi64E",
+                               "decode_merge_kernelI13__nv_bfloat16Li64E"),
+          "ssd_scan": ("13__nv_bfloat16Li64ELi128E",)}
+
+
+def sass_mma_counts(lib):
+    """Tensor-core instructions (HMMA, HGMMA) in each kernel of a built
+    library, by ``cuobjdump -sass`` from the toolkit that built it."""
+    from repro_torch.kernels import build
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            fn = found.group(1)
+            counts[fn] = 0
+        elif fn is not None and re.search(r"\bH(G)?MMA\b", line):
+            counts[fn] += 1
+    return counts
+
+
 def phase_build():
     """Build every kernel, one nvcc each, all started together; print
     nvcc's register and spill report. robust_combine has one kernel per
     C = 1..64 (and a 4-column one for C <= 32): its report is summed up,
     and the C=20 kernels the paths use must not spill. Every instance of
     the attention kernels is printed (flash: D in {32, 64, 128} x {f32,
-    bf16}; decode: the same x the query-group bucket {1, 2, 4, 8}, and a
-    merge kernel per D and dtype); the bf16 D=64 ones the serve path
-    runs must not spill. ssd_scan has one kernel per head dim P in {32,
-    64} x state N in {16, 128} x {f32, bf16}; the bf16 P=64, N=128 one
-    the Mamba2 serve path runs must not spill."""
+    bf16}; decode: the same, f32 x the query-group bucket {1, 2, 4, 8},
+    and a merge kernel per D and dtype); the bf16 D=64 ones the serve
+    path runs must not spill. ssd_scan has one kernel per head dim P in
+    {32, 64} x state N in {16, 128} x {f32, bf16}; the bf16 P=64, N=128
+    one the Mamba2 serve path runs must not spill. The attention
+    libraries' machine code is read back (``cuobjdump -sass``): every
+    bf16 instance of the tensor-core kernels (flash: wgmma at D=64,
+    mma.sync at 32 and 128; decode: mma.sync) must hold HMMA or HGMMA
+    instructions, no other kernel may, and their counts are printed."""
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
@@ -286,18 +322,25 @@ def phase_build():
             c20 = [fn for fn, *_ in report if "ILi20E" in fn]
             check(len(c20) == 2 and not any(fn in c20 for fn, *_ in spills),
                   f"robust_combine at C=20 spills: {spills}")
-        if name in ("flash_attention", "decode_attention"):
+        if name in SERVED:
             served = [fn for fn, *_ in report
-                      if "13__nv_bfloat16Li64E" in fn]
-            check(served and not any(fn in served for fn, *_ in spills),
-                  f"{name}'s bf16 D=64 kernels spill: {spills}")
-        if name == "ssd_scan":
-            served = [fn for fn, *_ in report
-                      if "13__nv_bfloat16Li64ELi128E" in fn]
-            check(served and not any(fn in served for fn, *_ in spills),
-                  f"ssd_scan's bf16 P=64 N=128 kernel spills: {spills}")
+                      if any(key in fn for key in SERVED[name])]
+            check(len(served) == len(SERVED[name])
+                  and not any(fn in served for fn, *_ in spills),
+                  f"{name}'s served kernels {served} spill: {spills}")
         print(f"  {name}: {len(spills)} of {len(report)} kernels spill; "
               f"max registers {max(int(r[-1]) for r in report)}")
+        if name in MMA_KERNELS:
+            counts = sass_mma_counts(lib)
+            mma = {fn: n for fn, n in counts.items()
+                   if any(key in fn for key in MMA_KERNELS[name])}
+            check(len(mma) == 3 and all(mma.values()),
+                  f"{name}: tensor-core instructions by bf16 instance "
+                  f"(D = 32, 64, 128) {mma}")
+            for fn, n in mma.items():
+                print(f"  {fn}: {n} HMMA/HGMMA instructions")
+            check(not any(n for fn, n in counts.items() if fn not in mma),
+                  f"{name}: only the bf16 kernels use the tensor cores")
 
 
 def _shifted(torch, x, offset_bytes: int):
@@ -469,8 +512,10 @@ ATTN_HEADS = ((4, 4), (4, 2), (14, 2), (8, 1))
 def check_flash_attention(torch):
     """The flash kernel against its plain version in f32 and bf16: groups
     1, 2, 7, 8; head_dim 32, 64, 128; causal and not; window None, 8,
-    100; S = T = 64 (whole tiles), S = T = 77 (ragged) and S=40 inside
-    T=131 at q_offset 91 (ragged, S < T)."""
+    100 and 200 (across key-tile edges); S = T = 64 (whole tiles), S = T
+    = 77 (ragged), S=40 inside T=131 at q_offset 91 (ragged, S < T), S =
+    T = 300 (five key tiles, ragged: the bf16 kernel's ring wraps) and
+    S=1 inside T=1000 at q_offset 999 (one query over 16 key tiles)."""
     from repro_torch.kernels.flash_attention import (
         attention_ref, flash_attention)
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -479,11 +524,12 @@ def check_flash_attention(torch):
     for dtype in (torch.float32, torch.bfloat16):
         for Hq, Hkv in ATTN_HEADS:
             for D in (32, 64, 128):
-                for S, T, off in ((64, 64, 0), (77, 77, 0), (40, 131, 91)):
+                for S, T, off in ((64, 64, 0), (77, 77, 0), (40, 131, 91),
+                                  (300, 300, 0), (1, 1000, 999)):
                     q, k, v = _attn_inputs(torch, gen, (2, S, Hq, D),
                                            (2, T, Hkv, D), dtype)
                     for causal in (True, False):
-                        for window in (None, 8, 100):
+                        for window in (None, 8, 100, 200):
                             kw = dict(causal=causal, sliding_window=window,
                                       q_offset=off)
                             got = flash_attention(q, k, v, **kw)
@@ -507,37 +553,43 @@ def check_flash_attention(torch):
         v[..., :48].contiguous()), "head_dim 48")
     must_raise(TypeError, lambda: flash_attention(q.half(), k.half(),
                                                   v.half()), "float16")
+    must_raise(ValueError, lambda: flash_attention(_shifted(torch, q, 2), k,
+                                                   v), "a misaligned q")
     check(flash_attention.launches == launches + calls,
           "a refused input launches nothing")
     print(f"flash_attention == plain version in {calls} cases (|err| <= "
           f"{ATTN_TOL['float32']['atol']} + {ATTN_TOL['float32']['rtol']}"
           f"|plain| in f32, <= {ATTN_TOL['bfloat16']['atol']} + "
           f"{ATTN_TOL['bfloat16']['rtol']}|plain| in bf16); max |err| "
-          f"{worst}; a non-contiguous q, head_dim 48 and float16 are "
-          f"refused without a launch")
+          f"{worst}; a non-contiguous q, head_dim 48, float16 and a bf16 q "
+          f"off a 16-byte boundary are refused without a launch")
 
 
 def check_decode_attention(torch):
     """The split-K decode kernel and its merge against the plain version,
     out and lse, in f32 and bf16: groups 1, 2, 7, 8; head_dim 32, 64,
-    128; window None, 8, 100; caches of 64 keys (one split), 545 (the
-    serve capacity, 9 splits of 61) and 1000; lengths 1, 2 (shorter than
-    a split), 63 (across a split's edge) and the whole cache."""
+    128; window None, 8, 100 on caches of 64 keys (one split), 545 and
+    1000 with lengths 1, 2 (shorter than a tile), 63 and the whole cache;
+    window None and 300 on a cache of 4099 keys with lengths 1, 64, 2049
+    and 4099 (splits of several tiles: the bf16 kernel's ring wraps, and
+    the last tile is ragged)."""
     from repro_torch.kernels.decode_attention import (
         decode_attention, decode_attention_ref)
     gen = torch.Generator(device="cuda").manual_seed(5)
     calls, worst = 0, {}
     launches = decode_attention.launches
     merges = decode_attention.merge_launches
+    caches = [(T, [1, 2, 63, T], (None, 8, 100)) for T in (64, 545, 1000)]
+    caches.append((4099, [1, 64, 2049, 4099], (None, 300)))
     for dtype in (torch.float32, torch.bfloat16):
         for Hq, Hkv in ATTN_HEADS:
             for D in (32, 64, 128):
-                for T in (64, 545, 1000):
+                for T, lens, windows in caches:
                     q, k, v = _attn_inputs(torch, gen, (4, Hq, D),
                                            (4, T, Hkv, D), dtype)
-                    lengths = torch.tensor([1, 2, 63, T], dtype=torch.int32,
+                    lengths = torch.tensor(lens, dtype=torch.int32,
                                            device="cuda")
-                    for window in (None, 8, 100):
+                    for window in windows:
                         out, lse = decode_attention(q, k, v, lengths,
                                                     window=window)
                         want_out, want_lse = decode_attention_ref(
@@ -568,6 +620,9 @@ def check_decode_attention(torch):
                                  torch.bfloat16)
     must_raise(ValueError, lambda: decode_attention(q16, k16, v16, lengths),
                "16 query heads a KV head")
+    must_raise(ValueError, lambda: decode_attention(_shifted(torch, q, 2), k,
+                                                    v, lengths),
+               "a misaligned bf16 q")
     check(decode_attention.launches == launches + calls,
           "a refused input launches nothing")
     print(f"decode_attention == plain version in {calls} cases, out and "
@@ -575,8 +630,8 @@ def check_decode_attention(torch):
           f"{ATTN_TOL['float32']['rtol']}|plain| in f32 and for lse, <= "
           f"{ATTN_TOL['bfloat16']['atol']} + {ATTN_TOL['bfloat16']['rtol']}"
           f"|plain| for a bf16 out); max |err| {worst}; a non-contiguous "
-          f"cache, int64 lengths and a group of 16 are refused without a "
-          f"launch")
+          f"cache, int64 lengths, a group of 16 and a misaligned bf16 q are "
+          f"refused without a launch")
 
 
 def _ssd_inputs(torch, gen, Bt, S, H, P, G, N, dtype, *, mamba_init,
@@ -771,10 +826,11 @@ def phase_attention_times(torch, peaks):
     decode a boolean mask built from ``lengths``) and the bound, in bf16:
     at the serve path's shapes (flash B=8, S=T=512, Hq=14, Hkv=2, D=64,
     causal; decode B=8, a 545-row cache, lengths 513..543) and at one long
-    shape each (flash B=1, S=T=4096; decode B=32, T=32,768). Bounds: each
-    input read once and the output written once over HBM's rate, against
-    the two products' 4 * D flops a (query head, attended key) pair at
-    the tensor cores' bf16 rate."""
+    shape each (flash B=1, S=T=4096; decode B=32, T=32,768; 20 calls a
+    CUDA graph, so that the graph's own launch weighs little beside calls
+    of about 0.2 ms). Bounds: each input read once and the output written
+    once over HBM's rate, against the two products' 4 * D flops a (query
+    head, attended key) pair at the tensor cores' bf16 rate."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention import (
@@ -785,7 +841,7 @@ def phase_attention_times(torch, peaks):
     gen = torch.Generator(device="cuda").manual_seed(6)
     Hq, Hkv, D = 14, 2, 64
     rows = {"flash_attention": [], "decode_attention": []}
-    for B, S, iters in ((8, 512, None), (1, 4096, 5)):
+    for B, S, iters in ((8, 512, None), (1, 4096, 20)):
         q, k, v = _attn_inputs(torch, gen, (B, S, Hq, D), (B, S, Hkv, D),
                                torch.bfloat16)
         err = float((flash_attention(q, k, v).float()
@@ -802,7 +858,7 @@ def phase_attention_times(torch, peaks):
             4 * D * Hq * B * pairs, (hbm, bf16_peak), iters=iters))
     for B, T, lengths, iters in (
             (8, 545, 513 + torch.arange(8) * 30 // 7, None),
-            (32, 32768, 32768 - torch.arange(32) * 64, 5)):
+            (32, 32768, 32768 - torch.arange(32) * 64, 20)):
         q, k, v = _attn_inputs(torch, gen, (B, Hq, D), (B, T, Hkv, D),
                                torch.bfloat16)
         lengths = lengths.to(device="cuda", dtype=torch.int32)

@@ -7,7 +7,7 @@ takes seconds. Libraries go to ``kernels/_build/`` (listed in
 ``.gitignore``), named by a hash of the source and the flags, so an edited
 source rebuilds and an unchanged one is reused. nvcc's report (``-Xptxas
 -v``: registers, shared memory, spills) is kept beside each library as
-``<lib>.log``.
+``<lib>.log``. The hash covers the shared headers (``csrc/*.cuh``) too.
 
 Nothing here runs at import time, so every module imports on a machine
 without the CUDA toolkit (the CPU tests import them all).
@@ -45,7 +45,9 @@ def _nvcc() -> str:
 def library_path(name: str) -> Path:
     """Where the library for ``csrc/<name>.cu`` lives (built or not)."""
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 

@@ -23,7 +23,8 @@ _ENTRY = {torch.float32: "decode_attention_f32",
           torch.bfloat16: "decode_attention_bf16"}
 HEAD_DIMS = (32, 64, 128)
 MAX_GROUP = 8          # query heads a KV head, the largest the kernel takes
-MIN_SPLIT_KEYS = 64    # keys a split takes at the least
+BLOCKS_PER_SM = 8      # split blocks the plan aims at for each SM
+MIN_SPLIT_KEYS = 128   # keys a split takes at the least: two 64-key tiles
 
 
 @functools.lru_cache(maxsize=None)
@@ -42,9 +43,12 @@ def _sm_count(index: int) -> int:
 
 
 def num_splits(B: int, Hkv: int, T: int, sms: int) -> int:
-    """Key splits a (b, KV head): enough blocks for four a streaming
-    multiprocessor, but no split under ``MIN_SPLIT_KEYS`` keys."""
-    want = math.ceil(4 * sms / (B * Hkv))
+    """Key splits a (b, KV head): enough blocks for ``BLOCKS_PER_SM`` a
+    streaming multiprocessor (about three are resident at once, so the
+    later ones fill the gaps the first ones leave), but no split under
+    ``MIN_SPLIT_KEYS`` keys, so that a block's ring has a tile to load
+    while it computes another."""
+    want = math.ceil(BLOCKS_PER_SM * sms / (B * Hkv))
     return max(1, min(want, math.ceil(T / MIN_SPLIT_KEYS)))
 
 
@@ -97,9 +101,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             and lengths.is_contiguous()):
         raise ValueError("decode_attention needs contiguous q, k, v and "
                          "lengths")
-    if k.data_ptr() % 16 or v.data_ptr() % 16:
-        raise ValueError("decode_attention needs k and v on 16-byte "
-                         "aligned addresses")
+    if k.data_ptr() % 16 or v.data_ptr() % 16 or (
+            q.dtype == torch.bfloat16 and q.data_ptr() % 16):
+        raise ValueError("decode_attention needs k and v (and a bf16 q) on "
+                         "16-byte aligned addresses")
     rep = Hq // Hkv
     splits = num_splits(B, Hkv, T, _sm_count(q.device.index))
     part_acc = torch.empty((B, Hkv, splits, rep, D), dtype=torch.float32,

@@ -75,6 +75,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{HEAD_DIMS}, got {D}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention needs contiguous q, k and v")
+    if q.dtype == torch.bfloat16 and any(
+            x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("the bf16 flash_attention needs q, k and v on "
+                         "16-byte aligned addresses")
     out = torch.empty_like(q)
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])

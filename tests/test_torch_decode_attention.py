@@ -116,10 +116,13 @@ def test_plain_is_the_reference_on_bf16_inputs():
 
 
 @pytest.mark.parametrize("B,Hkv,T,sms,want", [
-    (8, 2, 545, 132, 9),        # the serve path: bounded by 64 keys a split
-    (32, 2, 32768, 132, 9),     # long cache: four blocks an SM
+    (8, 2, 545, 132, 5),        # the serve path: bounded by 128 keys a split
+    (32, 2, 32768, 132, 17),    # long cache: eight blocks an SM
     (1, 1, 40, 132, 1),         # a short cache stays whole
-    (64, 8, 4096, 132, 2),
+    (64, 8, 4096, 132, 3),
+    (1, 2, 32768, 132, 256),    # one sequence: 512 blocks of 128 keys
+    (8, 2, 128, 132, 1),        # one split of two tiles
+    (8, 2, 129, 132, 2),
 ])
 def test_num_splits(B, Hkv, T, sms, want):
     assert num_splits(B, Hkv, T, sms) == want

@@ -108,3 +108,57 @@ def test_cpu_route_launches_nothing_and_refuses_bad_inputs():
         flash_attention(q, k[:, :, :1].expand(1, 8, 3, 32), v)
     with pytest.raises(ValueError):
         flash_attention(q, k, v, sliding_window=0)
+
+
+def _bf16_kernel_arithmetic(q, k, v, *, causal, window, split_p):
+    """The bf16 CUDA kernel's arithmetic, emulated in f32 on the CPU:
+    64-key tiles, an online softmax over them, P rounded to bf16 before
+    the P V product (with ``split_p`` as hi + lo, hi = bf16(p) and lo =
+    bf16(p - hi), the kernel's two products), l summed from the unrounded
+    p; a row with no key gives 0. q [S,D], k, v [T,D], one head."""
+    S, T = q.shape[0], k.shape[0]
+    logits = (q.float() @ k.float().T) * q.shape[1] ** -0.5
+    qpos, kpos = torch.arange(S)[:, None], torch.arange(T)[None, :]
+    keep = torch.ones((S, T), dtype=torch.bool)
+    if causal:
+        keep &= kpos <= qpos
+    if window is not None:
+        keep &= kpos > qpos - window
+    logits = logits.masked_fill(~keep, -1e30)
+    m = torch.full((S,), -1e30)
+    l, acc = torch.zeros(S), torch.zeros(S, q.shape[1])
+    for t0 in range(0, T, 64):
+        s = logits[:, t0:t0 + 64]
+        m_new = torch.maximum(m, s.amax(dim=1))
+        corr, p = torch.exp(m - m_new), torch.exp(s - m_new[:, None])
+        hi = p.bfloat16().float()
+        p_used = hi + (p - hi).bfloat16().float() if split_p else hi
+        l = l * corr + p.sum(dim=1)
+        acc = acc * corr[:, None] + p_used @ v[t0:t0 + 64].float()
+        m = m_new
+    out = torch.where((m > -1e30)[:, None], acc / l.clamp(min=1e-30)[:, None],
+                      torch.zeros(()))
+    return out.bfloat16()
+
+
+@pytest.mark.parametrize("split_p,holds", [(True, True), (False, False)])
+def test_bf16_p_needs_hi_and_lo_to_hold_the_card_tolerance(split_p, holds):
+    """chip_smoke.py holds the bf16 kernels to |err| <= 1e-3 + 8e-3
+    |plain| (ATTN_TOL). P rounded to bf16 alone (2**-9 relative a weight)
+    moves outputs near 0 past that on these inputs (rows that attend a
+    few keys); carried as hi + lo it stays inside. Inputs: bf16 values,
+    two heads' worth of rows (S = T = 150, three tiles, the last
+    ragged), causal with and without a window of 8."""
+    q, k, v = (torch.from_numpy(a[0, :, 0]).bfloat16()
+               for a in _inputs(1, 150, 150, 1, 1, 64, seed=11))
+    ratios = []
+    for window in (None, 8):
+        got = _bf16_kernel_arithmetic(q, k, v, causal=True, window=window,
+                                      split_p=split_p)
+        want = attention_ref(q[None, :, None], k[None, :, None],
+                             v[None, :, None], causal=True,
+                             sliding_window=window)[0, :, 0]
+        err = (got.float() - want.float()).abs()
+        ratios.append(float((err / (1e-3 + 8e-3 * want.float().abs()))
+                            .max()))
+    assert (max(ratios) <= 1.0) == holds, ratios
