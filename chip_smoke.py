@@ -6,20 +6,28 @@
 Run from the root of the repository; it needs one CUDA card and the CUDA
 toolkit (``nvcc``), and exits non-zero on the first phase that fails.
 
-1. Environment: the card's name and power limit, the CUDA version and
-   both TF32 flags (off: the port runs fp32 models in full fp32).
+1. Environment: the card's name and power limit, the CUDA version, both
+   TF32 flags (off: the port runs fp32 models in full fp32) and cuDNN's
+   (deterministic, not benchmarking: a run repeats bitwise).
 2. Every kernel of the port is built from ``src/repro_torch/kernels/
    csrc`` (one ``nvcc`` per source, all at once) and held against its
    plain PyTorch version on the card; bad inputs must be refused. The
-   bf16 attention kernels must show tensor-core instructions (HMMA) in
-   their machine code (``cuobjdump -sass``).
+   bf16 attention and SSD-scan kernels must show tensor-core
+   instructions (HMMA, HGMMA) in their machine code (``cuobjdump
+   -sass``). ``weighted_aggregate``'s grouped call (a tree in one launch)
+   must equal its one-leaf call bitwise.
 3. Times, with CUDA events: each kernel at the shapes its path gives it
-   and at M=2**22, beside its plain version, one PyTorch library call
+   (``weighted_aggregate``: a round of path A, one grouped launch, beside
+   ten ``torch.mv`` calls) and at M=2**22 (``robust_combine`` also above
+   64 clients), beside its plain version, one PyTorch library call
    computing the same function, and the least time the card could take
    (its bound). Each is timed twice: on the device alone (the calls
    captured in a CUDA graph and replayed, so no host work sits between
    them) and eagerly (back-to-back calls from Python, host dispatch
-   included). One JSON line ``{"kernels": [...]}`` carries them.
+   included). Where a row's inputs fit in the card's L2 four times over,
+   the calls take their turns over that many copies of them, so that
+   they read HBM, as the byte bound assumes. One JSON line
+   ``{"kernels": [...]}`` carries them.
    The attention kernels are timed at the serve path's shapes and at one
    long shape each, beside ``F.scaled_dot_product_attention`` as the
    library yardstick (timed here only; the port never calls it).
@@ -35,7 +43,10 @@ toolkit (``nvcc``), and exits non-zero on the first phase that fails.
    (``dequant_aggregate``). Every value must be finite, the weights must
    sum to 1, the launch counts must show each path went through its
    kernel and no other, and the last step-7 output must equal the plain
-   version's on the same inputs.
+   version's on the same inputs. Then path A twice more from one seed:
+   its global params and score state must be bitwise equal, and its
+   rounds are timed again with ``cudnn.deterministic`` off, for what the
+   deterministic algorithms cost.
 5. Serve: ``qwen2-0.5b`` at full width in bf16 (494,032,768 params drawn
    from a seed) through ``repro_torch.launch.serve``'s code path: a
    prompt batch of 8 x 512 tokens prefilled (``flash_attention``, one
@@ -68,6 +79,7 @@ The last line of standard output is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import concurrent.futures
+import itertools
 import json
 import math
 import os
@@ -150,6 +162,9 @@ SSM_TF_BF16_TOL, SSM_TF_BF16_MEAN_TOL = 1.0, 0.15
 PEAKS = {"H100 PCIe": (2.0e12, 51e12, 756e12),
          "H100 NVL": (3.9e12, 60e12, 835e12),
          "H100": (3.35e12, 67e12, 989e12), "H200": (4.8e12, 67e12, 989e12)}
+# the L2 cache of each of those cards (50 MB): a timing row whose inputs
+# are smaller takes its calls over copies of them that fill it four times
+L2_BYTES = 50 << 20
 
 
 def check(cond, what) -> None:
@@ -247,22 +262,33 @@ def phase_environment(torch):
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}")
     print(f"tf32: cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
-          f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
+          f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}; "
+          f"cudnn.deterministic={torch.backends.cudnn.deterministic} "
+          f"cudnn.benchmark={torch.backends.cudnn.benchmark}")
     check(not torch.backends.cudnn.allow_tf32
           and not torch.backends.cuda.matmul.allow_tf32, "TF32 is off")
+    check(torch.backends.cudnn.deterministic
+          and not torch.backends.cudnn.benchmark,
+          "cuDNN deterministic, not benchmarking")
     return smi
 
 
-# the bf16 attention kernels on the tensor cores (D = 32, 64, 128), by
-# their names: flash runs D=64 as warpgroup products (wgmma), the rest as
-# mma.sync; and the instances the qwen2 serve path runs (D=64)
-MMA_KERNELS = {"flash_attention": ("flash_fwd_mma_kernel",
-                                   "flash_fwd_wgmma_kernel"),
-               "decode_attention": ("decode_split_mma_kernel",)}
+# the bf16 kernels on the tensor cores, by their names, and how many bf16
+# instances each source has: flash runs D=64 as warpgroup products
+# (wgmma), D = 32 and 128 as mma.sync; decode D = 32, 64, 128 on mma.sync;
+# ssd_scan's mma.sync kernel head dim P in {32, 64} x state N in {16, 128}
+# x one or two C buffers. And the instances the serve paths run: qwen2's
+# D=64; mamba2's P=64, N=128 (one C buffer at its batch of 8, two where
+# the grid has fewer blocks than SMs)
+MMA_KERNELS = {"flash_attention": (("flash_fwd_mma_kernel",
+                                    "flash_fwd_wgmma_kernel"), 3),
+               "decode_attention": (("decode_split_mma_kernel",), 3),
+               "ssd_scan": (("ssd_scan_mma_kernel",), 8)}
 SERVED = {"flash_attention": ("flash_fwd_wgmma_kernel",),
           "decode_attention": ("decode_split_mma_kernelILi64E",
                                "decode_merge_kernelI13__nv_bfloat16Li64E"),
-          "ssd_scan": ("13__nv_bfloat16Li64ELi128E",)}
+          "ssd_scan": ("ssd_scan_mma_kernelILi64ELi128ELi1E",
+                       "ssd_scan_mma_kernelILi64ELi128ELi2E")}
 
 
 def sass_mma_counts(lib):
@@ -286,18 +312,20 @@ def sass_mma_counts(lib):
 def phase_build():
     """Build every kernel, one nvcc each, all started together; print
     nvcc's register and spill report. robust_combine has one kernel per
-    C = 1..64 (and a 4-column one for C <= 32): its report is summed up,
-    and the C=20 kernels the paths use must not spill. Every instance of
-    the attention kernels is printed (flash: D in {32, 64, 128} x {f32,
-    bf16}; decode: the same, f32 x the query-group bucket {1, 2, 4, 8},
-    and a merge kernel per D and dtype); the bf16 D=64 ones the serve
-    path runs must not spill. ssd_scan has one kernel per head dim P in
-    {32, 64} x state N in {16, 128} x {f32, bf16}; the bf16 P=64, N=128
-    one the Mamba2 serve path runs must not spill. The attention
-    libraries' machine code is read back (``cuobjdump -sass``): every
-    bf16 instance of the tensor-core kernels (flash: wgmma at D=64,
-    mma.sync at 32 and 128; decode: mma.sync) must hold HMMA or HGMMA
-    instructions, no other kernel may, and their counts are printed."""
+    C = 1..64 (and a 4-column one for C <= 32) and one staged in shared
+    memory for C > 64: its report is summed up, and the C=20 kernels the
+    paths use must not spill. Every instance of the attention kernels is
+    printed (flash: D in {32, 64, 128} x {f32, bf16}; decode: the same,
+    f32 x the query-group bucket {1, 2, 4, 8}, and a merge kernel per D
+    and dtype); the bf16 D=64 ones the serve path runs must not spill.
+    ssd_scan has a scalar f32 kernel per head dim P in {32, 64} x state N
+    in {16, 128} and a bf16 tensor-core kernel per P x N x one or two C
+    buffers; the bf16 P=64, N=128 ones the Mamba2 serve path runs must
+    not spill. The machine code of the libraries with tensor-core kernels
+    is read back (``cuobjdump -sass``): every bf16 instance of those
+    kernels (flash: wgmma at D=64, mma.sync at 32 and 128; decode and
+    ssd_scan: mma.sync) must hold HMMA or HGMMA instructions, no other
+    kernel may, and their counts are printed."""
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
@@ -332,11 +360,12 @@ def phase_build():
               f"max registers {max(int(r[-1]) for r in report)}")
         if name in MMA_KERNELS:
             counts = sass_mma_counts(lib)
+            keys, instances = MMA_KERNELS[name]
             mma = {fn: n for fn, n in counts.items()
-                   if any(key in fn for key in MMA_KERNELS[name])}
-            check(len(mma) == 3 and all(mma.values()),
+                   if any(key in fn for key in keys)}
+            check(len(mma) == instances and all(mma.values()),
                   f"{name}: tensor-core instructions by bf16 instance "
-                  f"(D = 32, 64, 128) {mma}")
+                  f"({instances} instances) {mma}")
             for fn, n in mma.items():
                 print(f"  {fn}: {n} HMMA/HGMMA instructions")
             check(not any(n for fn, n in counts.items() if fn not in mma),
@@ -384,6 +413,55 @@ def check_weighted_aggregate(torch):
     print(f"weighted_aggregate == plain version in 80 cases "
           f"(f32 rtol=atol=1e-5, bf16 rtol=atol=8e-3); max |err| {worst}; "
           f"a non-contiguous input is refused")
+
+
+def check_weighted_aggregate_grouped(torch, shapes):
+    """The grouped call (``aggregate_pytree``: a tree in one launch a table
+    of TABLE leaves) on path A's ten leaf shapes and on a tree of 70
+    leaves (two tables; vector, ragged and, every fifth leaf, misaligned
+    leaves), f32 and bf16, C=20: one launch a table, and each leaf bitwise
+    equal to the one-leaf ``weighted_aggregate`` and within the array
+    cases' tolerances of the plain version."""
+    from repro_torch.kernels.weighted_aggregate import (
+        TABLE, aggregate_pytree, weighted_aggregate, weighted_aggregate_ref)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    C = 20
+    widths = [1, 3, 4, 8, 10, 1000, 4096, 131_072] + torch.randint(
+        1, 20_000, (62,), generator=torch.Generator().manual_seed(5)).tolist()
+    trees = {"path A's leaves": [(C,) + tuple(s) for s in shapes],
+             "70 leaves": [(C, m) for m in widths]}
+    leaves, worst = 0, {}
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 8e-3)):
+        for label, leaf_shapes in trees.items():
+            tree = {}
+            for i, shape in enumerate(leaf_shapes):
+                x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                tree[f"{i:03d}"] = _shifted(torch, x, 4) if i % 5 == 4 else x
+            w = torch.rand((C,), generator=gen, device="cuda")
+            before = weighted_aggregate.launches
+            got = aggregate_pytree(tree, w)
+            torch.cuda.synchronize()
+            launches = weighted_aggregate.launches - before
+            check(launches == -(-len(tree) // TABLE),
+                  f"{label}: {launches} launches for {len(tree)} leaves")
+            for key, stack in tree.items():
+                x = stack.reshape(C, -1)
+                out = got[key]
+                check(out.shape == stack.shape[1:] and out.dtype == dtype,
+                      f"{label} leaf {key}: {tuple(out.shape)} {out.dtype}")
+                check(torch.equal(out.reshape(-1), weighted_aggregate(x, w)),
+                      f"{label} leaf {key} ({dtype}, M={x.shape[1]}): the "
+                      f"grouped call == the one-leaf call, bitwise")
+                want = weighted_aggregate_ref(x, w)
+                torch.testing.assert_close(out.reshape(-1).float(),
+                                           want.float(), rtol=tol, atol=tol)
+                worst[str(dtype)] = max(worst.get(str(dtype), 0.0), float(
+                    (out.reshape(-1).float() - want.float()).abs().max()))
+                leaves += 1
+    print(f"weighted_aggregate grouped == one-leaf kernel bitwise, == plain "
+          f"version (f32 rtol=atol=1e-5, bf16 rtol=atol=8e-3), in {leaves} "
+          f"leaves of path A's tree and a 70-leaf tree (1 and 2 launches); "
+          f"max |err| {worst}")
 
 
 def check_robust_combine(torch):
@@ -438,6 +516,30 @@ def check_robust_combine(torch):
         out = hold(x, mask, mode, trim)
         check(bool(out[5].isnan()) and not bool(out[8].isnan()),
               "NaN propagates, a masked NaN drops out")
+    # above 64 clients, the kernel staged in shared memory, up to
+    # MAX_CLIENTS: NaN, +-inf, masked rows (a masked NaN among them), ties
+    for C in (65, 100, 257, MAX_CLIENTS):
+        for M in ((1, 1000, 33_000) if C < MAX_CLIENTS else (1000,)):
+            x = torch.randn((C, M), generator=gen, device="cuda")
+            if M >= 10:
+                x[3, 5], x[C - 7, 6], x[2, 7] = math.nan, math.inf, -math.inf
+                x[C - 1, 8] = math.nan
+            rand = (torch.rand((C,), generator=gen, device="cuda")
+                    > 0.3).float()
+            rand[C - 1] = 0.0
+            out = hold(x, rand, "trimmed_mean", 0.2)
+            if M >= 10:
+                check(not bool(out[8].isnan()) and (bool(out[5].isnan())
+                                                    or not bool(rand[3])),
+                      "NaN propagates, a masked NaN drops out")
+            if C == MAX_CLIENTS:
+                continue   # the plain network is 51,423 row ops a call
+            hold(x, torch.ones((C,), device="cuda"), "median", 0.0)
+            out = hold(x, torch.zeros((C,), device="cuda"), "trimmed_mean",
+                       0.49)
+            check(not bool(out.any()), "an all-zero mask gives zeros")
+            hold(torch.round(2.0 * x), rand, "median", 0.0)
+            hold(_shifted(torch, x, 4), rand, "trimmed_mean", 0.0)
     check(robust_combine.launches == launches + calls,
           f"{robust_combine.launches - launches} launches for {calls} calls")
     big = torch.zeros((MAX_CLIENTS + 1, 16), device="cuda")
@@ -447,9 +549,10 @@ def check_robust_combine(torch):
         "a float64 input")
     check(robust_combine.launches == launches + calls,
           "a refused input launches nothing")
-    print(f"robust_combine == plain network in {calls} cases "
-          f"(rtol=atol=1e-6, NaN where the plain version has NaN); max "
-          f"|err| {worst}; C={MAX_CLIENTS + 1} and float64 are refused")
+    print(f"robust_combine == plain network in {calls} cases, C = 1 .. "
+          f"{MAX_CLIENTS} (rtol=atol=1e-6, NaN where the plain version has "
+          f"NaN); max |err| {worst}; C={MAX_CLIENTS + 1} and float64 are "
+          f"refused")
 
 
 def check_dequant_aggregate(torch):
@@ -673,7 +776,10 @@ def check_ssd_scan(torch):
     and 13 rows) and S shorter than a chunk; head dim P 32, 64; state N
     16, 128; groups G 1, 2 with H/G 1, 4, 80 (A as the model draws it at
     H/G = 80). Every other case reads x, B, C as slices of one wider
-    tensor, as the model passes them."""
+    tensor, as the model passes them. Then, at chunk 256 and the served
+    widths: Bt=1, S=8192 in both dtypes, Bt=1 at P = 32 and 64 (80
+    blocks, fewer than the SMs: the bf16 route's two-C-buffer instance),
+    S = 3 x 256 + 1."""
     from repro_torch.kernels.ssd_scan import ssd_ref, ssd_scan
     gen = torch.Generator(device="cuda").manual_seed(7)
     calls, worst = 0, {}
@@ -698,6 +804,25 @@ def check_ssd_scan(torch):
                               f"outputs {y.dtype} {tuple(y.shape)}, "
                               f"{st.dtype} {tuple(st.shape)}")
                         _hold_ssd(torch, (y, st), want, dtype, worst)
+    # chunk 256 with A as the model draws it: the long shape (Bt=1,
+    # S=8192) in both dtypes; Bt=1 at both head dims P = 32 and 64, on the
+    # two-C-buffer instance that Bt * H <= the SM count selects; three
+    # chunks and one row (S = 3 x 256 + 1)
+    more = [(dtype, 1, 8192, 80, 64) for dtype in (torch.float32,
+                                                   torch.bfloat16)]
+    more += [(torch.bfloat16, 1, 2 * 256 + 13, 80, P) for P in (32, 64)]
+    more += [(dtype, 2, 3 * 256 + 1, 80, 64) for dtype in (torch.float32,
+                                                           torch.bfloat16)]
+    for dtype, Bt, S, H, P in more:
+        args = _ssd_inputs(torch, gen, Bt, S, H, P, 1, 128, dtype,
+                           mamba_init=True, strided=True)
+        y, st = ssd_scan(*args, chunk=256)
+        want = ssd_ref(*args)
+        torch.cuda.synchronize()
+        calls += 1
+        check(y.shape == (Bt, S, H, P) and st.shape == (Bt, H, P, 128),
+              f"outputs {tuple(y.shape)}, {tuple(st.shape)}")
+        _hold_ssd(torch, (y, st), want, dtype, worst)
     check(ssd_scan.launches == launches + calls,
           f"{ssd_scan.launches - launches} launches for {calls} calls")
     x, dt, A, B, C, D = _ssd_inputs(torch, gen, 1, 40, 4, 64, 2, 16,
@@ -717,6 +842,8 @@ def check_ssd_scan(torch):
         C[:, :, :1].expand(1, 40, 3, 16), D), "H=4 over G=3")
     must_raise(TypeError, lambda: ssd_scan(x.half(), dt, A, B.half(),
                                            C.half(), D), "float16")
+    must_raise(ValueError, lambda: ssd_scan(
+        _shifted(torch, x, 2), dt, A, B, C, D), "a bf16 x off 16 bytes")
     check(ssd_scan.launches == launches + calls,
           "a refused input launches nothing")
     print(f"ssd_scan == plain version in {calls} cases, y and state (|err| "
@@ -724,85 +851,128 @@ def check_ssd_scan(torch):
           f"|plain| in f32 and for the state, <= "
           f"{SSD_TOL['bfloat16']['atol']} + {SSD_TOL['bfloat16']['rtol']}"
           f"|plain| for a bf16 y); max |err| {worst}; head dim 48, state 8, "
-          f"chunk 4096, a strided last dimension, H % G != 0 and float16 "
-          f"are refused without a launch")
+          f"chunk 4096, a strided last dimension, H % G != 0, float16 and "
+          f"a bf16 x off 16 bytes are refused without a launch")
 
 
-def timing_row(torch, name, shape, fns, err, bytes_moved, operations,
+def timing_row(torch, name, shape, fns, make, err, bytes_moved, operations,
                peaks, iters=None):
-    """One timing row: each of ``fns`` ({"kernel", "plain", "library"})
-    on the device alone (``*_ms``, CUDA-graph replay) and eagerly
-    (``*_eager_ms``), over ``iters`` calls
-    (by default 200, or 50 from 2**24 elements on; a dict gives each of
-    ``fns`` its own)."""
+    """One timing row: each of ``fns`` ({"kernel", "plain", "library"}),
+    a function of the inputs ``make()`` returns, on the device alone
+    (``*_ms``, CUDA-graph replay) and eagerly (``*_eager_ms``), over
+    ``iters`` calls (by default 200, or 50 from 2**24 elements on; a dict
+    gives each of ``fns`` its own). ``make()`` is called as often as it
+    takes for the copies to hold ``bytes_moved`` four times the L2, and
+    the calls take the copies in turn: a graph that replays one small
+    input would read it from L2, faster than the HBM rate of the bound."""
     hbm, flops_peak = peaks
     if iters is None:
         iters = 50 if math.prod(shape) >= 1 << 24 else 200
+    copies = [make() for _ in range(-(-4 * L2_BYTES // bytes_moved))]
     by_bytes, by_ops = bytes_moved / hbm, operations / flops_peak
     row = {"name": name, "shape": list(shape), "max_abs_err": err,
            "bound_ms": max(by_bytes, by_ops) * 1e3,
-           "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+           "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+           "input_copies": len(copies)}
     for key, fn in fns.items():
         n = iters[key] if isinstance(iters, dict) else iters
-        row[key + "_ms"] = graph_ms(torch, fn, n)
-        row[key + "_eager_ms"] = eager_ms(torch, fn, n)
+        turn = itertools.count()
+
+        def call(fn=fn, turn=turn):
+            return fn(*copies[next(turn) % len(copies)])
+        row[key + "_ms"] = graph_ms(torch, call, n)
+        row[key + "_eager_ms"] = eager_ms(torch, call, n)
     return row
 
 
-def phase_times(torch, peaks, leaves, dim, padded_dim):
+def phase_times(torch, peaks, shapes, dim, padded_dim):
     """Each kernel beside its plain version, a library call and its bound:
-    weighted_aggregate at the ten leaf shapes of path A and at M=2**22;
-    robust_combine at path B's [20, D] update matrix and at M=2**22;
-    dequant_aggregate at path C's [20, D_pad] int8 payload and at
-    M=2**22. C=20, f32 (int8 codes for dequant_aggregate)."""
+    weighted_aggregate on one round of path A (its ten leaves, shapes
+    ``shapes``, in one grouped launch, beside ten plain reductions and ten
+    ``torch.mv`` calls) and at M=2**22; robust_combine at path B's [20, D]
+    update matrix and at M=2**22, then above 64 clients at [100, D] and
+    [1024, 2**16] beside ``torch.sort`` + ``torch.mv`` only (the plain
+    network is thousands of row ops a call there); dequant_aggregate at
+    path C's [20, D_pad] int8 payload and at M=2**22. C=20, f32 (int8
+    codes for dequant_aggregate)."""
     from repro_torch.kernels.dequant_aggregate import (
         dequant_aggregate, dequant_aggregate_ref)
     from repro_torch.kernels.robust_combine import (
         combine_rows, oddeven_merge_pairs, robust_combine_network_ref,
         row_select_weights)
     from repro_torch.kernels.weighted_aggregate import (
-        weighted_aggregate, weighted_aggregate_ref)
+        aggregate_pytree, weighted_aggregate, weighted_aggregate_ref)
     gen = torch.Generator(device="cuda").manual_seed(1)
     C, chunk = 20, 256
     rows = {k: [] for k in KERNELS}
 
-    for M in list(leaves) + [1 << 22]:
-        x = torch.randn((C, M), generator=gen, device="cuda")
-        w = torch.rand((C,), generator=gen, device="cuda")
-        err = float((weighted_aggregate(x, w)
-                     - weighted_aggregate_ref(x, w)).abs().max())
-        rows["weighted_aggregate"].append(timing_row(
-            torch, "weighted_aggregate", (C, M), {
-                "kernel": lambda: weighted_aggregate(x, w),
-                "plain": lambda: weighted_aggregate_ref(x, w),
-                "library": lambda: torch.mv(x.t(), w)},
-            err, (C * M + M) * 4 + C * 4, 2 * C * M, peaks))
+    w = torch.rand((C,), generator=gen, device="cuda")
 
-    pairs = len(oddeven_merge_pairs(C))
-    for M in (dim, 1 << 22):
-        x = torch.randn((C, M), generator=gen, device="cuda")
-        mask = torch.ones((C,), device="cuda")
+    def round_tree():    # a round's stacked tree and its leaves as [C, m]
+        stacked = {f"{i:02d}": torch.randn((C,) + tuple(s), generator=gen,
+                                           device="cuda")
+                   for i, s in enumerate(shapes)}
+        return stacked, [stacked[k].reshape(C, -1) for k in sorted(stacked)]
+    stacked, flats = round_tree()
+    got = aggregate_pytree(stacked, w)
+    err = max(float((got[k].reshape(-1) - weighted_aggregate_ref(x, w))
+                    .abs().max()) for k, x in zip(sorted(stacked), flats))
+    M = sum(x.shape[1] for x in flats)
+    rows["weighted_aggregate"].append(timing_row(
+        torch, "weighted_aggregate", (C, M), {
+            "kernel": lambda tree, flats: aggregate_pytree(tree, w),
+            "plain": lambda tree, flats: [weighted_aggregate_ref(x, w)
+                                          for x in flats],
+            "library": lambda tree, flats: [torch.mv(x.t(), w)
+                                            for x in flats]},
+        round_tree, err, (C + 1) * M * 4 + len(flats) * C * 4, 2 * C * M,
+        peaks))
+    M = 1 << 22
+
+    def matrix(rows_=C, cols=M):
+        return (torch.randn((rows_, cols), generator=gen, device="cuda"),)
+    x, = matrix()
+    err = float((weighted_aggregate(x, w)
+                 - weighted_aggregate_ref(x, w)).abs().max())
+    rows["weighted_aggregate"].append(timing_row(
+        torch, "weighted_aggregate", (C, M), {
+            "kernel": lambda x: weighted_aggregate(x, w),
+            "plain": lambda x: weighted_aggregate_ref(x, w),
+            "library": lambda x: torch.mv(x.t(), w)},
+        matrix, err, (C * M + M) * 4 + C * 4, 2 * C * M, peaks))
+
+    for Cr, M, plain in ((C, dim, True), (C, 1 << 22, True), (100, dim, False),
+                         (1024, 1 << 16, False)):
+        x, = matrix(Cr, M)
+        mask = torch.ones((Cr,), device="cuda")
         w_row = row_select_weights(mask, mode="trimmed_mean",
                                    trim_fraction=TRIM)
-        err = float((combine_rows(x, mask, w_row)
-                     - robust_combine_network_ref(x, mask, w_row))
-                    .abs().max())
+        got = combine_rows(x, mask, w_row)
+        want = (robust_combine_network_ref(x, mask, w_row) if plain else
+                torch.mv(torch.sort(x, dim=0).values.t(), w_row))
+        err = float((got - want).abs().max())
+        fns = {"kernel": lambda x: combine_rows(x, mask, w_row),
+               "library": lambda x: torch.mv(
+                   torch.sort(x, dim=0).values.t(), w_row)}
+        if plain:
+            fns["plain"] = lambda x: robust_combine_network_ref(x, mask,
+                                                                w_row)
         # per column: 2 min/max per compare-exchange, the mask select,
         # and the sorted-position dot (C multiplies, C-1 adds)
         rows["robust_combine"].append(timing_row(
-            torch, "robust_combine", (C, M), {
-                "kernel": lambda: combine_rows(x, mask, w_row),
-                "plain": lambda: robust_combine_network_ref(x, mask, w_row),
-                "library": lambda: torch.mv(
-                    torch.sort(x, dim=0).values.t(), w_row)},
-            err, (C + 1) * M * 4 + 2 * C * 4,
-            (2 * pairs + 3 * C - 1) * M, peaks))
+            torch, "robust_combine", (Cr, M), fns,
+            lambda: matrix(Cr, M), err, (Cr + 1) * M * 4 + 2 * Cr * 4,
+            (2 * len(oddeven_merge_pairs(Cr)) + 3 * Cr - 1) * M, peaks,
+            iters=None if Cr <= 100 else 3))
 
     for M in (padded_dim, 1 << 22):
-        q = torch.randint(-127, 128, (C, M), generator=gen, device="cuda",
-                          dtype=torch.int8)
-        s = 1e-4 + 1e-2 * torch.rand((C, M // chunk), generator=gen,
-                                     device="cuda")
+        def codes(M=M):
+            q = torch.randint(-127, 128, (C, M), generator=gen,
+                              device="cuda", dtype=torch.int8)
+            s = 1e-4 + 1e-2 * torch.rand((C, M // chunk), generator=gen,
+                                         device="cuda")
+            return q, s
+        q, s = codes()
         w = torch.rand((C,), generator=gen, device="cuda")
         err = float((dequant_aggregate(w, s, q, chunk)
                      - dequant_aggregate_ref(w, s, q, chunk)).abs().max())
@@ -810,12 +980,12 @@ def phase_times(torch, peaks, leaves, dim, padded_dim):
         # multiply-add (2)
         rows["dequant_aggregate"].append(timing_row(
             torch, "dequant_aggregate", (C, M), {
-                "kernel": lambda: dequant_aggregate(w, s, q, chunk),
-                "plain": lambda: dequant_aggregate_ref(w, s, q, chunk),
-                "library": lambda: torch.mv(
+                "kernel": lambda q, s: dequant_aggregate(w, s, q, chunk),
+                "plain": lambda q, s: dequant_aggregate_ref(w, s, q, chunk),
+                "library": lambda q, s: torch.mv(
                     (q.float().view(C, -1, chunk) * s[:, :, None])
-                    .view(C, M).t(), w)},
-            err, C * M + (C * M // chunk) * 4 + M * 4 + C * 4,
+                    .view(C, q.shape[1]).t(), w)},
+            codes, err, C * M + (C * M // chunk) * 4 + M * 4 + C * 4,
             4 * C * M, peaks))
     return rows
 
@@ -842,40 +1012,45 @@ def phase_attention_times(torch, peaks):
     Hq, Hkv, D = 14, 2, 64
     rows = {"flash_attention": [], "decode_attention": []}
     for B, S, iters in ((8, 512, None), (1, 4096, 20)):
-        q, k, v = _attn_inputs(torch, gen, (B, S, Hq, D), (B, S, Hkv, D),
-                               torch.bfloat16)
+        def make(B=B, S=S):
+            return _attn_inputs(torch, gen, (B, S, Hq, D), (B, S, Hkv, D),
+                                torch.bfloat16)
+        q, k, v = make()
         err = float((flash_attention(q, k, v).float()
                      - attention_ref(q, k, v).float()).abs().max())
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         pairs = S * (S + 1) // 2                    # causal, q_offset 0
         rows["flash_attention"].append(timing_row(
             torch, "flash_attention", (B, S, S, Hq, Hkv, D), {
-                "kernel": lambda: flash_attention(q, k, v),
-                "plain": lambda: attention_ref(q, k, v),
-                "library": lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, enable_gqa=True)},
-            err, 2 * (2 * q.numel() + k.numel() + v.numel()),
+                "kernel": flash_attention,
+                "plain": attention_ref,
+                "library": lambda q, k, v: F.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    is_causal=True, enable_gqa=True)},
+            make, err, 2 * (2 * q.numel() + k.numel() + v.numel()),
             4 * D * Hq * B * pairs, (hbm, bf16_peak), iters=iters))
     for B, T, lengths, iters in (
             (8, 545, 513 + torch.arange(8) * 30 // 7, None),
             (32, 32768, 32768 - torch.arange(32) * 64, 20)):
-        q, k, v = _attn_inputs(torch, gen, (B, Hq, D), (B, T, Hkv, D),
-                               torch.bfloat16)
+        def make(B=B, T=T):
+            return _attn_inputs(torch, gen, (B, Hq, D), (B, T, Hkv, D),
+                                torch.bfloat16)
+        q, k, v = make()
         lengths = lengths.to(device="cuda", dtype=torch.int32)
         got, _ = decode_attention(q, k, v, lengths)
         err = float((got.float() - decode_attention_ref(q, k, v, lengths)[0]
                      .float()).abs().max())
         keys = int(lengths.clamp(max=T).sum())
-        qs, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
         mask = (torch.arange(T, device="cuda")[None, :]
                 < lengths[:, None])[:, None, None, :]
         rows["decode_attention"].append(timing_row(
             torch, "decode_attention", (B, T, Hq, Hkv, D), {
-                "kernel": lambda: decode_attention(q, k, v, lengths),
-                "plain": lambda: decode_attention_ref(q, k, v, lengths),
-                "library": lambda: F.scaled_dot_product_attention(
-                    qs, kt, vt, attn_mask=mask, enable_gqa=True)},
-            err,
+                "kernel": lambda q, k, v: decode_attention(q, k, v, lengths),
+                "plain": lambda q, k, v: decode_attention_ref(q, k, v,
+                                                              lengths),
+                "library": lambda q, k, v: F.scaled_dot_product_attention(
+                    q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+                    attn_mask=mask, enable_gqa=True)},
+            make, err,
             # the valid keys' k and v rows, q, out (bf16), lse (f32) and
             # the lengths
             2 * 2 * keys * Hkv * D + 2 * 2 * q.numel() + 4 * B * Hq + 4 * B,
@@ -911,7 +1086,10 @@ def phase_ssd_times(torch, peaks):
     S=8192). x, B, C are slices of one tensor as the model passes them; A
     as the model draws it. Bound: ``ssd_work`` over HBM's rate and the
     tensor cores' bf16 rate. No single PyTorch call computes the scan, so
-    there is no library row."""
+    there is no library row. The two rows stand for the two sides of the
+    kernel's choice of C buffers (``c_buffers`` in ``csrc/ssd_scan.cu``):
+    the serve shape's 640 blocks run the one-buffer instance, Bt=1's 80
+    the two-buffer one."""
     from repro_torch.kernels.ssd_scan import ssd_ref, ssd_scan
     hbm, bf16_peak = peaks[0], peaks[2]
     gen = torch.Generator(device="cuda").manual_seed(8)
@@ -919,17 +1097,19 @@ def phase_ssd_times(torch, peaks):
     rows = []
     for Bt, S, iters in ((8, 512, {"kernel": 20, "plain": 2}),
                          (1, 8192, {"kernel": 5, "plain": 1})):
-        args = _ssd_inputs(torch, gen, Bt, S, H, P, G, N, torch.bfloat16,
-                           mamba_init=True, strided=True)
+        def make(Bt=Bt, S=S):
+            return _ssd_inputs(torch, gen, Bt, S, H, P, G, N, torch.bfloat16,
+                               mamba_init=True, strided=True)
+        args = make()
         y, st = ssd_scan(*args, chunk=chunk)
         yr, sr = ssd_ref(*args)
         err = max(float((y.float() - yr.float()).abs().max()),
                   float((st - sr).abs().max()))
         rows.append(timing_row(
             torch, "ssd_scan", (Bt, S, H, P, G, N), {
-                "kernel": lambda: ssd_scan(*args, chunk=chunk),
-                "plain": lambda: ssd_ref(*args)},
-            err, *ssd_work(Bt, S, H, P, G, N, chunk, 2), (hbm, bf16_peak),
+                "kernel": lambda *a: ssd_scan(*a, chunk=chunk),
+                "plain": ssd_ref},
+            make, err, *ssd_work(Bt, S, H, P, G, N, chunk, 2), (hbm, bf16_peak),
             iters=iters))
     for r in rows:
         print(f"ssd_scan {r['shape']}: device {r['kernel_ms']:.5f} ms "
@@ -948,7 +1128,8 @@ def phase_path(torch, path, argv, op_name):
     from repro_torch.kernels.dequant_aggregate import dequant_aggregate_ref
     from repro_torch.kernels.robust_combine import (
         robust_combine_network_ref, row_select_weights)
-    from repro_torch.kernels.weighted_aggregate import weighted_aggregate_ref
+    from repro_torch.kernels.weighted_aggregate import (
+        plan_launches, weighted_aggregate_ref)
     from repro_torch.launch.train import build, parse_args
     from repro_torch.utils import tree_leaves
 
@@ -1026,7 +1207,10 @@ def phase_path(torch, path, argv, op_name):
               f"malicious_weight {values[1]:.5f}  global_acc {acc:.4f}  "
               f"weights [{' '.join(f'{v:.4f}' for v in w.tolist())}]")
     counts = {name: op.launches for name, op in kernel_ops.items()}
-    per_round = (len(tree_leaves(state.global_params))
+    # path A: the grouped kernel's launches for the tree (one a table of
+    # TABLE leaves: 1 for fedtest-cnn's 10); B and C: one a round
+    leaf_sizes = [p.numel() for p in tree_leaves(state.global_params)]
+    per_round = (len(plan_launches(leaf_sizes, [True] * len(leaf_sizes), 4))
                  if op_name == "weighted_aggregate" else 1)
     want = {name: (per_round * ROUNDS if name == op_name else 0)
             for name in kernel_ops}
@@ -1070,6 +1254,106 @@ def phase_path(torch, path, argv, op_name):
     print(f"path {path}: last round's {op_name} output == plain version on "
           f"its own inputs (max |err| {worst:.3g})")
     return counts[op_name], walls
+
+
+REPRO_ROUNDS = 5
+
+
+def phase_reproducible(torch, card):
+    """Path A from one seed, built anew and run REPRO_ROUNDS rounds, twice
+    with the device flags ``resolve_device`` sets: the global params and
+    the score state must come out bitwise equal (``torch.equal`` on every
+    leaf), as the reference's resume rule asks of a run. Where they differ,
+    one more round runs under ``torch.use_deterministic_algorithms(True)``,
+    in a process of its own, which names an op with no deterministic
+    form, and the phase fails.
+    Between and after those runs, the same rounds with
+    ``cudnn.deterministic`` switched off for that run only: the steady
+    rounds (all but the first) of both settings give the deterministic
+    algorithms' cost. Returns the numbers printed."""
+    from repro_torch.launch.train import build, parse_args
+    from repro_torch.utils import tree_leaves
+
+    def run(deterministic):
+        trainer, data, _ = build(parse_args(MAIN_PATH_ARGS))
+        torch.backends.cudnn.deterministic = deterministic
+        try:
+            state, walls = trainer.init(), []
+            for _ in range(REPRO_ROUNDS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, _ = trainer.run_round(state, data)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            torch.backends.cudnn.deterministic = True
+        return state, walls
+
+    def differing(one, two):
+        pairs = ([(f"param {i}", a, b) for i, (a, b) in enumerate(zip(
+            tree_leaves(one.global_params),
+            tree_leaves(two.global_params)))]
+            + [(f"scores.{name}", getattr(one.scores, name),
+                getattr(two.scores, name))
+               for name in one.scores._fields])
+        return len(pairs), [name for name, a, b in pairs
+                            if not torch.equal(a, b)]
+
+    first, det_a = run(True)
+    loose_a, nondet_a = run(False)
+    second, det_b = run(True)
+    loose_b, nondet_b = run(False)
+    n_tensors, differ = differing(first, second)
+    if differ:
+        # in a process of its own: cuBLAS runs deterministically under
+        # torch.use_deterministic_algorithms only with this variable set
+        # before its first call, and the timed phases run as the CLI does
+        run_alone = subprocess.run(
+            [sys.executable, "-c", "import chip_smoke; "
+             "chip_smoke.name_nondeterministic_op()"], cwd=ROOT,
+            env=dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8"),
+            capture_output=True, text=True, timeout=600)
+        named = run_alone.stdout.strip() or run_alone.stderr.strip()[-500:]
+        print(f"path A twice from one seed: {differ} differ; under "
+              f"torch.use_deterministic_algorithms: {named}")
+    check(not differ, f"path A twice from one seed is bitwise equal "
+          f"({n_tensors} tensors; differ: {differ})")
+    _, loose_differ = differing(loose_a, loose_b)
+    det = det_a[1:] + det_b[1:]
+    nondet = nondet_a[1:] + nondet_b[1:]
+    numbers = {"rounds": REPRO_ROUNDS, "deterministic_ms": det_a + det_b,
+               "nondeterministic_runs_differ_in": loose_differ,
+               "nondeterministic_ms": nondet_a + nondet_b,
+               "steady_deterministic_mean_ms": sum(det) / len(det),
+               "steady_nondeterministic_mean_ms": sum(nondet) / len(nondet),
+               "card": card}
+    print(f"path A twice from one seed, {REPRO_ROUNDS} rounds: global "
+          f"params and score state bitwise equal ({n_tensors} tensors); "
+          f"with cudnn.deterministic off the two runs differ in "
+          f"{len(loose_differ)} of them")
+    print(f"path A round wall ms, cudnn.deterministic=True: "
+          f"{[round(t, 3) for t in det_a + det_b]}; False: "
+          f"{[round(t, 3) for t in nondet_a + nondet_b]}; steady means "
+          f"{numbers['steady_deterministic_mean_ms']:.3f} against "
+          f"{numbers['steady_nondeterministic_mean_ms']:.3f} ({card})")
+    return numbers
+
+
+def name_nondeterministic_op() -> None:
+    """One round of path A under ``torch.use_deterministic_algorithms``,
+    which refuses an op with no deterministic form: prints the refusal's
+    first line, or that none came."""
+    import torch
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.launch.train import build, parse_args
+    trainer, data, _ = build(parse_args(MAIN_PATH_ARGS))
+    torch.use_deterministic_algorithms(True)
+    try:
+        trainer.run_round(trainer.init(), data)
+        torch.cuda.synchronize()
+        print("no op refused")
+    except RuntimeError as err:
+        print(str(err).splitlines()[0])
 
 
 def phase_serve(torch, card):
@@ -1438,10 +1722,12 @@ def main() -> int:
     check_ssd_scan(torch)
 
     model = build_model(get_config("fedtest-cnn"))
-    leaves = [math.prod(s) for s in tree_leaves(model.param_shapes())]
+    shapes = [tuple(s) for s in tree_leaves(model.param_shapes())]
+    leaves = [math.prod(s) for s in shapes]
+    check_weighted_aggregate_grouped(torch, shapes)
     dim = flat_update_dim(model)
     padded_dim = COMPRESSORS.build("int8", {}, dict(dim=dim)).padded_dim
-    rows = phase_times(torch, peaks[:2], leaves, dim, padded_dim)
+    rows = phase_times(torch, peaks[:2], shapes, dim, padded_dim)
     rows.update(phase_attention_times(torch, peaks))
     rows.update(phase_ssd_times(torch, peaks))
 
@@ -1449,6 +1735,7 @@ def main() -> int:
     for path, argv, op_name in PATHS:
         launches[op_name], walls[path] = phase_path(torch, path, argv,
                                                     op_name)
+    repro = phase_reproducible(torch, card)
     serve_counts, serve_out = phase_serve(torch, card)
     launches["flash_attention"] = serve_counts["flash_attention"]
     launches["decode_attention"] = serve_counts["decode_attention"]
@@ -1479,9 +1766,9 @@ def main() -> int:
         print(f"path {path} round wall ms: "
               f"{[round(t, 3) for t in walls[path]]} ({card})")
     print(json.dumps({"kernels": [
-        # one round of path A: the 10 leaf launches at C=20
-        entry("weighted_aggregate", rows["weighted_aggregate"][:len(leaves)],
-              "C=20, one launch per leaf, M=" + "+".join(
+        # one round of path A: its 10 leaves in one grouped launch, C=20
+        entry("weighted_aggregate", rows["weighted_aggregate"][:1],
+              "C=20, one grouped launch a round, M=" + "+".join(
                   str(m) for m in leaves)),
         # one round of path B / C: one launch on the [20, D] matrix
         entry("robust_combine", rows["robust_combine"][:1],
@@ -1499,7 +1786,8 @@ def main() -> int:
         entry("ssd_scan", rows["ssd_scan"][:1],
               "one call: Bt=8, S=512, H=80, P=64, G=1, N=128, chunk 256, "
               "bf16")]}))
-    print(json.dumps({"serve": serve_out, "ssm_serve": ssm_out}))
+    print(json.dumps({"serve": serve_out, "ssm_serve": ssm_out,
+                      "reproducible_path_a": repro}))
     print(f"chip_smoke passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

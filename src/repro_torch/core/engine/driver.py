@@ -26,7 +26,11 @@ from repro_torch.data.pipeline import FederatedDataset, gather_client_batches
 def resolve_device(device) -> torch.device:
     """The run's device. Turns TF32 off for convolutions and matmuls, so
     fp32 models run in full fp32 on the card, as the reference runs them.
-    Raises when the card is asked for and absent."""
+    Makes cuDNN deterministic and stops it from benchmarking algorithms:
+    its default conv backward sums with atomics in an order that changes
+    from run to run, and the reference's rule is that a run from one seed
+    is bit-identical (DESIGN.md §9). Raises when the card is asked for
+    and absent."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -34,6 +38,8 @@ def resolve_device(device) -> torch.device:
             "device='cpu' to run on the CPU")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
     return dev
 
 

@@ -12,9 +12,11 @@ CUDA sources are in ``csrc/``, built by :mod:`repro_torch.kernels.build`.
 
 Kernels:
 * ``weighted_aggregate`` — the FedTest server's score-weighted N-way
-  model reduction (CUDA C++, ``csrc/weighted_aggregate.cu``).
+  model reduction, a whole param tree in one launch (CUDA C++,
+  ``csrc/weighted_aggregate.cu``).
 * ``robust_combine`` — the per-coordinate trimmed mean / median of the
-  ``*_coord`` aggregators, a sorting network per column (CUDA C++,
+  ``*_coord`` aggregators, a sorting network per column, in registers up
+  to 64 clients and in shared memory above (CUDA C++,
   ``csrc/robust_combine.cu``).
 * ``dequant_aggregate`` — the int8 compressor's fused dequantise and
   weighted sum (CUDA C++, ``csrc/dequant_aggregate.cu``).
@@ -24,7 +26,8 @@ Kernels:
 * ``decode_attention`` — one query token a sequence over a KV cache,
   split-K with a merge kernel, the LM decode step (CUDA C++,
   ``csrc/decode_attention.cu``); ``merge_partials`` is plain torch.
-* ``ssd_scan`` — the Mamba2 SSD chunked scan, one block a (batch, head)
-  walking its chunks, the ssm prefill (CUDA C++, ``csrc/ssd_scan.cu``);
+* ``ssd_scan`` — the Mamba2 SSD chunked scan, blocks walking a (batch,
+  head)'s chunks, bf16 products on the tensor cores, the ssm prefill
+  (CUDA C++, ``csrc/ssd_scan.cu``);
   its single-token decode ``ssd_decode_ref`` is plain torch.
 """

@@ -1,8 +1,8 @@
-// Inline-PTX building blocks of the bf16 attention kernels (sm_80 and up;
-// built here for sm_90a): 16-byte asynchronous copies into shared memory,
-// ldmatrix fragment loads, the m16n8k16 bf16 tensor-core product with
-// f32 accumulators, and the SFU's exp2. Fragment layouts, for lane l of a warp, g = l / 4 and
-// c = 2 (l % 4):
+// Inline-PTX building blocks of the bf16 attention and SSD-scan kernels
+// (sm_80 and up; built here for sm_90a): 16-byte asynchronous copies into
+// shared memory, ldmatrix fragment loads, the m16n8k16 bf16 tensor-core
+// product with f32 accumulators, and the SFU's exp2. Fragment layouts, for
+// lane l of a warp, g = l / 4 and c = 2 (l % 4):
 //
 //   A (16 x 16, row-major)  a0: (g, c..c+1)   a1: (g+8, c..c+1)
 //                           a2: (g, c+8..c+9) a3: (g+8, c+8..c+9)
@@ -44,6 +44,13 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// two 8 x 8 matrices, transposed: rows addressed by lanes 0-7 and 8-15
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
                : "r"(addr));
 }
 

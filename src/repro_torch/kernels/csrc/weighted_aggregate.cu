@@ -2,7 +2,7 @@
 //
 //     out[m] = sum_c w[c] * x[c, m]      x [C, M] f32 or bf16, w [C] f32
 //
-// accumulated in fp32 and cast once to x's dtype.
+// accumulated in fp32, in c order, and cast once to x's dtype.
 //
 // Replaces the Pallas TPU kernel
 // src/repro/kernels/weighted_aggregate/kernel.py:weighted_aggregate_pallas.
@@ -11,19 +11,39 @@
 // write every output once, (C + 1) * M * itemsize bytes (plus 4C for w),
 // while it does 2 * C * M flops -- about 0.5 flop a byte in fp32, far below
 // the ~20 flop/byte at which an H100's fp32 units, not HBM, would limit it.
-// So the least time is (C + 1) * M * itemsize / HBM bandwidth.
+// So the least time is (C + 1) * M * itemsize / HBM bandwidth: 0.00473 ms
+// for a round of fedtest-cnn (C=20, 188,810 f32 params in 10 leaves) and
+// 0.10517 ms at M=2^22 on an H100 SXM (3.35 TB/s). Measured (chip_smoke.py,
+// CUDA-graph replay over copies of the inputs that fill the L2 four times,
+// so that they come from HBM; one NVIDIA H100 80GB HBM3 at a 700 W power
+// limit): a round in one grouped launch 0.0080 ms, 1.7x the bound (ten
+// launches took 0.0356 with the round's 15 MB left in L2; ten torch.mv
+// calls take 0.040), and M=2^22 0.116 ms, 90 % of the bound; what keeps
+// the round's launch further from its bound is not measured. Eager, a
+// round takes about 0.24 ms of host work (the tree walk, the plan, the
+// ctypes call).
 //
 // Design: the TPU kernel streams [C, block_m] tiles through VMEM on a
-// sequential grid. Here a 1-D grid covers M instead; each thread owns VEC
-// consecutive columns (16 bytes of one row) and walks the C rows with an fp32
-// FMA accumulator per column, so no partial sum ever leaves registers and no
-// second pass is needed. Neighbouring threads read neighbouring 16-byte
-// chunks, so each row access of a warp is one coalesced 512-byte segment, and
-// every x element is read exactly once. The 16-byte loads need every row to
-// start 16-byte aligned: that holds when M is a multiple of VEC and x is
-// 16-byte aligned. Otherwise, and for the ragged last VEC columns, the thread
-// uses scalar loads. The weights are read through the read-only cache; they
-// stay on the device, so a launch never waits on the host.
+// sequential grid. Here a 1-D grid covers M instead. A round reduces a
+// whole param tree, ten leaves for fedtest-cnn, each a few microseconds of
+// device time, so one launch a leaf leaves the card waiting on the host.
+// The grouped entry point reduces up to kMaxLeaves leaves in one launch:
+// a leaf table (x and out pointers, M, the leaf's first block, the columns
+// a thread takes) travels by value as a kernel parameter, so nothing is
+// copied from the host per call and the launch can be captured in a CUDA
+// graph; a tree with more leaves takes one launch per table
+// (weighted_aggregate/ops.py:plan_launches). A block finds its leaf by a
+// binary search over the table's block prefix, and every block lies in one
+// leaf. Where a leaf's M is a multiple of VEC and both of its pointers are
+// 16-byte aligned, a thread owns VEC consecutive columns (16 bytes of one
+// row) and walks the C rows with an fp32 FMA accumulator per column:
+// neighbouring threads read neighbouring 16-byte chunks, so each row access
+// of a warp is one coalesced 512-byte segment. Otherwise a thread owns one
+// column and issues its C loads 8 at a time into registers before the
+// FMAs, so the loads of a batch are in flight together, not one
+// load-then-FMA at a time; the FMAs still run in c order, so each output is
+// bitwise what the vector path, and the one-array entry points, give: the
+// one-array kernel runs the same per-thread code on plain parameters.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -32,6 +52,8 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kMaxLeaves = 64;  // leaves one launch's table holds (ops.py: TABLE)
+constexpr int kBatch = 8;       // loads a thread of the scalar path keeps in flight
 
 struct F32 {
   using T = float;
@@ -75,18 +97,34 @@ struct BF16 {
   __device__ static void put(T* p, float v) { *p = __float2bfloat16_rn(v); }
 };
 
-template <typename K>
-__global__ void __launch_bounds__(kThreads)
-wagg_kernel(const typename K::T* __restrict__ x, const float* __restrict__ w,
-            typename K::T* __restrict__ out, int C, int64_t M, bool vec_ok) {
-  constexpr int VEC = K::VEC;
-  const int64_t m0 = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) * VEC;
-  if (m0 >= M) return;
-  float acc[VEC];
-#pragma unroll
-  for (int j = 0; j < VEC; ++j) acc[j] = 0.0f;
+// The leaves of one launch, passed by value (2,056 bytes of the 4 KB a
+// kernel's parameters may take). Leaf i owns blocks first_block[i] ..
+// first_block[i + 1] - 1; its threads take VEC columns each where vec[i],
+// else one.
+struct LeafTable {
+  const void* x[kMaxLeaves];
+  void* out[kMaxLeaves];
+  long long M[kMaxLeaves];
+  int first_block[kMaxLeaves + 1];
+  int vec[kMaxLeaves];
+  int n;
+};
 
-  if (vec_ok && m0 + VEC <= M) {
+// The columns of one leaf that thread t owns: VEC consecutive ones where
+// vec (16-byte loads), else column t alone, its C loads issued kBatch at a
+// time; either way each column's FMAs run in c order.
+template <typename K>
+__device__ __forceinline__ void reduce_columns(const typename K::T* __restrict__ x,
+                                               typename K::T* __restrict__ out, int64_t M,
+                                               bool vec, int64_t t, const float* __restrict__ w,
+                                               int C) {
+  constexpr int VEC = K::VEC;
+  if (vec) {
+    const int64_t m0 = t * VEC;
+    if (m0 >= M) return;
+    float acc[VEC];
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) acc[j] = 0.0f;
     const typename K::T* col = x + m0;
 #pragma unroll 4
     for (int c = 0; c < C; ++c) {
@@ -99,27 +137,90 @@ wagg_kernel(const typename K::T* __restrict__ x, const float* __restrict__ w,
     K::store(out + m0, acc);
     return;
   }
-
-  const int n = static_cast<int>(M - m0 < VEC ? M - m0 : VEC);
-  for (int c = 0; c < C; ++c) {
-    const float wc = __ldg(w + c);
-    const typename K::T* row = x + static_cast<int64_t>(c) * M + m0;
-    for (int j = 0; j < n; ++j) acc[j] = fmaf(wc, K::get(row + j), acc[j]);
+  if (t >= M) return;
+  const typename K::T* col = x + t;
+  float acc = 0.0f;
+  int c = 0;
+  for (; c + kBatch <= C; c += kBatch) {
+    float v[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) v[u] = K::get(col + static_cast<int64_t>(c + u) * M);
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) acc = fmaf(__ldg(w + c + u), v[u], acc);
   }
-  for (int j = 0; j < n; ++j) K::put(out + m0 + j, acc[j]);
+  for (; c < C; ++c) acc = fmaf(__ldg(w + c), K::get(col + static_cast<int64_t>(c) * M), acc);
+  K::put(out + t, acc);
+}
+
+// one array
+template <typename K>
+__global__ void __launch_bounds__(kThreads)
+wagg_kernel(const typename K::T* __restrict__ x, const float* __restrict__ w,
+            typename K::T* __restrict__ out, int C, int64_t M, bool vec) {
+  reduce_columns<K>(x, out, M, vec, static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x,
+                    w, C);
+}
+
+// the leaves of a table
+template <typename K>
+__global__ void __launch_bounds__(kThreads)
+wagg_group_kernel(const LeafTable table, const float* __restrict__ w, int C) {
+  // the leaf of this block: the last i with first_block[i] <= blockIdx.x
+  const int blk = static_cast<int>(blockIdx.x);
+  int lo = 0, hi = table.n - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) / 2;
+    if (table.first_block[mid] <= blk) lo = mid; else hi = mid - 1;
+  }
+  reduce_columns<K>(static_cast<const typename K::T*>(table.x[lo]),
+                    static_cast<typename K::T*>(table.out[lo]), table.M[lo], table.vec[lo],
+                    static_cast<int64_t>(blk - table.first_block[lo]) * kThreads + threadIdx.x,
+                    w, C);
 }
 
 template <typename K>
-int launch(const void* x, const void* w, void* out, int C, long long M, void* stream) {
+int launch_group(const void* const* x, void* const* out, const long long* M,
+                 const int* unit, const int* first_block, int n, const void* w, int C,
+                 void* stream) {
+  if (n < 1 || n > kMaxLeaves || C <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  LeafTable table{};
+  table.n = n;
+  for (int i = 0; i < n; ++i) {
+    const bool vec = unit[i] == K::VEC;
+    const long long blocks = first_block[i + 1] - first_block[i];
+    if (M[i] <= 0 || (unit[i] != 1 && !vec) || blocks <= 0 ||
+        (blocks - 1) * kThreads * unit[i] >= M[i] || blocks * kThreads * unit[i] < M[i] ||
+        (vec && (M[i] % K::VEC != 0 || reinterpret_cast<uintptr_t>(x[i]) % 16 != 0 ||
+                 reinterpret_cast<uintptr_t>(out[i]) % 16 != 0)))
+      return static_cast<int>(cudaErrorInvalidValue);
+    table.x[i] = x[i];
+    table.out[i] = out[i];
+    table.M[i] = M[i];
+    table.vec[i] = vec;
+    table.first_block[i] = first_block[i];
+  }
+  table.first_block[n] = first_block[n];
+  if (first_block[0] != 0) return static_cast<int>(cudaErrorInvalidValue);
+  wagg_group_kernel<K><<<static_cast<unsigned>(first_block[n]), kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      table, static_cast<const float*>(w), C);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// one array: its own kernel, the columns a thread takes chosen as
+// plan_launches chooses them
+template <typename K>
+int launch_one(const void* x, const void* w, void* out, int C, long long M, void* stream) {
   if (C <= 0 || M <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec_ok = (M % K::VEC == 0) &&
-                      (reinterpret_cast<uintptr_t>(x) % 16 == 0) &&
-                      (reinterpret_cast<uintptr_t>(out) % 16 == 0);
-  const long long threads_needed = (M + K::VEC - 1) / K::VEC;
-  const unsigned blocks = static_cast<unsigned>((threads_needed + kThreads - 1) / kThreads);
-  wagg_kernel<K><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const bool vec = (M % K::VEC == 0) &&
+                   (reinterpret_cast<uintptr_t>(x) % 16 == 0) &&
+                   (reinterpret_cast<uintptr_t>(out) % 16 == 0);
+  const long long blocks = ((vec ? M / K::VEC : M) + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  wagg_kernel<K><<<static_cast<unsigned>(blocks), kThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const typename K::T*>(x), static_cast<const float*>(w),
-      static_cast<typename K::T*>(out), C, static_cast<int64_t>(M), vec_ok);
+      static_cast<typename K::T*>(out), C, static_cast<int64_t>(M), vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -129,10 +230,27 @@ int launch(const void* x, const void* w, void* out, int C, long long M, void* st
 // pointer; the return value is cudaGetLastError() after the launch.
 extern "C" int weighted_aggregate_f32(const void* x, const void* w, void* out,
                                       int C, long long M, void* stream) {
-  return launch<F32>(x, w, out, C, M, stream);
+  return launch_one<F32>(x, w, out, C, M, stream);
 }
 
 extern "C" int weighted_aggregate_bf16(const void* x, const void* w, void* out,
                                        int C, long long M, void* stream) {
-  return launch<BF16>(x, w, out, C, M, stream);
+  return launch_one<BF16>(x, w, out, C, M, stream);
+}
+
+// n <= 64 leaves of one dtype and one C in one launch: host arrays of the
+// leaves' x and out pointers, M, columns a thread (VEC or 1) and the block
+// prefix (n + 1 entries, from 0), as plan_launches builds them.
+extern "C" int weighted_aggregate_group_f32(const void* const* x, void* const* out,
+                                            const long long* M, const int* unit,
+                                            const int* first_block, int n, const void* w,
+                                            int C, void* stream) {
+  return launch_group<F32>(x, out, M, unit, first_block, n, w, C, stream);
+}
+
+extern "C" int weighted_aggregate_group_bf16(const void* const* x, void* const* out,
+                                             const long long* M, const int* unit,
+                                             const int* first_block, int n, const void* w,
+                                             int C, void* stream) {
+  return launch_group<BF16>(x, out, M, unit, first_block, n, w, C, stream);
 }

@@ -25,9 +25,10 @@ from repro_torch.kernels.robust_combine.ref import (
     robust_combine_network_ref)
 
 MODES = ("trimmed_mean", "median")
-# the kernel is instantiated for C = 1..MAX_CLIENTS (ROADMAP.md queue 2
-# item 2 records lifting the limit)
-MAX_CLIENTS = 64
+# the kernel keeps a column in registers for C <= 64 and stages it in
+# shared memory above that, up to the C whose 32 columns fill a block's
+# 227 KB (csrc/robust_combine.cu); the CUDA route refuses more
+MAX_CLIENTS = 1816
 
 
 def row_select_weights(mask: torch.Tensor, *, mode: str = "trimmed_mean",

@@ -7,7 +7,7 @@ sorted-position weights ``w_row`` (``ops.row_select_weights``).
 
 * :func:`robust_combine_network_ref` sorts with the Batcher odd-even
   merge network of ``oddeven_merge_pairs`` as ``torch.minimum`` /
-  ``torch.maximum`` row ops, the schedule the CUDA kernel unrolls. It is
+  ``torch.maximum`` row ops, the schedule the CUDA kernels walk. It is
   the CPU route of ``robust_combine``.
 * :func:`robust_combine_ref` sorts with ``torch.sort``, the oracle the
   tests hold the network to.
@@ -26,7 +26,8 @@ _MASKED_SENTINEL = 3.0e38
 def oddeven_merge_pairs(c: int) -> List[Tuple[int, int]]:
     """Compare-exchange schedule of Batcher's odd-even mergesort for ``c``
     rows (the arbitrary-n iterative form, ``O(c log^2 c)`` comparators).
-    ``csrc/robust_combine.cu`` builds the same list at compile time."""
+    ``csrc/robust_combine.cu`` builds the same list at compile time for
+    c <= 64 and walks it at run time above (:func:`merge_pairs_by_loops`)."""
     pairs = []
     p = 1
     while p < c:
@@ -36,6 +37,27 @@ def oddeven_merge_pairs(c: int) -> List[Tuple[int, int]]:
                 for i in range(min(k, c - j - k)):
                     if (i + j) // (2 * p) == (i + j + k) // (2 * p):
                         pairs.append((i + j, i + j + k))
+            k //= 2
+        p *= 2
+    return pairs
+
+
+def merge_pairs_by_loops(c: int) -> List[Tuple[int, int]]:
+    """The schedule as ``csrc/robust_combine.cu``'s shared-memory kernel
+    (C > 64) generates it at run time: the loops of
+    :func:`oddeven_merge_pairs` with ``// (2 p)`` taken as a right shift
+    by ``ffs(p)``, so that the two can be held equal."""
+    pairs = []
+    p = 1
+    while p < c:
+        shift = (p & -p).bit_length()      # CUDA's __ffs(p)
+        k = p
+        while k >= 1:
+            for j in range(k % p, c - k, 2 * k):
+                for i in range(min(k, c - j - k)):
+                    lo, hi = i + j, i + j + k
+                    if lo >> shift == hi >> shift:
+                        pairs.append((lo, hi))
             k //= 2
         p *= 2
     return pairs

@@ -67,8 +67,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     may be ragged). Shapes as in ``ref.ssd_ref``; returns (y [Bt,S,H,P]
     in x's dtype, final state [Bt,H,P,N] f32). x, B and C are read through
     their strides, so slices of a wider tensor need no copy, as long as
-    their last dimension is unit-stride. Each launch of the CUDA kernel
-    adds one to ``ssd_scan.launches``."""
+    their last dimension is unit-stride (and, in bf16, their rows start on
+    16-byte boundaries). Each launch of the CUDA kernel adds one to
+    ``ssd_scan.launches``."""
     _check(x, dt, A, B, C, D, chunk)
     if x.device.type == "cpu":
         return ssd_ref(x, dt, A, B, C, D)
@@ -87,6 +88,14 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                          "last dimension")
     if not (A.is_contiguous() and D.is_contiguous()):
         raise ValueError("ssd_scan needs contiguous A and D")
+    if x.dtype == torch.bfloat16 and not all(
+            t.data_ptr() % 16 == 0
+            and all(st % 8 == 0 for st, n in zip(t.stride()[:3], t.shape)
+                    if n > 1)
+            for t in (x, B, C)):
+        raise ValueError("the bf16 ssd_scan copies rows of x, B and C in "
+                         "16-byte pieces: their data and their batch, row "
+                         "and head strides must fall on 16-byte boundaries")
     y = torch.empty((Bt, S, H, P), dtype=x.dtype, device=x.device)
     state = torch.empty((Bt, H, P, N), dtype=torch.float32, device=x.device)
     strides = (ctypes.c_longlong * 15)(

@@ -1,5 +1,7 @@
 from repro_torch.kernels.weighted_aggregate.ops import (
-    aggregate_pytree, weighted_aggregate)
+    TABLE, THREADS, Launch, aggregate_pytree, plan_launches,
+    weighted_aggregate)
 from repro_torch.kernels.weighted_aggregate.ref import weighted_aggregate_ref
 
-__all__ = ["aggregate_pytree", "weighted_aggregate", "weighted_aggregate_ref"]
+__all__ = ["Launch", "TABLE", "THREADS", "aggregate_pytree", "plan_launches",
+           "weighted_aggregate", "weighted_aggregate_ref"]

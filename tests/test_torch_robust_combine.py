@@ -23,9 +23,9 @@ from repro.kernels.robust_combine.ops import (  # noqa: E402
 from repro.kernels.robust_combine.ref import (  # noqa: E402
     robust_combine_ref as j_ref)
 from repro_torch.kernels.robust_combine import (  # noqa: E402
-    combine_rows, oddeven_merge_pairs, robust_combine,
-    robust_combine_network_ref, robust_combine_ref, row_select_weights,
-    sort_rows)
+    MAX_CLIENTS, combine_rows, merge_pairs_by_loops, oddeven_merge_pairs,
+    robust_combine, robust_combine_network_ref, robust_combine_ref,
+    row_select_weights, sort_rows)
 
 # the sorted values are exact; only the order of the final dot differs
 TOL = dict(rtol=1e-6, atol=1e-6)
@@ -63,6 +63,20 @@ def test_schedule_is_the_reference_schedule():
         63, 103, 191, 543]
 
 
+def test_kernel_loops_are_the_schedule():
+    """Above 64 clients the CUDA kernel generates its pairs at run time,
+    dividing by 2p as a shift; its loops give the reference's schedule."""
+    for c in range(1, 301):
+        assert merge_pairs_by_loops(c) == oddeven_merge_pairs(c), c
+
+
+def test_max_clients_fills_a_block_of_32_columns():
+    """MAX_CLIENTS rows of 32 f32 columns fill the 227 KB (232,448 bytes)
+    of shared memory a Hopper block may have; one more row does not."""
+    assert MAX_CLIENTS >= 1024
+    assert MAX_CLIENTS * 32 * 4 <= 232_448 < (MAX_CLIENTS + 1) * 32 * 4
+
+
 def test_network_sorts_every_01_input():
     """0-1 principle: a comparator network sorts every input iff it sorts
     every 0/1 input; every 0/1 column of c <= 10 rows at once."""
@@ -90,7 +104,7 @@ def test_row_select_weights_are_the_reference_weights(C, mode, trim):
         np.testing.assert_array_equal(got, want, err_msg=f"k={k}")
 
 
-@pytest.mark.parametrize("C", [2, 3, 4, 7, 8, 16, 17, 20])
+@pytest.mark.parametrize("C", [2, 3, 4, 7, 8, 16, 17, 20, 65, 100, 130])
 @pytest.mark.parametrize("mode,trim", MODES)
 def test_plain_matches_reference(C, mode, trim):
     x = _x(C, 1000, seed=C)
@@ -135,10 +149,21 @@ def test_network_matches_sort_oracle_within_the_port():
 
 
 def test_network_propagates_nan_as_the_reference_does():
-    x = _x(5, 4, seed=3)
+    _assert_nan_propagates(5)
+
+
+@pytest.mark.parametrize("C", [65, 100, 130])
+def test_network_propagates_nan_above_64_clients(C):
+    """The clients the CUDA route stages in shared memory: NaN and inf
+    land where the reference puts them."""
+    _assert_nan_propagates(C)
+
+
+def _assert_nan_propagates(C):
+    x = _x(C, 4, seed=3)
     x[2, 1] = np.nan
-    x[4, 3] = np.inf
-    mask = np.ones((5,), np.float32)
+    x[C - 1, 3] = np.inf
+    mask = np.ones((C,), np.float32)
     got = robust_combine(torch.from_numpy(x), torch.from_numpy(mask),
                          mode="median").numpy()
     want = np.asarray(j_robust_combine(jnp.asarray(x), mask=jnp.asarray(mask),
@@ -149,7 +174,7 @@ def test_network_propagates_nan_as_the_reference_does():
 
 
 def test_cpu_input_runs_plain_version_without_counting():
-    x = torch.from_numpy(_x(70, 10, seed=1))      # above the kernel's C
+    x = torch.from_numpy(_x(70, 10, seed=1))      # the staged kernel's C
     before = robust_combine.launches
     out = robust_combine(x, mode="median")
     assert out.shape == (10,) and robust_combine.launches == before

@@ -725,6 +725,20 @@ def test_default_device_raises_without_a_card(small_setup, monkeypatch):
         FederatedTrainer(model, FedConfig(num_users=6, num_testers=2), tc)
 
 
+def test_resolve_device_makes_cudnn_deterministic(monkeypatch):
+    """A run from one seed must repeat bitwise on the card too: the device
+    resolver turns cuDNN's nondeterministic algorithms and its algorithm
+    benchmarking off, whatever they were before, as it turns TF32 off."""
+    from repro_torch.core.engine import resolve_device
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", False)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert torch.backends.cudnn.deterministic is True
+    assert torch.backends.cudnn.benchmark is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
 @pytest.mark.parametrize("kw,match", [
     (dict(coalition="mutual_boost", coalition_size=1), "item 11"),
     (dict(lying_testers=1), "item 11"),

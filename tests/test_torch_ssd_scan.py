@@ -12,6 +12,8 @@ about 1e-4 relative in fp32. bf16 outputs: one bf16 ulp (2**-7 relative)
 plus slack. The CUDA kernel itself runs only on a card: ``chip_smoke.py``
 holds it against the plain version there.
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -231,3 +233,79 @@ def test_bad_inputs_are_refused(case, exc):
     with pytest.raises(exc):
         ssd_scan(*args, **kw)
     assert ssd_scan.launches == launches
+
+
+def _bf16_kernel_arithmetic(x, dt, A, B, C, D, chunk, split):
+    """The bf16 CUDA kernel's arithmetic, emulated in f32 on the CPU: per
+    chunk the f32 prefix sum cum of dt A; S = C B^T, exact (bf16 inputs,
+    f32 sums); L_ij = exp(cum_i - cum_j) dt_j masked to i >= j before exp;
+    y = (S o L) x + exp(cum) (C h0^T) + D x, cast to bf16; the state
+    h <- exp(cum_last) h + (w o x)^T B, w_j = exp(cum_last - cum_j) dt_j.
+    The tensor cores take bf16 operands, so each f32 operand of a product
+    (``"S o L"``, ``"h0"``, ``"w o x"``) is rounded to bf16, or, where
+    ``split`` names it, carried as hi + lo (hi = bf16(v), lo = bf16(v -
+    hi), the kernel's two products)."""
+    Bt, S, H, P = x.shape
+    rep = H // B.shape[2]
+    xf = x.float()
+    Bf, Cf = (t.float().repeat_interleave(rep, 2) for t in (B, C))
+
+    def operand(t, name):
+        hi = t.bfloat16().float()
+        return hi + (t - hi).bfloat16().float() if name in split else hi
+
+    h = torch.zeros((Bt, H, P, B.shape[3]))
+    ys = []
+    for c0 in range(0, S, chunk):
+        rows = slice(c0, min(S, c0 + chunk))
+        xc, Bc, Cc = xf[:, rows], Bf[:, rows], Cf[:, rows]
+        dc = dt[:, rows].permute(0, 2, 1)                       # [Bt,H,q]
+        cum = torch.cumsum(dc * A[:, None], dim=2)
+        keep = torch.ones((dc.shape[2],) * 2, dtype=torch.bool).tril()
+        diff = torch.where(keep, cum[..., :, None] - cum[..., None, :], 0.0)
+        L = torch.where(keep, torch.exp(diff) * dc[..., None, :], 0.0)
+        scores = torch.einsum("bihn,bjhn->bhij", Cc, Bc)
+        y = torch.einsum("bhij,bjhp->bihp", operand(scores * L, "S o L"), xc)
+        y = y + (torch.exp(cum).permute(0, 2, 1)[..., None]
+                 * torch.einsum("bihn,bhpn->bihp", Cc, operand(h, "h0")))
+        ys.append(y + D[:, None] * xc)
+        w = torch.exp(cum[..., -1:] - cum) * dc
+        wx = operand(w[..., None] * xc.permute(0, 2, 1, 3), "w o x")
+        h = (torch.exp(cum[..., -1])[..., None, None] * h
+             + torch.einsum("bhjp,bjhn->bhpn", wx, Bc))
+    return torch.cat(ys, dim=1).bfloat16(), h
+
+
+@functools.lru_cache(maxsize=None)
+def _served_widths_case():
+    """Three chunks of 256 (the last ragged) at the served head and state
+    widths (P=64, N=128, one group), A and dt as the model draws them, in
+    bf16, with the sequential plain version's outputs."""
+    x, dt, A, B, C, D = _t(_inputs((1, 600, 4, 64, 1, 128), seed=11,
+                                   mamba_init=True))
+    args = (x.bfloat16(), dt, A, B.bfloat16(), C.bfloat16(), D)
+    return args, ssd_ref(*args)
+
+
+@pytest.mark.parametrize("split,holds", [
+    (("S o L", "h0", "w o x"), True),
+    (("h0", "w o x"), False),
+    (("S o L", "w o x"), False),
+    (("S o L", "h0"), False),
+], ids=["all-hi-lo", "S-o-L-bf16", "h0-bf16", "w-o-x-bf16"])
+def test_bf16_operands_need_hi_and_lo_to_hold_the_card_tolerance(split,
+                                                                 holds):
+    """chip_smoke.py holds the bf16 kernel's y to rtol = atol = 1e-2 and
+    its f32 state to 1e-3 against the sequential plain version. Each of
+    the three f32 operands the tensor cores take (S o L, h0, w o x),
+    rounded to bf16 alone (2**-9 relative), moves y or the state past that
+    on the served widths; carried as hi + lo, all three hold. The kernel
+    carries all three as hi + lo."""
+    args, (yr, hr) = _served_widths_case()
+    y, h = _bf16_kernel_arithmetic(*args, chunk=256, split=split)
+    ratio_y = float(((y.float() - yr.float()).abs()
+                     / (BF16_TOL["atol"] + BF16_TOL["rtol"]
+                        * yr.float().abs())).max())
+    ratio_h = float(((h - hr).abs() / (CHUNK_TOL["atol"]
+                                       + CHUNK_TOL["rtol"] * hr.abs())).max())
+    assert (max(ratio_y, ratio_h) <= 1.0) == holds, (ratio_y, ratio_h)

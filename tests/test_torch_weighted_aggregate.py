@@ -17,9 +17,13 @@ from repro.kernels.weighted_aggregate.ops import (  # noqa: E402
     weighted_aggregate as jax_weighted_aggregate)
 from repro.kernels.weighted_aggregate.ref import (  # noqa: E402
     weighted_aggregate_ref as jax_ref)
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.weighted_aggregate import (  # noqa: E402
-    aggregate_pytree, weighted_aggregate, weighted_aggregate_ref)
+    TABLE, THREADS, aggregate_pytree, plan_launches, weighted_aggregate,
+    weighted_aggregate_ref)
+from repro_torch.models import build_model  # noqa: E402
+from repro_torch.utils import tree_leaves, tree_map  # noqa: E402
 
 # f32: the sums of C products may be taken in another order;
 # bf16: one bf16 ulp at the final cast
@@ -74,6 +78,60 @@ def test_aggregate_pytree_matches_reference():
             np.testing.assert_allclose(got[k][n].numpy(),
                                        np.asarray(want[k][n]),
                                        rtol=1e-6, atol=1e-6)
+
+
+def test_fedtest_cnn_tree_matches_reference():
+    """The round's own tree: fedtest-cnn's ten leaves stacked over C=20
+    clients, through the CPU route and the JAX package's tree op (its
+    plain oracle and its Pallas kernel in interpret mode)."""
+    rng = np.random.default_rng(3)
+    shapes = build_model(get_config("fedtest-cnn")).param_shapes()
+    stacked = tree_map(lambda s: rng.standard_normal((20,) + tuple(s))
+                       .astype(np.float32), shapes)
+    w = rng.uniform(size=(20,)).astype(np.float32)
+    got = aggregate_pytree(tree_map(torch.from_numpy, stacked),
+                           torch.from_numpy(w))
+    assert len(tree_leaves(got)) == 10
+    for impl in ("naive", "pallas"):
+        want = jax_aggregate_pytree(tree_map(jnp.asarray, stacked),
+                                    jnp.asarray(w), impl=impl,
+                                    interpret=True)
+        for g, j, x in zip(tree_leaves(got), tree_leaves(want),
+                           tree_leaves(stacked)):
+            assert g.shape == x.shape[1:]
+            np.testing.assert_allclose(g.numpy(), np.asarray(j),
+                                       rtol=1e-5, atol=1e-5,
+                                       err_msg=impl)
+
+
+@pytest.mark.parametrize("n_leaves", [1, 10, 64, 65, 200])
+def test_plan_covers_every_chunk_once(n_leaves):
+    """The grouped kernel's planner: one launch a table of TABLE leaves,
+    every leaf in exactly one launch, in order; each leaf's blocks cover
+    its vector chunks (VEC columns where its width and alignment allow
+    16-byte loads, else one column) exactly once, with the slack of one
+    partial block at most."""
+    rng = np.random.default_rng(n_leaves)
+    sizes = [int(m) for m in rng.integers(1, 5000, size=n_leaves)]
+    fixed = [4, 10, 1 << 16]      # a vector leaf, a ragged one, a wide one
+    sizes[:len(fixed)] = fixed[:n_leaves]
+    aligned = [bool(a) for a in rng.integers(0, 2, size=n_leaves)]
+    plan = plan_launches(sizes, aligned, 4)
+    assert len(plan) == -(-n_leaves // TABLE)
+    assert [i for launch in plan for i in launch.leaves] == list(
+        range(n_leaves))
+    for launch in plan:
+        assert 1 <= len(launch.leaves) <= TABLE
+        assert launch.first_block[0] == 0
+        assert len(launch.first_block) == len(launch.leaves) + 1
+        for j, (i, unit) in enumerate(zip(launch.leaves, launch.units)):
+            assert unit == (4 if aligned[i] and sizes[i] % 4 == 0 else 1)
+            blocks = range(launch.first_block[j], launch.first_block[j + 1])
+            chunks = [(b - blocks.start) * THREADS + t for b in blocks
+                      for t in range(THREADS)]
+            live = [c for c in chunks if c * unit < sizes[i]]
+            assert live == list(range(-(-sizes[i] // unit)))
+            assert len(chunks) - len(live) < THREADS
 
 
 def test_onehot_weight_selects_client_exactly():
