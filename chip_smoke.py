@@ -40,7 +40,10 @@ toolkit (``nvcc``), and exits non-zero on the first phase that fails.
    code path on ``cuda``: A, the paper's score-weighted sum
    (``weighted_aggregate``); B, the coordinate-wise trimmed mean
    (``robust_combine``); C, the int8 compressed exchange
-   (``dequant_aggregate``). Every value must be finite, the weights must
+   (``dequant_aggregate``). Then B100, path B with 100 users (15
+   attackers, the same 900 samples a user) for two rounds: the
+   trimmed mean over a [100, 188,810] update matrix, the kernel above 64
+   clients. Every value must be finite, the weights must
    sum to 1, the launch counts must show each path went through its
    kernel and no other, and the last step-7 output must equal the plain
    version's on the same inputs. Then path A twice more from one seed:
@@ -98,14 +101,20 @@ MAIN_PATH_ARGS = [
     "--local-steps", "10", "--batch", "32", "--lr", "0.05",
     "--optimizer", "sgd", "--rounds", str(ROUNDS)]
 TRIM = 0.2
-# (path, CLI arguments, the kernel op the path must launch)
+COMBINE_ARGS = ["--aggregator", "trimmed_mean_coord", "--agg-kwargs",
+                json.dumps({"trim_fraction": TRIM, "score_gate": 0.5})]
+# (path, CLI arguments, the kernel op the path must launch, rounds). B100:
+# a dense round of 100 users, as in McMahan et al. 2017, the attackers 15 %
+# as in B, and 100,000 samples, so that a user holds as many as in B; two
+# rounds, to keep the smoke within its time
 PATHS = (
-    ("A", MAIN_PATH_ARGS, "weighted_aggregate"),
-    ("B", MAIN_PATH_ARGS + [
-        "--aggregator", "trimmed_mean_coord", "--agg-kwargs",
-        json.dumps({"trim_fraction": TRIM, "score_gate": 0.5})],
-     "robust_combine"),
-    ("C", MAIN_PATH_ARGS + ["--compressor", "int8"], "dequant_aggregate"),
+    ("A", MAIN_PATH_ARGS, "weighted_aggregate", ROUNDS),
+    ("B", MAIN_PATH_ARGS + COMBINE_ARGS, "robust_combine", ROUNDS),
+    ("C", MAIN_PATH_ARGS + ["--compressor", "int8"], "dequant_aggregate",
+     ROUNDS),
+    ("B100", MAIN_PATH_ARGS + COMBINE_ARGS + [
+        "--users", "100", "--malicious", "15", "--samples", "100000",
+        "--rounds", "2"], "robust_combine", 2),
 )
 KERNELS = ("weighted_aggregate", "robust_combine", "dequant_aggregate",
            "flash_attention", "decode_attention", "ssd_scan")
@@ -311,10 +320,12 @@ def sass_mma_counts(lib):
 
 def phase_build():
     """Build every kernel, one nvcc each, all started together; print
-    nvcc's register and spill report. robust_combine has one kernel per
-    C = 1..64 (and a 4-column one for C <= 32) and one staged in shared
-    memory for C > 64: its report is summed up, and the C=20 kernels the
-    paths use must not spill. Every instance of the attention kernels is
+    nvcc's register and spill report and each build's time.
+    robust_combine has one kernel per C = 1..64 (and a 4-column one for C
+    <= 32), one per padded size of the register tier (65..128 clients)
+    and one in shared memory for C > 128: its report is summed up, the
+    C=20 kernels the paths use and the padded ones must not spill. Every
+    instance of the attention kernels is
     printed (flash: D in {32, 64, 128} x {f32, bf16}; decode: the same,
     f32 x the query-group bucket {1, 2, 4, 8}, and a merge kernel per D
     and dtype); the bf16 D=64 ones the serve path runs must not spill.
@@ -327,11 +338,19 @@ def phase_build():
     ssd_scan: mma.sync) must hold HMMA or HGMMA instructions, no other
     kernel may, and their counts are printed."""
     from repro_torch.kernels import build
+    from repro_torch.kernels.robust_combine import REGISTER_PADS
+
+    def timed_build(name):
+        t = time.perf_counter()
+        return build.build(name), time.perf_counter() - t
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
-        libs = dict(zip(KERNELS, pool.map(build.build, KERNELS)))
+        built = dict(zip(KERNELS, pool.map(timed_build, KERNELS)))
+    libs = {name: lib for name, (lib, _) in built.items()}
     print(f"built {len(libs)} kernel libraries in "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"{time.perf_counter() - t0:.1f} s; nvcc s each: " + ", ".join(
+              f"{name} {sec:.1f}" for name, (_, sec) in built.items())
+          + " (robust_combine.cu: 25-46 s when C > 64 had one kernel)")
     prop = re.compile(r"Function properties for (\S+)\s+(\d+) bytes stack "
                       r"frame, (\d+) bytes spill stores, (\d+) bytes spill "
                       r"loads\s+ptxas info\s+: Used (\d+) registers")
@@ -340,7 +359,8 @@ def phase_build():
         check(report, f"nvcc's -Xptxas -v report for {name}")
         print(f"{os.path.relpath(lib, ROOT)}: {len(report)} kernels")
         for fn, stack, stores, loads, regs in report:
-            if name != "robust_combine" or "ILi20E" in fn or int(stores):
+            if (name != "robust_combine" or "ILi20E" in fn or int(stores)
+                    or "padded" in fn or "smem" in fn):
                 print(f"  {fn}: {regs} registers, {stack} bytes stack, "
                       f"{stores} bytes spill stores, {loads} bytes spill "
                       f"loads")
@@ -350,6 +370,10 @@ def phase_build():
             c20 = [fn for fn, *_ in report if "ILi20E" in fn]
             check(len(c20) == 2 and not any(fn in c20 for fn, *_ in spills),
                   f"robust_combine at C=20 spills: {spills}")
+            padded = [fn for fn, *_ in report if "robust_kernel_padded" in fn]
+            check(len(padded) == len(REGISTER_PADS)
+                  and not any(fn in padded for fn, *_ in spills),
+                  f"robust_combine's register tier {padded} spills: {spills}")
         if name in SERVED:
             served = [fn for fn, *_ in report
                       if any(key in fn for key in SERVED[name])]
@@ -516,9 +540,10 @@ def check_robust_combine(torch):
         out = hold(x, mask, mode, trim)
         check(bool(out[5].isnan()) and not bool(out[8].isnan()),
               "NaN propagates, a masked NaN drops out")
-    # above 64 clients, the kernel staged in shared memory, up to
-    # MAX_CLIENTS: NaN, +-inf, masked rows (a masked NaN among them), ties
-    for C in (65, 100, 257, MAX_CLIENTS):
+    # above 64 clients: the register tier's padded networks (65..128; 96
+    # and 128 fill a pad exactly) and the shared-memory tier (129 up to
+    # MAX_CLIENTS): NaN, +-inf, masked rows (a masked NaN among them), ties
+    for C in (65, 96, 100, 128, 129, 257, MAX_CLIENTS):
         for M in ((1, 1000, 33_000) if C < MAX_CLIENTS else (1000,)):
             x = torch.randn((C, M), generator=gen, device="cuda")
             if M >= 10:
@@ -557,22 +582,31 @@ def check_robust_combine(torch):
 
 def check_dequant_aggregate(torch):
     """Fused dequantise + weighted sum against the plain version at
-    rtol=1e-5, atol=1e-6 (the sum over C is taken in another order)."""
+    rtol=1e-5, atol=1e-6 (the sum over C is taken in another order). The
+    kernel takes 4 columns a thread (4-byte code loads) unless the
+    16-column grid has at least two blocks an SM; M runs a chunk below
+    and above both edges: one wave of the 4-column grid (a block of 256
+    threads an SM) and the switch to 16 columns. q starts 16-byte
+    aligned, 4 bytes off (4 columns) and 1 byte off (a column a thread)."""
     from repro_torch.kernels.dequant_aggregate import (
         dequant_aggregate, dequant_aggregate_ref)
     gen = torch.Generator(device="cuda").manual_seed(3)
     calls, worst = 0, 0.0
     launches = dequant_aggregate.launches
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    edges = (sms * 256 * 4, (2 * sms - 1) * 256 * 16)
     for C in (1, 3, 20):
         for chunk in (16, 100, 256):
-            for target in (chunk, 188_928, 1 << 22):
+            near = [e // chunk * chunk + d for e in edges
+                    for d in (-chunk, 0, chunk)]
+            for target in [chunk, 188_928, 1 << 22] + near:
                 M = max(1, round(target / chunk)) * chunk
                 q = torch.randint(-127, 128, (C, M), generator=gen,
                                   device="cuda", dtype=torch.int8)
                 s = 1e-4 + 1e-2 * torch.rand((C, M // chunk), generator=gen,
                                              device="cuda")
                 w = torch.rand((C,), generator=gen, device="cuda")
-                for qin in (q, _shifted(torch, q, 1)):
+                for qin in (q, _shifted(torch, q, 4), _shifted(torch, q, 1)):
                     got = dequant_aggregate(w, s, qin, chunk)
                     want = dequant_aggregate_ref(w, s, qin, chunk)
                     torch.cuda.synchronize()
@@ -1120,11 +1154,11 @@ def phase_ssd_times(torch, peaks):
     return {"ssd_scan": rows}
 
 
-def phase_path(torch, path, argv, op_name):
-    """Three full-width rounds of one path through the launcher's code
-    path. Every kernel's launch count is set to 0 just before the rounds
-    and read just after: ``op_name`` must have launched and no other.
-    Returns (launches of op_name, round wall ms)."""
+def phase_path(torch, path, argv, op_name, rounds):
+    """``rounds`` full-width rounds of one path through the launcher's
+    code path. Every kernel's launch count is set to 0 just before the
+    rounds and read just after: ``op_name`` must have launched and no
+    other. Returns (launches of op_name, round wall ms)."""
     from repro_torch.kernels.dequant_aggregate import dequant_aggregate_ref
     from repro_torch.kernels.robust_combine import (
         robust_combine_network_ref, row_select_weights)
@@ -1180,7 +1214,7 @@ def phase_path(torch, path, argv, op_name):
     torch.cuda.synchronize()
     reset_counts(kernel_ops)
     walls = []
-    for _ in range(ROUNDS):
+    for _ in range(rounds):
         step_ms.clear()
         t0 = time.perf_counter()
         state, metrics = trainer.run_round(state, data)
@@ -1212,13 +1246,13 @@ def phase_path(torch, path, argv, op_name):
     leaf_sizes = [p.numel() for p in tree_leaves(state.global_params)]
     per_round = (len(plan_launches(leaf_sizes, [True] * len(leaf_sizes), 4))
                  if op_name == "weighted_aggregate" else 1)
-    want = {name: (per_round * ROUNDS if name == op_name else 0)
+    want = {name: (per_round * rounds if name == op_name else 0)
             for name in kernel_ops}
     check(counts == want
           and kernel_ops["decode_attention"].merge_launches == 0,
           f"path {path} launches {counts}, want {want}")
     print(f"path {path} launches: {counts} ({per_round} {op_name} a round "
-          f"x {ROUNDS} rounds)")
+          f"x {rounds} rounds)")
 
     # the last round's step-7 output against the plain version on its
     # own inputs
@@ -1230,6 +1264,8 @@ def phase_path(torch, path, argv, op_name):
         tol = dict(rtol=1e-5, atol=1e-6)
     elif op_name == "robust_combine":
         (ctx, updates), out = seen["combine"]
+        check(tuple(updates.shape) == (trainer.fed.num_users, n_params),
+              f"path {path} combines a {tuple(updates.shape)} matrix")
         aggregator = program.aggregator
         mask = aggregator.gate_mask(ctx)
         w_row = row_select_weights(mask, mode=aggregator._mode,
@@ -1732,9 +1768,9 @@ def main() -> int:
     rows.update(phase_ssd_times(torch, peaks))
 
     launches, walls = {}, {}
-    for path, argv, op_name in PATHS:
-        launches[op_name], walls[path] = phase_path(torch, path, argv,
-                                                    op_name)
+    for path, argv, op_name, rounds in PATHS:   # B and B100 add up
+        n, walls[path] = phase_path(torch, path, argv, op_name, rounds)
+        launches[op_name] = launches.get(op_name, 0) + n
     repro = phase_reproducible(torch, card)
     serve_counts, serve_out = phase_serve(torch, card)
     launches["flash_attention"] = serve_counts["flash_attention"]
@@ -1762,15 +1798,17 @@ def main() -> int:
             "library_eager_ms": total("library_eager_ms"),
             "card": card, "shapes": rows[name]}
 
-    for path, _, _ in PATHS:
+    for path, *_ in PATHS:
         print(f"path {path} round wall ms: "
-              f"{[round(t, 3) for t in walls[path]]} ({card})")
+              f"{[round(t, 3) for t in walls[path]]}, steady (after the "
+              f"first) {[round(t, 3) for t in walls[path][1:]]} ({card})")
     print(json.dumps({"kernels": [
         # one round of path A: its 10 leaves in one grouped launch, C=20
         entry("weighted_aggregate", rows["weighted_aggregate"][:1],
               "C=20, one grouped launch a round, M=" + "+".join(
                   str(m) for m in leaves)),
-        # one round of path B / C: one launch on the [20, D] matrix
+        # one round of path B / C: one launch on the [20, D] matrix (B100's
+        # [100, D] launches are counted in and timed in its shapes)
         entry("robust_combine", rows["robust_combine"][:1],
               f"C=20, M={dim}, trimmed mean at {TRIM}"),
         entry("dequant_aggregate", rows["dequant_aggregate"][:1],

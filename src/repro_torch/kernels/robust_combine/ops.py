@@ -25,9 +25,10 @@ from repro_torch.kernels.robust_combine.ref import (
     robust_combine_network_ref)
 
 MODES = ("trimmed_mean", "median")
-# the kernel keeps a column in registers for C <= 64 and stages it in
-# shared memory above that, up to the C whose 32 columns fill a block's
-# 227 KB (csrc/robust_combine.cu); the CUDA route refuses more
+# the kernel keeps a column in registers up to C = 128 (a network per C
+# up to 64, padded to REGISTER_PADS above) and stages it in shared memory
+# above that, up to the C whose 32 columns fill a block's 227 KB
+# (csrc/robust_combine.cu); the CUDA route refuses more
 MAX_CLIENTS = 1816
 
 

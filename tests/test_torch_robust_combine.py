@@ -7,6 +7,8 @@ itself runs only on a card: ``chip_smoke.py`` holds it against the plain
 version there.
 """
 import itertools
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -23,9 +25,11 @@ from repro.kernels.robust_combine.ops import (  # noqa: E402
 from repro.kernels.robust_combine.ref import (  # noqa: E402
     robust_combine_ref as j_ref)
 from repro_torch.kernels.robust_combine import (  # noqa: E402
-    MAX_CLIENTS, combine_rows, merge_pairs_by_loops, oddeven_merge_pairs,
-    robust_combine, robust_combine_network_ref, robust_combine_ref,
-    row_select_weights, sort_rows)
+    MAX_CLIENTS, REGISTER_PADS, SEGMENT, combine_rows, merge_pairs_by_loops,
+    merge_stages, oddeven_merge_pairs, padded_rows, robust_combine,
+    robust_combine_network_ref, robust_combine_padded_ref,
+    robust_combine_ref, row_select_weights, sort_rows, sort_rows_staged,
+    stage_pairs)
 
 # the sorted values are exact; only the order of the final dot differs
 TOL = dict(rtol=1e-6, atol=1e-6)
@@ -64,10 +68,127 @@ def test_schedule_is_the_reference_schedule():
 
 
 def test_kernel_loops_are_the_schedule():
-    """Above 64 clients the CUDA kernel generates its pairs at run time,
-    dividing by 2p as a shift; its loops give the reference's schedule."""
+    """Above 128 clients the CUDA kernel deals each stage's pairs out by
+    slot (stage_pairs); stage after stage, they give the reference's
+    schedule, in its order."""
     for c in range(1, 301):
         assert merge_pairs_by_loops(c) == oddeven_merge_pairs(c), c
+
+
+def _pairs_by_stage(c):
+    """The loops of oddeven_merge_pairs, each pair tagged with its (p, k)
+    stage: written out here, apart from the slot map under test."""
+    stages = {}
+    p = 1
+    while p < c:
+        k = p
+        while k >= 1:
+            stages[(p, k)] = [
+                (i + j, i + j + k) for j in range(k % p, c - k, 2 * k)
+                for i in range(min(k, c - j - k))
+                if (i + j) // (2 * p) == (i + j + k) // (2 * p)]
+            k //= 2
+        p *= 2
+    return stages
+
+
+@pytest.mark.parametrize("cs", [range(1, 101), range(101, 201),
+                                range(201, 301), [1024, MAX_CLIENTS]],
+                         ids=["1-100", "101-200", "201-300", "1024,max"])
+def test_stage_pairs_are_each_stage_and_disjoint(cs):
+    """The slot-to-pair map of the shared-memory kernel gives each stage
+    exactly that stage's pairs of the reference's loops, each row at most
+    once, and the stages are those of merge_stages."""
+    for c in cs:
+        want = _pairs_by_stage(c)
+        assert merge_stages(c) == list(want), c
+        for (p, k), pairs in want.items():
+            got = stage_pairs(c, p, k)
+            assert got == pairs, (c, p, k)
+            rows = [r for pair in got for r in pair]
+            assert len(rows) == len(set(rows)), (c, p, k)
+            assert all(hi - lo == k and hi < c for lo, hi in got), (c, p, k)
+        assert [pr for s in want.values() for pr in s] == j_pairs(c), c
+
+
+def test_segment_stages_stay_inside_their_segment():
+    """The stages p < SEGMENT, which the shared-memory kernel runs in
+    registers on SEGMENT-row segments, never pair rows of two segments."""
+    for c in (129, 300, 1024, MAX_CLIENTS):
+        for p, k in merge_stages(c):
+            if p < SEGMENT:
+                assert all(lo // SEGMENT == hi // SEGMENT
+                           for lo, hi in stage_pairs(c, p, k)), (c, p, k)
+
+
+def test_kernel_source_states_the_mirrored_sizes():
+    """The pads and the segment of csrc/robust_combine.cu are the ones
+    ref.py mirrors."""
+    src = (Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+           / "kernels" / "csrc" / "robust_combine.cu").read_text()
+    pads = re.search(r"kPads\[\] = \{([\d, ]+)\}", src).group(1)
+    assert tuple(int(v) for v in pads.split(",")) == REGISTER_PADS
+    assert int(re.search(r"kSeg = (\d+);", src).group(1)) == SEGMENT
+    assert int(re.search(r"kMaxPadC = (\d+);", src).group(1)) == max(
+        REGISTER_PADS)
+
+
+def _special_columns(x, mask):
+    """Columns 0-7 of x [C, M >= 8]: a NaN, +inf, -inf, +-inf together, a
+    NaN in a masked row (it drops out), ties, and two finite columns."""
+    C = x.shape[0]
+    x[:, 5] = np.round(x[:, 5])                  # ties
+    x[2, 0] = np.nan
+    x[C - 1, 1] = np.inf
+    x[3, 2] = -np.inf
+    x[0, 3], x[C - 2, 3] = np.inf, -np.inf
+    masked = int(np.flatnonzero(mask == 0)[0])
+    x[masked, 4] = np.nan
+    return x
+
+
+@pytest.mark.parametrize("C", range(65, 129))
+def test_padded_register_tier_equals_the_network(C):
+    """The register tier pads 65..128 rows with +inf to a network of
+    REGISTER_PADS size: its output is the plain network's, bit for bit,
+    NaN where the network has NaN; a masked NaN drops out."""
+    assert C <= padded_rows(C) < C + 16
+    rng = np.random.default_rng(C)
+    mask = (rng.uniform(size=C) > 0.3).astype(np.float32)
+    mask[[0, 2, C - 1]] = 1.0
+    mask[C - 3] = 0.0
+    x = torch.from_numpy(_special_columns(
+        rng.standard_normal((C, 12)).astype(np.float32), mask))
+    mask = torch.from_numpy(mask)
+    for m in (mask, torch.ones_like(mask), torch.zeros_like(mask)):
+        for mode, trim in (("trimmed_mean", 0.2), ("median", 0.0)):
+            w_row = row_select_weights(m, mode=mode, trim_fraction=trim)
+            got = robust_combine_padded_ref(x, m, w_row)
+            want = robust_combine_network_ref(x, m, w_row)
+            torch.testing.assert_close(got, want, rtol=0, atol=0,
+                                       equal_nan=True)
+            if m is mask:
+                assert bool(got[0].isnan()) and not bool(got[4].isnan())
+
+
+@pytest.mark.parametrize("C", [129, 130, 191, 257, 300])
+def test_staged_sort_equals_the_network(C):
+    """The shared-memory tier's sort (SEGMENT-row segments, then the
+    stages p >= SEGMENT by slots) equals sort_rows, NaN and infs
+    included."""
+    rng = np.random.default_rng(C)
+    mask = np.ones((C,), np.float32)
+    mask[C // 2] = 0.0
+    x = _special_columns(rng.standard_normal((C, 10)).astype(np.float32),
+                         mask)
+    x[C // 2, 4] = 3.0e38           # the sentinel a masked NaN becomes
+    rows = list(torch.from_numpy(x))
+    got = torch.stack(sort_rows_staged(rows))
+    want = torch.stack(sort_rows(rows))
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+    assert bool(got[:, 0].isnan().all())
+    assert torch.equal(got[:, 6:], torch.sort(torch.from_numpy(x[:, 6:]),
+                                              dim=0).values)
 
 
 def test_max_clients_fills_a_block_of_32_columns():

@@ -1,8 +1,9 @@
 """The port's FedTest round against the reference, and on its own.
 
 * data: the port's synthetic shards are bitwise the reference's;
-* the round's pure functions (tester selection, scoring, attacks) on
-  identical inputs: ids exact, floats at 1e-6;
+* the round's pure functions (tester selection, scoring, attacks, the
+  coordinate-wise combine above 64 clients) on identical inputs: ids
+  exact, floats at 1e-6;
 * one full round with the reference's random draws replayed through
   ``RoundDraws``: the [K, N] accuracy counts exact, weights, scores and
   the new global params at rtol=1e-4, atol=1e-5 (conv summation order);
@@ -222,6 +223,51 @@ def test_update_space_aggregators_match_reference(n, part):
                                    err_msg=f"{name} {kw}")
         if part is not None:
             assert (tw[np.asarray(part) == 0] == 0).all()
+
+
+@pytest.mark.parametrize("n", [70, 100])
+@pytest.mark.parametrize("name,kw", [
+    ("trimmed_mean_coord", {"trim_fraction": 0.2, "score_gate": 0.5}),
+    ("median_coord", {}),
+])
+def test_coord_combine_above_64_clients_matches_reference(n, name, kw):
+    """Step 7 of path B100 (``chip_smoke.py``): the coordinate-wise
+    combine over an ``[N, D]`` update matrix above 64 clients, gated by
+    the FedTest scores and intersected with a participation mask, in both
+    packages on the same numpy inputs. On the CPU the port runs the plain
+    network, the schedule its CUDA kernel's register tier walks."""
+    from repro.strategies import AGGREGATORS as JAGG
+    from repro.strategies.base import RoundContext as JCtx
+    from repro_torch.strategies import AGGREGATORS
+    from repro_torch.strategies.base import RoundContext
+    rng = np.random.default_rng(n)
+    u = rng.standard_normal((n, 257)).astype(np.float32)
+    u[-15:] = 30.0 * rng.standard_normal((15, 257))   # 15 % attackers
+    s = rng.uniform(0.2, 1.0, size=(n,)).astype(np.float32)
+    trust = np.ones((n,), np.float32)
+    part = (rng.uniform(size=n) > 0.1).astype(np.float32)
+    counts = np.full((n,), 10, np.int32)
+    jscores = jscoring.ScoreState(jnp.asarray(s), jnp.asarray(3, jnp.int32),
+                                  jnp.asarray(trust))
+    tscores = scoring.ScoreState(_t(s), torch.tensor(3, dtype=torch.int32),
+                                 _t(trust))
+    jctx = JCtx(acc_matrix=None, tester_ids=None, scores=jscores,
+                counts=jnp.asarray(counts), round_idx=jnp.asarray(3),
+                key=None, updates=jnp.asarray(u),
+                participation=jnp.asarray(part))
+    tctx = RoundContext(acc_matrix=None, tester_ids=None, scores=tscores,
+                        counts=_t(counts), round_idx=3, updates=_t(u),
+                        participation=_t(part))
+    jagg, tagg = JAGG.build(name, kw, {}), AGGREGATORS.build(name, kw, {})
+    mask = tagg.gate_mask(tctx)
+    np.testing.assert_array_equal(mask.numpy(),
+                                  np.asarray(jagg.gate_mask(jctx)))
+    assert 0 < int(mask.sum()) < n
+    before = robust_combine.launches
+    got = tagg.combine(tctx, _t(u)).numpy()
+    want = np.asarray(jagg.combine(jctx, jnp.asarray(u)))
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    assert robust_combine.launches == before
 
 
 def _tree(seed):
