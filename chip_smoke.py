@@ -46,7 +46,17 @@ toolkit (``nvcc``), and exits non-zero on the first phase that fails.
    clients. Every value must be finite, the weights must
    sum to 1, the launch counts must show each path went through its
    kernel and no other, and the last step-7 output must equal the plain
-   version's on the same inputs. Then path A twice more from one seed:
+   version's on the same inputs. Then D, path A with the paper's
+   baseline ``accuracy_based`` (every model evaluated on the server's
+   held-out rows), the ``score_weighted`` selector and each tester's eval
+   rows redrawn every second round: ``weighted_aggregate`` once a round
+   and no other kernel, its step table with a ``server_eval`` column. In
+   every path the testers must be K distinct ids. Then the paper's
+   comparison (Figs. 4-5): ``repro_torch.examples.fedtest_cifar``'s
+   ``run_curve`` at its full scale, 3 rounds each of ``fedtest``,
+   ``fedavg`` and ``accuracy_based`` against 3 attackers at scale 4; every
+   value must be finite and FedTest's last malicious weight must be below
+   FedAvg's. Then path A twice more from one seed:
    its global params and score state must be bitwise equal, and its
    rounds are timed again with ``cudnn.deterministic`` off, for what the
    deterministic algorithms cost.
@@ -106,7 +116,9 @@ COMBINE_ARGS = ["--aggregator", "trimmed_mean_coord", "--agg-kwargs",
 # (path, CLI arguments, the kernel op the path must launch, rounds). B100:
 # a dense round of 100 users, as in McMahan et al. 2017, the attackers 15 %
 # as in B, and 100,000 samples, so that a user holds as many as in B; two
-# rounds, to keep the smoke within its time
+# rounds, to keep the smoke within its time. D: path A with the paper's
+# accuracy-based baseline, score-weighted testers and eval rows redrawn
+# every second round
 PATHS = (
     ("A", MAIN_PATH_ARGS, "weighted_aggregate", ROUNDS),
     ("B", MAIN_PATH_ARGS + COMBINE_ARGS, "robust_combine", ROUNDS),
@@ -115,7 +127,12 @@ PATHS = (
     ("B100", MAIN_PATH_ARGS + COMBINE_ARGS + [
         "--users", "100", "--malicious", "15", "--samples", "100000",
         "--rounds", "2"], "robust_combine", 2),
+    ("D", MAIN_PATH_ARGS + ["--aggregator", "accuracy_based", "--selector",
+                            "score_weighted", "--eval-resample-every", "2"],
+     "weighted_aggregate", ROUNDS),
 )
+# the paper's comparison (Figs. 4-5): rounds of each curve, attackers
+COMPARE_ROUNDS, COMPARE_MALICIOUS = 3, 3
 KERNELS = ("weighted_aggregate", "robust_combine", "dequant_aggregate",
            "flash_attention", "decode_attention", "ssd_scan")
 SOURCES = {k: f"src/repro_torch/kernels/csrc/{k}.cu" for k in KERNELS}
@@ -1209,6 +1226,13 @@ def phase_path(torch, path, argv, op_name, rounds):
     if program.uses_combine:
         program.aggregator.combine = timed("combine",
                                            program.aggregator.combine)
+    if program.aggregator.needs_server_eval:
+        # time the closure the round calls, not the binding of it
+        server_eval = backend.server_eval
+        backend.server_eval = lambda *a: timed("server_eval",
+                                               server_eval(*a))
+    if trainer.eval_resample_every > 0:
+        trainer.eval_batches = timed("eval_batches", trainer.eval_batches)
 
     kernel_ops = ops()
     torch.cuda.synchronize()
@@ -1236,6 +1260,11 @@ def phase_path(torch, path, argv, op_name, rounds):
         check(all(bool(torch.isfinite(p).all())
                   for p in tree_leaves(state.global_params)),
               "finite global params")
+        ids = seen["cross_test"][0][4].tolist()
+        check(len(set(ids)) == trainer.fed.num_testers
+              and all(0 <= i < trainer.fed.num_users for i in ids),
+              f"path {path}: {trainer.fed.num_testers} distinct tester "
+              f"ids, got {ids}")
         print(f"path {path} round {state.round_idx}: wall "
               f"{walls[-1]:.1f} ms  local_loss {values[0]:.4f}  "
               f"malicious_weight {values[1]:.5f}  global_acc {acc:.4f}  "
@@ -1290,6 +1319,38 @@ def phase_path(torch, path, argv, op_name, rounds):
     print(f"path {path}: last round's {op_name} output == plain version on "
           f"its own inputs (max |err| {worst:.3g})")
     return counts[op_name], walls
+
+
+def phase_comparison(torch, card):
+    """The paper's comparison (Figs. 4-5) through the example twin's
+    ``run_curve`` at its full scale (20 users, ``fedtest-cnn``, 20,000
+    CIFAR-like samples): COMPARE_ROUNDS rounds of each scheme against
+    COMPARE_MALICIOUS ``random_weights`` attackers at scale 4. Every
+    value must be finite, and FedTest's last malicious weight below
+    FedAvg's, which pays by sample count."""
+    from repro_torch.examples.fedtest_cifar import AGGREGATORS, run_curve
+    curves = {}
+    for agg in AGGREGATORS:
+        t0 = time.perf_counter()
+        hist = run_curve("cifar_like", agg, COMPARE_MALICIOUS,
+                         COMPARE_ROUNDS, fast=False, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        acc, mal = hist["global_accuracy"], hist["malicious_weight"]
+        check(len(acc) == len(mal) == COMPARE_ROUNDS
+              and all(math.isfinite(v) for v in acc + mal),
+              f"comparison {agg}: finite curves, got {acc} {mal}")
+        print(f"comparison {agg}: global_acc "
+              f"{[round(v, 4) for v in acc]}  malicious_weight "
+              f"{[round(v, 5) for v in mal]}  ({wall:.2f} s with set-up; "
+              f"{card})")
+        curves[agg] = {"global_accuracy": acc, "malicious_weight": mal,
+                       "wall_s": wall}
+    last = {agg: c["malicious_weight"][-1] for agg, c in curves.items()}
+    check(last["fedtest"] < last["fedavg"],
+          f"FedTest's last malicious weight {last['fedtest']} below "
+          f"FedAvg's {last['fedavg']}")
+    return curves
 
 
 REPRO_ROUNDS = 5
@@ -1768,9 +1829,10 @@ def main() -> int:
     rows.update(phase_ssd_times(torch, peaks))
 
     launches, walls = {}, {}
-    for path, argv, op_name, rounds in PATHS:   # B and B100 add up
+    for path, argv, op_name, rounds in PATHS:   # A and D, B and B100 add up
         n, walls[path] = phase_path(torch, path, argv, op_name, rounds)
         launches[op_name] = launches.get(op_name, 0) + n
+    comparison = phase_comparison(torch, card)
     repro = phase_reproducible(torch, card)
     serve_counts, serve_out = phase_serve(torch, card)
     launches["flash_attention"] = serve_counts["flash_attention"]
@@ -1804,6 +1866,7 @@ def main() -> int:
               f"first) {[round(t, 3) for t in walls[path][1:]]} ({card})")
     print(json.dumps({"kernels": [
         # one round of path A: its 10 leaves in one grouped launch, C=20
+        # (path D's launches are counted in: the same call a round)
         entry("weighted_aggregate", rows["weighted_aggregate"][:1],
               "C=20, one grouped launch a round, M=" + "+".join(
                   str(m) for m in leaves)),
@@ -1825,7 +1888,8 @@ def main() -> int:
               "one call: Bt=8, S=512, H=80, P=64, G=1, N=128, chunk 256, "
               "bf16")]}))
     print(json.dumps({"serve": serve_out, "ssm_serve": ssm_out,
-                      "reproducible_path_a": repro}))
+                      "reproducible_path_a": repro,
+                      "comparison": comparison}))
     print(f"chip_smoke passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

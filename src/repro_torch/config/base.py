@@ -5,9 +5,10 @@ paper's classifiers ``cnn`` and ``mlp``, the ``dense`` decoder-only LM
 and the attention-free Mamba2 ``ssm`` stack. The other LM families are
 refused with the ``ROADMAP.md`` item that ports them. ``FedConfig`` keeps
 the reference's fields that the round reads, with the reference's names
-and defaults; a field comes over with the slice that first reads it. The
-strategy names this slice does not run yet are refused with the
-``ROADMAP.md`` item that will port them.
+and defaults; a field comes over with the slice that first reads it
+(``server_test_fraction`` is read by nothing, in the reference too, and
+comes over inert). The strategy names the port does not run yet are
+refused with the ``ROADMAP.md`` item that will port them.
 """
 from __future__ import annotations
 
@@ -230,7 +231,11 @@ class FedConfig:
     coalition_size: int = 0
     fault: str = "none"
     lying_testers: int = 0
+    # the accuracy-based baseline's server test set; nothing reads it, as
+    # in the reference, whose builder takes its own server_frac=0.1
+    server_test_fraction: float = 0.1
     participation: float = 1.0
+    crosstest_impl: str = "batched"    # 'batched' | 'reference'
     compressor: str = "identity"
     compressor_kwargs: Any = ()
     cohort: int = 0
@@ -241,6 +246,9 @@ class FedConfig:
         _require(self.num_malicious < self.num_users, "M < N")
         _require(0.0 < self.participation <= 1.0,
                  f"participation={self.participation} must be in (0, 1]")
+        _require(self.crosstest_impl in ("batched", "reference"),
+                 f"crosstest_impl must be 'batched'|'reference', "
+                 f"got {self.crosstest_impl!r}")
         for field, default, item in _NOT_PORTED:
             _require(getattr(self, field) == default,
                      f"{field}={getattr(self, field)!r} is not ported yet "

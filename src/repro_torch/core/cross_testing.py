@@ -9,19 +9,34 @@ data: the ``[K, N]`` accuracy matrix.
   model facade), nested in a vmap over the testers, one batched forward
   for the whole matrix;
 * :func:`cross_test_reference` — one eval per (tester, client) pair, the
-  oracle the tests hold the batched form against.
+  oracle the batched form is held against, bitwise;
+* :func:`cross_test_accuracies` — dispatch by name between the two
+  (``FedConfig.crosstest_impl``).
 
 ``torch.argmax`` and ``jnp.argmax`` both return the first maximal index,
 so equal logits give equal predictions in both packages.
+
+Eval-batch resampling (``FederatedTrainer.eval_resample_every``): each
+tester's eval rows are redrawn once a schedule bucket
+(``round_idx // resample_every``), from a generator seeded from the run's
+seed, :data:`EVAL_BATCH_STREAM` and the bucket alone
+(:func:`eval_batch_indices`), never from the round's carried generator:
+the indices are a pure function of (run seed, bucket), so a resumed run
+draws what an unbroken one draws (DESIGN.md §10).
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Tuple
 
 import torch
 from torch.func import vmap
 
-from repro_torch.utils import tree_leaves, tree_map
+from repro_torch.utils import derived_seed, tree_leaves, tree_map
+
+# the eval-batch stream's constant, the reference's fold_in constant
+EVAL_BATCH_STREAM = 11
+
+CROSSTEST_IMPLS = ("batched", "reference")
 
 
 def make_eval_fn(model) -> Callable:
@@ -54,3 +69,55 @@ def cross_test_reference(eval_fn, stacked_params, tester_x, tester_y
                     bx, by)
             for c in range(num)]))
     return torch.stack(rows)
+
+
+def cross_test_accuracies(eval_fn, stacked_params, tester_x, tester_y,
+                          impl: str = "batched") -> torch.Tensor:
+    """The [K, N] accuracy matrix by ``impl`` (:data:`CROSSTEST_IMPLS`);
+    the two are bitwise equal."""
+    if impl == "batched":
+        return cross_test_batched(eval_fn, stacked_params, tester_x,
+                                  tester_y)
+    if impl == "reference":
+        return cross_test_reference(eval_fn, stacked_params, tester_x,
+                                    tester_y)
+    raise ValueError(f"crosstest_impl must be one of {CROSSTEST_IMPLS}, "
+                     f"got {impl!r}")
+
+
+# ------------------------------------------------------- eval-batch sampling
+def eval_indices_from_uniforms(u: torch.Tensor, counts: torch.Tensor
+                               ) -> torch.Tensor:
+    """``u [N, eval_batch]`` uniforms -> int64 row indices, the reference's
+    ``int(u * count)`` with the product in f32."""
+    return (u * counts[:, None]).to(torch.int64)
+
+
+def eval_batch_indices(seed: int, counts: torch.Tensor, eval_batch: int,
+                       bucket: int) -> torch.Tensor:
+    """[N, eval_batch] per-tester gather indices for one schedule bucket,
+    drawn on ``counts``' device from a fresh generator seeded from
+    ``(seed, EVAL_BATCH_STREAM, bucket)``: rounds of one bucket share a
+    batch, a new bucket resamples."""
+    gen = torch.Generator(device=counts.device)
+    gen.manual_seed(derived_seed(seed, EVAL_BATCH_STREAM, bucket))
+    u = torch.rand((counts.shape[0], eval_batch), generator=gen,
+                   device=counts.device)
+    return eval_indices_from_uniforms(u, counts)
+
+
+def gather_eval_batches(xs: torch.Tensor, ys: torch.Tensor,
+                        idx: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[N, eval_batch, ...] tester batches from stacked client data."""
+    rows = torch.arange(xs.shape[0], device=idx.device)[:, None]
+    return xs[rows, idx], ys[rows, idx]
+
+
+def sampled_eval_batches(seed: int, test_data, eval_batch: int,
+                         round_idx: int, resample_every: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The round's tester eval batches under the resampling schedule."""
+    idx = eval_batch_indices(seed, test_data.counts, eval_batch,
+                             round_idx // resample_every)
+    return gather_eval_batches(test_data.xs, test_data.ys, idx)

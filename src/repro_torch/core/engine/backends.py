@@ -1,9 +1,10 @@
 """Exchange backends (counterpart of ``repro/core/engine/backends.py``).
 
 Only the ``local`` backend is ported: the N client models are a stacked
-``[N, ...]`` param tree on one device, local training and cross-testing
-run under ``torch.func.vmap`` over the client axis, and aggregation is
-the ``weighted_aggregate`` kernel, one launch per param leaf. The
+``[N, ...]`` param tree on one device, local training, cross-testing
+(``batched``, or the ``reference`` loop) and the server's eval run under
+``torch.func.vmap`` over the client axis, and aggregation is the
+``weighted_aggregate`` kernel, one launch a table of param leaves. The
 backend also builds the ``[N, D]`` f32 update matrix and runs the
 compressed exchange (encode with error feedback, decode, and the
 weighted sum in update space). The ring and all-gather pod backends are
@@ -14,7 +15,8 @@ from __future__ import annotations
 import torch
 from torch.func import vmap
 
-from repro_torch.core.cross_testing import cross_test_batched
+from repro_torch.core.cross_testing import (
+    CROSSTEST_IMPLS, cross_test_accuracies)
 from repro_torch.kernels.weighted_aggregate import aggregate_pytree
 from repro_torch.utils import tree_add_vector, tree_leaves, tree_map
 
@@ -33,8 +35,12 @@ class LocalBackend:
 
     name = "local"
 
-    def __init__(self, num_users: int):
+    def __init__(self, num_users: int, crosstest_impl: str = "batched"):
+        if crosstest_impl not in CROSSTEST_IMPLS:
+            raise ValueError(f"crosstest_impl must be one of "
+                             f"{CROSSTEST_IMPLS}, got {crosstest_impl!r}")
         self.num_users = num_users
+        self.crosstest_impl = crosstest_impl
 
     def train(self, local_train, global_params, bx, by):
         """Broadcast + local phase -> (models, per-client losses [N])."""
@@ -58,7 +64,13 @@ class LocalBackend:
     def cross_test(self, eval_fn, models, tx, ty, tester_ids):
         """Step 4: the [K, N] accuracy matrix."""
         ids = tester_ids.long()
-        return cross_test_batched(eval_fn, models, tx[ids], ty[ids])
+        return cross_test_accuracies(eval_fn, models, tx[ids], ty[ids],
+                                     impl=self.crosstest_impl)
+
+    def server_eval(self, eval_fn, models, sx, sy):
+        """Step 6: a closure giving every client model's accuracy [N] on
+        the server's held-out set."""
+        return lambda: vmap(lambda p: eval_fn(p, sx, sy))(models)
 
     def updates(self, models, global_params):
         """The [N, D] float32 flattened update matrix."""

@@ -8,7 +8,9 @@
   3c. compressed exchange: each client's update is encoded with error
       feedback, and every later step sees the decoded models
   4.  K testers evaluate all N models on their own data
-  6.  the server computes scores / weights
+  6.  the server computes scores / weights (an aggregator that sets
+      ``needs_server_eval`` gets ``ctx.server_eval``, every model's
+      accuracy on the server's held-out set)
   7.  aggregation -> new global model, one of three ways:
       the score-weighted sum of the models (``weighted_aggregate``); a
       per-coordinate combine of the ``[N, D]`` update matrix
@@ -51,6 +53,9 @@ class RoundDraws(NamedTuple):
     # malicious client -> one standard normal per param leaf (tree_leaves
     # order); None when the attack draws no noise
     noise: Optional[Dict[int, List[torch.Tensor]]] = None
+    # [N, eval_batch] int64 tester eval rows under eval resampling
+    # (cross_testing.eval_batch_indices); None keeps the fixed prefix
+    eval_idx: Optional[torch.Tensor] = None
 
 
 def participation_mask(gen: torch.Generator, num_users: int,
@@ -90,7 +95,9 @@ def resolve_strategies(fed: FedConfig):
     atk = ATTACKS.build(fed.attack, fed.strategy_kwargs("attack"),
                         dict(num_malicious=fed.num_malicious,
                              scale=fed.attack_scale))
-    sel = SELECTORS.build(fed.selector, fed.strategy_kwargs("selector"))
+    # coverage derives its per-cycle shuffle from the run seed
+    sel = SELECTORS.build(fed.selector, fed.strategy_kwargs("selector"),
+                          dict(seed=fed.seed))
     return agg, atk, sel
 
 
@@ -178,14 +185,16 @@ class RoundProgram:
 
     # ------------------------------------------------------------ the round
     def run(self, backend, global_params, scores, *, bx, by, tx, ty,
-            draws: RoundDraws, round_idx: int, counts, comp_state=None):
+            draws: RoundDraws, round_idx: int, counts, server_data=None,
+            comp_state=None):
         """One FedTest round on ``backend``; returns ``(new_global,
         new_scores, new_comp_state, metrics)``. ``bx, by`` are the round's
         training batches ``[N, steps, batch, ...]`` and ``tx, ty`` every
         client's local test shard ``[N, eval_batch, ...]``.
-        ``comp_state`` is the ``[N, D]`` error-feedback buffer of a
-        compressed exchange, ``None`` (and ``new_comp_state`` too)
-        otherwise."""
+        ``server_data`` is the server's ``(sx, sy)`` eval set, which an
+        aggregator that ``needs_server_eval`` requires. ``comp_state`` is
+        the ``[N, D]`` error-feedback buffer of a compressed exchange,
+        ``None`` (and ``new_comp_state`` too) otherwise."""
         fed = self.fed
         pmask = draws.part_mask if self.use_participation else None
         tester_ids = draws.tester_ids
@@ -225,12 +234,20 @@ class RoundProgram:
         # 6. scores, then weights, via the aggregation strategy; the
         # [N, D] update matrix is built at most once a round, for
         # ctx.updates and the combine path alike
+        server_eval = None
+        if self.aggregator.needs_server_eval:
+            if server_data is None:
+                raise ValueError(
+                    f"aggregator {self.aggregator.name!r} needs a "
+                    "server-side eval set; pass server_data=(sx, sy)")
+            sx, sy = server_data
+            server_eval = backend.server_eval(self.eval_fn, models, sx, sy)
         updates = (backend.updates(models, global_params)
                    if self.needs_updates else None)
         ctx = RoundContext(acc_matrix=acc, tester_ids=tester_ids,
                            scores=scores, counts=counts,
                            round_idx=round_idx, updates=updates,
-                           participation=pmask,
+                           server_eval=server_eval, participation=pmask,
                            report_mask=(pmask[tester_ids.long()]
                                         if pmask is not None else None))
         new_scores = self.aggregator.update_scores(ctx)

@@ -11,14 +11,13 @@ from repro_torch.data.partition import (
 from repro_torch.data.pipeline import FederatedDataset, split_client_holdout
 from repro_torch.data.synthetic import ImageSpec, make_image_dataset
 
-SERVER_FRAC = 0.1      # the reference builder's default server_frac
-
 
 def make_federated_image_dataset(spec: ImageSpec, num_users: int,
                                  num_samples: int = 20_000,
                                  partition: str = "paper",
                                  partition_kwargs: Optional[dict] = None,
                                  holdout_frac: float = 0.2,
+                                 server_frac: float = 0.1,
                                  global_test: int = 2_000,
                                  seed: int = 0,
                                  device="cuda") -> FederatedDataset:
@@ -29,9 +28,9 @@ def make_federated_image_dataset(spec: ImageSpec, num_users: int,
     gx, gy = x[num_samples:], y[num_samples:]
     x, y = x[:num_samples], y[:num_samples]
 
-    # the reference holds the first tenth out for its accuracy-based
-    # baseline (not ported); it is dropped here so the shards match
-    n_server = int(num_samples * SERVER_FRAC)
+    # the server's held-out set for the accuracy-based baseline
+    n_server = int(num_samples * server_frac)
+    sx, sy = x[:n_server], y[:n_server]
     x, y = x[n_server:], y[n_server:]
 
     pkw = dict(partition_kwargs or {})
@@ -51,4 +50,6 @@ def make_federated_image_dataset(spec: ImageSpec, num_users: int,
     return FederatedDataset(
         train=train, test=test,
         global_x=torch.as_tensor(gx, device=device),
-        global_y=torch.as_tensor(gy, device=device))
+        global_y=torch.as_tensor(gy, device=device),
+        server_x=torch.as_tensor(sx, device=device),
+        server_y=torch.as_tensor(sy, device=device))

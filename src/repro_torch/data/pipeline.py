@@ -33,9 +33,11 @@ class FederatedDataset:
     train: ClientData
     # held-out *local* eval shards (the FedTest testers' data)
     test: ClientData
-    # global eval set (convergence curves)
+    # global eval set (convergence curves) + server set (accuracy-based)
     global_x: torch.Tensor
     global_y: torch.Tensor
+    server_x: torch.Tensor
+    server_y: torch.Tensor
 
 
 def sample_batch_indices(gen: torch.Generator, counts: torch.Tensor,

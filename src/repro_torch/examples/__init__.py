@@ -1,0 +1,8 @@
+"""Runnable examples of the port, twins of the reference's ``examples/``
+(inside the package, since the port imports nothing outside it):
+
+  PYTHONPATH=src python -m repro_torch.examples.quickstart [agg] [attack]
+  PYTHONPATH=src python -m repro_torch.examples.fedtest_cifar [--full]
+
+Both run on the card unless given ``--device cpu``.
+"""

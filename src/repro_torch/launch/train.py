@@ -10,8 +10,14 @@ Runs the FedTest round on the card by default:
 raises. The flags are the subset of ``repro.launch.train`` that the
 port runs, with its defaults: the main path, plus the update-space
 aggregators (``--aggregator trimmed_mean_coord --agg-kwargs
-'{"score_gate": 0.5}'``) and the compressed exchange (``--compressor
-int8``).
+'{"score_gate": 0.5}'``), the compressed exchange (``--compressor
+int8``), the server-side baseline (``--aggregator accuracy_based``),
+every attack and selector the port registers (``--attack-kwargs``,
+``--selector-kwargs``), the cross-testing dispatch
+(``--crosstest-impl``) and eval-batch resampling
+(``--eval-resample-every``). The port's registries list the names they
+refuse, each with its ROADMAP.md item, beside the ones they run, and
+the choices take both, so that a refused name says which item ports it.
 """
 from __future__ import annotations
 
@@ -20,9 +26,9 @@ import json
 import os
 import time
 
-from repro_torch.config import FedConfig, TrainConfig
+from repro_torch.config import FedConfig, TrainConfig, reduce_for_smoke
 from repro_torch.configs import get_config, list_configs
-from repro_torch.core import FederatedTrainer
+from repro_torch.core import CROSSTEST_IMPLS, FederatedTrainer
 from repro_torch.core.engine import resolve_device
 from repro_torch.data import (
     CIFAR_LIKE, MNIST_LIKE, make_federated_image_dataset)
@@ -31,24 +37,47 @@ from repro_torch.strategies import (
     AGGREGATORS, ATTACKS, COMPRESSORS, SELECTORS)
 
 
+def _names(registry):
+    """A registry's names, the refused ones included."""
+    return sorted(registry.names() + tuple(registry.not_ported))
+
+
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="fedtest-cnn", choices=list_configs())
+    ap.add_argument("--smoke", action="store_true",
+                    help="the reduced config (reduce_for_smoke) in f32")
     ap.add_argument("--dataset", default="cifar_like",
                     choices=["cifar_like", "mnist_like"])
     ap.add_argument("--users", type=int, default=20)
     ap.add_argument("--testers", type=int, default=5)
     ap.add_argument("--malicious", type=int, default=0)
     ap.add_argument("--attack", default="random_weights",
-                    choices=list(ATTACKS.names()))
+                    choices=_names(ATTACKS))
+    ap.add_argument("--attack-kwargs", default=None, type=json.loads,
+                    help="JSON kwargs for the attack ctor, e.g. "
+                         '\'{"placement": "first"}\'')
     ap.add_argument("--attack-scale", type=float, default=1.0)
     ap.add_argument("--aggregator", default="fedtest",
-                    choices=list(AGGREGATORS.names()))
+                    choices=_names(AGGREGATORS))
     ap.add_argument("--agg-kwargs", default=None, type=json.loads,
                     help="JSON kwargs for the aggregator ctor, e.g. "
                          '\'{"trim_fraction": 0.2, "score_gate": 0.5}\'')
+    ap.add_argument("--score-power", type=float, default=4.0)
+    ap.add_argument("--score-decay", type=float, default=0.5)
     ap.add_argument("--selector", default="rotating",
-                    choices=list(SELECTORS.names()))
+                    choices=_names(SELECTORS))
+    ap.add_argument("--selector-kwargs", default=None, type=json.loads,
+                    help="JSON kwargs for the selector ctor, e.g. "
+                         '\'{"indices": [0, 3]}\' (fixed)')
+    ap.add_argument("--crosstest-impl", default="batched",
+                    choices=list(CROSSTEST_IMPLS),
+                    help="cross-testing dispatch: one batched eval over "
+                         "all models, or one eval a (tester, client) pair "
+                         "(bitwise equal)")
+    ap.add_argument("--eval-resample-every", type=int, default=0,
+                    help="redraw each tester's eval rows every N rounds "
+                         "(0: the fixed first rows, every round)")
     ap.add_argument("--rounds", type=int, default=40)
     ap.add_argument("--local-steps", type=int, default=10)
     ap.add_argument("--batch", type=int, default=32)
@@ -74,18 +103,27 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def build(args: argparse.Namespace):
-    """(trainer, data, model config) for the parsed flags."""
+    """(trainer, data, model config) for the parsed flags; the data keep
+    the server's held-out split (``server_x`` / ``server_y``) that
+    ``accuracy_based`` evaluates on."""
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.dataset == "mnist_like" and args.arch == "fedtest-cnn":
         cfg = get_config("fedtest-cnn-mnist")
+    if args.smoke:
+        cfg = reduce_for_smoke(cfg).replace(dtype="float32")
     fed = FedConfig(num_users=args.users, num_testers=args.testers,
                     num_malicious=args.malicious, rounds=args.rounds,
                     local_steps=args.local_steps,
+                    score_power=args.score_power,
+                    score_decay=args.score_decay,
                     aggregator=args.aggregator,
                     aggregator_kwargs=args.agg_kwargs, attack=args.attack,
+                    attack_kwargs=args.attack_kwargs,
                     attack_scale=args.attack_scale, selector=args.selector,
+                    selector_kwargs=args.selector_kwargs,
                     participation=args.participation,
+                    crosstest_impl=args.crosstest_impl,
                     compressor=args.compressor,
                     compressor_kwargs=args.compressor_kwargs,
                     seed=args.seed)
@@ -96,7 +134,8 @@ def build(args: argparse.Namespace):
     data = make_federated_image_dataset(spec, fed.num_users,
                                         num_samples=args.samples,
                                         seed=fed.seed, device=device)
-    trainer = FederatedTrainer(build_model(cfg), fed, tc, device=device)
+    trainer = FederatedTrainer(build_model(cfg), fed, tc, device=device,
+                               eval_resample_every=args.eval_resample_every)
     return trainer, data, cfg
 
 
@@ -111,6 +150,9 @@ def main(argv=None):
                          "aggregator": fed.aggregator, "attack": fed.attack,
                          "selector": fed.selector,
                          "compressor": fed.compressor,
+                         "crosstest_impl": fed.crosstest_impl,
+                         "eval_resample_every":
+                             trainer.eval_resample_every,
                          "users": fed.num_users,
                          "testers": fed.num_testers,
                          "malicious": fed.num_malicious,

@@ -1,11 +1,12 @@
 """Strategy registries of the port (counterpart of ``repro.strategies``).
 
-* :data:`AGGREGATORS` — ``fedtest``, ``fedavg``, ``uniform``, ``krum``,
-  ``trimmed_mean``, ``median`` (weights path); ``trimmed_mean_coord``,
-  ``median_coord`` (combine path).
+* :data:`AGGREGATORS` — ``fedtest``, ``fedavg``, ``accuracy_based``,
+  ``uniform``, ``krum``, ``trimmed_mean``, ``median`` (weights path);
+  ``trimmed_mean_coord``, ``median_coord`` (combine path).
 * :data:`ATTACKS`     — ``none``, ``random_weights``, ``sign_flip``,
-  ``scaled_update``.
-* :data:`SELECTORS`   — ``rotating``, ``uniform``.
+  ``label_flip_proxy``, ``scaled_update``, ``adaptive_scale``.
+* :data:`SELECTORS`   — ``rotating``, ``uniform``, ``round_robin``,
+  ``coverage``, ``score_weighted``, ``fixed``.
 * :data:`COMPRESSORS` — ``identity``, ``topk``, ``int8``, ``lowrank``.
 
 A name the reference registers and the port does not yet raises with the

@@ -7,6 +7,8 @@ Weights path — a ``[N]`` simplex reduced by ``weighted_aggregate``:
   paper's contribution, Sec. III), with the optional tester-trust
   consensus and report clipping of Sec. V-C.
 * ``fedavg``  — weights proportional to client sample counts.
+* ``accuracy_based`` — weights from each model's accuracy on the server's
+  held-out set (``ctx.server_eval``; the baseline of Fig. 3a).
 * ``uniform`` — plain mean, the no-defence control.
 * ``krum``, ``trimmed_mean``, ``median`` — the robust baselines over
   ``ctx.updates`` (the ``[N, D]`` f32 update matrix): Multi-Krum, the
@@ -26,6 +28,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.aggregation import (
+    accuracy_based_weights, fedavg_weights)
 from repro_torch.core.scoring import (
     _consensus_median, score_weights, update_scores, update_tester_trust)
 from repro_torch.kernels.robust_combine import robust_combine
@@ -91,8 +95,22 @@ class FedAvg(Aggregator):
     """Weights proportional to client sample counts [McMahan et al.]."""
 
     def weights(self, ctx: RoundContext) -> torch.Tensor:
-        c = ctx.counts.float()
-        return c / torch.clamp(c.sum(), min=1e-9)
+        return fedavg_weights(ctx.counts)
+
+
+@register(AGGREGATORS, "accuracy_based")
+class AccuracyBased(Aggregator):
+    """Server-side accuracy weighting (the baseline of Fig. 3a). It takes
+    ``power``, not ``score_power``, so the engine's scoring defaults never
+    reach it."""
+
+    needs_server_eval = True
+
+    def __init__(self, *, power: float = 1.0):
+        self.power = float(power)
+
+    def weights(self, ctx: RoundContext) -> torch.Tensor:
+        return accuracy_based_weights(ctx.server_eval(), self.power)
 
 
 def _pairwise_sq_dists(u: torch.Tensor) -> torch.Tensor:

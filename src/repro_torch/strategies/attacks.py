@@ -5,13 +5,21 @@
 * ``random_weights`` — the paper's attack (Sec. IV): random weights with
   the trained model's per-leaf magnitude statistics.
 * ``sign_flip``      — gradient-ascent update ``g - scale*(t - g)``.
+* ``label_flip_proxy`` — update-space proxy for label flipping: the
+  sign-flipped update at unit scale, so its magnitude looks honest.
 * ``scaled_update``  — model-replacement magnification ``g + scale*(t - g)``.
+* ``adaptive_scale`` — the sign-flip at ``scale`` while the attacker's own
+  implied weight is at least ``weight_threshold / N``, else the honest
+  update, so that the testers rebuild its score.
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.core.attacks import (
     _random_weights, _scaled_update, _sign_flip)
 from repro_torch.strategies.base import ATTACKS, Attack, register
+from repro_torch.utils import tree_map
 
 
 @register(ATTACKS, "none")
@@ -47,6 +55,22 @@ class SignFlip(Attack):
         return _sign_flip(key, trained, global_params, self.scale)
 
 
+@register(ATTACKS, "label_flip_proxy")
+class LabelFlipProxy(Attack):
+    """Label-flipping poisoning, approximated in update space: the
+    sign-flipped update at unit scale (the ``scale`` offered is
+    discarded, so the magnitude matches an honest client's)."""
+
+    def __init__(self, *, num_malicious: int = 0, scale: float = 1.0,
+                 placement: str = "last", indices=None):
+        super().__init__(num_malicious=num_malicious, scale=1.0,
+                         placement=placement, indices=indices)
+
+    def corrupt(self, key, trained, global_params, ctx=None,
+                client_idx=None):
+        return _sign_flip(key, trained, global_params, 1.0)
+
+
 @register(ATTACKS, "scaled_update")
 class ScaledUpdate(Attack):
     """Model replacement: magnify the local update by ``scale``."""
@@ -54,3 +78,32 @@ class ScaledUpdate(Attack):
     def corrupt(self, key, trained, global_params, ctx=None,
                 client_idx=None):
         return _scaled_update(key, trained, global_params, self.scale)
+
+
+@register(ATTACKS, "adaptive_scale")
+class AdaptiveScale(Attack):
+    """Adaptive attacker that reads its own implied weight from the
+    :class:`AttackContext`: at or above ``weight_threshold / N`` it sends
+    the sign-flip at ``scale``, below it the honest trained model. The
+    choice is a ``torch.where`` on the device, so the round never waits
+    for the host. Without a context it always sign-flips."""
+
+    def __init__(self, *, num_malicious: int = 0, scale: float = 4.0,
+                 weight_threshold: float = 0.5, placement: str = "last",
+                 indices=None):
+        super().__init__(num_malicious=num_malicious, scale=scale,
+                         placement=placement, indices=indices)
+        if not 0.0 <= weight_threshold:
+            raise ValueError(
+                f"weight_threshold must be >= 0, got {weight_threshold}")
+        self.weight_threshold = float(weight_threshold)
+
+    def corrupt(self, key, trained, global_params, ctx=None,
+                client_idx=None):
+        bad = _sign_flip(key, trained, global_params, self.scale)
+        if ctx is None or client_idx is None:
+            return bad
+        engaged = (ctx.weights[client_idx]
+                   >= self.weight_threshold / ctx.num_users)
+        return tree_map(lambda t, b: torch.where(engaged, b.to(t.dtype), t),
+                        trained, bad)

@@ -35,6 +35,10 @@ class AttackContext(NamedTuple):
     weights: torch.Tensor              # [N] implied aggregation weights
     round_idx: int
 
+    @property
+    def num_users(self) -> int:
+        return self.weights.shape[0]
+
 
 class RoundContext(NamedTuple):
     """Per-round view handed to aggregation strategies."""
@@ -48,6 +52,9 @@ class RoundContext(NamedTuple):
     # only when the aggregator sets ``needs_updates`` or defines
     # ``combine`` (the round builds the matrix at most once)
     updates: Optional[torch.Tensor] = None
+    # () -> [N] accuracies of every client model on the server's held-out
+    # set; present only when the aggregator sets ``needs_server_eval``
+    server_eval: Optional[Callable[[], torch.Tensor]] = None
     # [N] 0/1 participation mask when FedConfig.participation < 1; None
     # means everyone participates
     participation: Optional[torch.Tensor] = None
@@ -140,7 +147,8 @@ class Aggregator:
       ``weights`` then serves reporting only (the ``malicious_weight``
       metric). ``combine`` left ``None`` keeps the weights path.
 
-    ``needs_updates`` asks the round for ``ctx.updates``.
+    ``needs_updates`` asks the round for ``ctx.updates``,
+    ``needs_server_eval`` for ``ctx.server_eval``.
     ``update_scores(ctx)`` lets stateful schemes (FedTest's moving
     average) evolve the ``ScoreState``; the engine calls it first and
     hands the updated scores back via ``ctx.scores`` before ``weights``
@@ -149,6 +157,7 @@ class Aggregator:
 
     name = "base"
     needs_updates = False
+    needs_server_eval = False
     # optional hook: (ctx, updates [N, D]) -> [D] combined update
     combine = None
 
@@ -273,9 +282,10 @@ class Attack:
 
 
 class Selector:
-    """Picks the K tester ids for a round. ``key`` is the round's
-    ``torch.Generator``; ``scores`` (keyword-only) carries the ``[N]``
-    moving-average scores entering the round."""
+    """Picks the K tester ids for a round, int32 on the device of ``key``,
+    the round's ``torch.Generator`` (the CPU when it is None); ``scores``
+    (keyword-only) carries the ``[N]`` moving-average scores entering the
+    round."""
 
     name = "base"
 
@@ -287,10 +297,6 @@ class Selector:
         return f"<selector {self.name}>"
 
 
-AGGREGATORS = Registry("aggregator", not_ported={"accuracy_based": "item 6"})
-ATTACKS = Registry("attack", not_ported={
-    "label_flip_proxy": "item 6", "adaptive_scale": "item 6",
-    "scaled_collusion": "item 11"})
-SELECTORS = Registry("selector", not_ported={
-    "round_robin": "item 6", "coverage": "item 6",
-    "score_weighted": "item 6", "fixed": "item 6"})
+AGGREGATORS = Registry("aggregator")
+ATTACKS = Registry("attack", not_ported={"scaled_collusion": "item 11"})
+SELECTORS = Registry("selector")

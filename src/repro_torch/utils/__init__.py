@@ -1,5 +1,6 @@
 from repro_torch.utils.pytree import (
     flat_names, flat_update_dim, tree_add_vector, tree_leaves, tree_map)
+from repro_torch.utils.seeding import derived_seed
 
-__all__ = ["flat_names", "flat_update_dim", "tree_add_vector", "tree_leaves",
-           "tree_map"]
+__all__ = ["derived_seed", "flat_names", "flat_update_dim", "tree_add_vector",
+           "tree_leaves", "tree_map"]

@@ -9,7 +9,9 @@
   the new global params at rtol=1e-4, atol=1e-5 (conv summation order);
   the same for the update-space paths (a coordinate-wise combine, Krum,
   a compressed exchange), entering with non-zero scores and error
-  feedback, and the new error feedback too;
+  feedback, and the new error feedback too; for ``accuracy_based`` (the
+  server's [N] eval counts exact too), ``adaptive_scale`` and a round
+  with resampled eval rows;
 * the port's own dynamics with ``torch.Generator`` draws;
 * the port imports neither ``jax`` nor ``repro``, and never falls back
   to the CPU on its own.
@@ -38,6 +40,9 @@ from repro.core.attacks import (  # noqa: E402
     _random_weights as j_random_weights, _scaled_update as j_scaled_update,
     _sign_flip as j_sign_flip)
 from repro.core.engine import LocalBackend as JLocalBackend  # noqa: E402
+from repro.core.cross_testing import (  # noqa: E402
+    eval_batch_indices as j_eval_batch_indices,
+    sampled_eval_batches as j_sampled_eval_batches)
 from repro.core.engine import round_keys  # noqa: E402
 from repro.core.selection import select_testers as jselect  # noqa: E402
 from repro.data import MNIST_LIKE as J_MNIST  # noqa: E402
@@ -81,7 +86,8 @@ def test_federated_dataset_is_bitwise_the_reference():
              (got.train.counts, ref.train.counts),
              (got.test.xs, ref.test.xs), (got.test.ys, ref.test.ys),
              (got.test.counts, ref.test.counts),
-             (got.global_x, ref.global_x), (got.global_y, ref.global_y)]
+             (got.global_x, ref.global_x), (got.global_y, ref.global_y),
+             (got.server_x, ref.server_x), (got.server_y, ref.server_y)]
     for t, j in pairs:
         j = np.asarray(j)
         assert t.numpy().dtype == j.dtype
@@ -352,7 +358,7 @@ class _Recorder:
 
     def __init__(self, backend):
         self.backend = backend
-        self.acc = self.models = None
+        self.acc = self.models = self.server_acc = None
 
     def __getattr__(self, name):
         return getattr(self.backend, name)
@@ -362,6 +368,14 @@ class _Recorder:
         acc = out[0] if isinstance(out, tuple) else out
         self.acc, self.models = acc, models
         return out
+
+    def server_eval(self, eval_fn, models, sx, sy):
+        fn = self.backend.server_eval(eval_fn, models, sx, sy)
+
+        def run():
+            self.server_acc = fn()
+            return self.server_acc
+        return run
 
 
 N, K, STEPS, BATCH, EVAL = 6, 2, 3, 16, 64
@@ -380,29 +394,36 @@ def _client_noise(attack_key, c, leaves):
 
 
 def _replay(aggregator="fedtest", aggregator_kwargs=(),
-            compressor="identity", participation=1.0, entering_state=False):
+            compressor="identity", participation=1.0, entering_state=False,
+            attack="random_weights", eval_resample_every=0, round_idx=0):
     """One round of the quickstart-sized config in both packages, the
     port replaying the reference's draws. ``entering_state`` starts the
     round from non-zero scores (the malicious client's lowest) and, with
     a compressor, a non-zero error-feedback buffer, both made with numpy
-    and handed to both packages."""
+    and handed to both packages. ``round_idx`` is the round played; with
+    ``eval_resample_every`` the testers' eval rows are the reference's
+    schedule-keyed draw for that round, replayed through
+    ``RoundDraws.eval_idx``."""
     kw = dict(num_samples=3000, global_test=400, seed=0)
     jdata = jmake_data(J_MNIST, N, **kw)
     tdata = make_federated_image_dataset(MNIST_LIKE, N, device="cpu", **kw)
     jmodel = jbuild_model(jget_config("fedtest-cnn-mnist").replace(**SMALL))
     tmodel = build_model(get_config("fedtest-cnn-mnist").replace(**SMALL))
     fed = dict(num_users=N, num_testers=K, num_malicious=1,
-               local_steps=STEPS, attack="random_weights",
+               local_steps=STEPS, attack=attack,
                aggregator=aggregator, aggregator_kwargs=aggregator_kwargs,
                compressor=compressor, participation=participation)
     tc = dict(optimizer="sgd", lr=0.1, schedule="constant",
               batch_size=BATCH, grad_clip=0.0)
     jtrainer = JTrainer(jmodel, JFedConfig(**fed),
-                        JTrainConfig(remat=False, **tc), eval_batch=EVAL)
+                        JTrainConfig(remat=False, **tc), eval_batch=EVAL,
+                        eval_resample_every=eval_resample_every)
     ttrainer = FederatedTrainer(tmodel, FedConfig(**fed), TrainConfig(**tc),
-                                eval_batch=EVAL, device="cpu")
+                                eval_batch=EVAL, device="cpu",
+                                eval_resample_every=eval_resample_every)
 
     jstate = jax.jit(jtrainer.init)(jax.random.PRNGKey(0))
+    jstate = jstate._replace(round_idx=jnp.asarray(round_idx, jnp.int32))
     comp_state = None
     scores = scoring.init_scores(N, "cpu")
     if entering_state:
@@ -431,22 +452,34 @@ def _replay(aggregator="fedtest", aggregator_kwargs=(),
         u = jax.random.uniform(keys.batch, (N, STEPS, BATCH))
         batch_idx = (u * jdata.train.counts[:, None, None]
                      ).astype(jnp.int32)
+        eval_idx = None
+        if eval_resample_every:
+            # the driver's eval rows, and the indices that name them
+            tx, ty = j_sampled_eval_batches(
+                state.key, jdata.test, EVAL, state.round_idx,
+                eval_resample_every)
+            eval_idx = j_eval_batch_indices(
+                state.key, jdata.test.counts, EVAL,
+                state.round_idx // eval_resample_every)
+        else:
+            tx, ty = jdata.test.xs[:, :EVAL], jdata.test.ys[:, :EVAL]
         rec = _Recorder(JLocalBackend(N))
         out = jtrainer.program.run(
             rec, state.global_params, state.scores,
             bx=jdata.train.xs[rows, batch_idx],
-            by=jdata.train.ys[rows, batch_idx],
-            tx=jdata.test.xs[:, :EVAL], ty=jdata.test.ys[:, :EVAL],
+            by=jdata.train.ys[rows, batch_idx], tx=tx, ty=ty,
             tester_ids=tester_ids, part_mask=part_mask, keys=keys,
             round_idx=state.round_idx, counts=jdata.train.counts,
+            server_data=(jdata.server_x[:EVAL], jdata.server_y[:EVAL]),
             comp_state=comp)
         leaves = jax.tree_util.tree_leaves(state.global_params)
         noise = {c: _client_noise(keys.attack, c, leaves) for c in malicious}
-        return (out, rec.acc, rec.models, tester_ids, part_mask,
-                batch_idx, noise, jselect(keys.test, N, K, 0))
+        return (out, rec.acc, rec.models, rec.server_acc, tester_ids,
+                part_mask, batch_idx, eval_idx, tx, noise,
+                jselect(keys.test, N, K, 0))
 
-    ((jglobal, jscores, jcomp, jmetrics), jacc, jmodels, tester_ids,
-     part_mask, batch_idx, noise, selected) = jround(
+    ((jglobal, jscores, jcomp, jmetrics), jacc, jmodels, jserver, tester_ids,
+     part_mask, batch_idx, eval_idx, jtx, noise, selected) = jround(
         jstate, None if comp_state is None else jnp.asarray(comp_state))
     # the selector's ids are select_testers' on the round's test key
     np.testing.assert_array_equal(np.asarray(tester_ids),
@@ -456,18 +489,21 @@ def _replay(aggregator="fedtest", aggregator_kwargs=(),
     noise = {c: [_t(z) for z in zs] for c, zs in noise.items()}
     draws = RoundDraws(batch_idx=_t(batch_idx).long(),
                        tester_ids=_t(tester_ids), part_mask=_t(part_mask),
-                       noise=noise)
+                       noise=noise,
+                       eval_idx=(None if eval_idx is None
+                                 else _t(eval_idx).long()))
     tparams = params_from_reference(
         jax.tree_util.tree_map(np.asarray, jstate.global_params), "cpu",
         model=tmodel)
     tstate = RoundState(
-        global_params=tparams, scores=scores, round_idx=0,
+        global_params=tparams, scores=scores, round_idx=round_idx,
         gen=torch.Generator(),
         comp_state=(None if comp_state is None else comp_state_from_reference(
             comp_state, "cpu", model=tmodel, num_users=N)))
     ttrainer.backend = _Recorder(ttrainer.backend)
     tnew, tmetrics = ttrainer.run_round(tstate, tdata, draws=draws)
     return dict(jmodel=jmodel, jacc=jacc, jmodels=jmodels, jdata=jdata,
+                jserver=jserver, jtx=jtx, eval_idx=eval_idx,
                 tester_ids=np.asarray(tester_ids), jglobal=jglobal,
                 jscores=jscores, jcomp=jcomp, jmetrics=jmetrics,
                 tbackend=ttrainer.backend, tnew=tnew, tmetrics=tmetrics,
@@ -485,7 +521,10 @@ def replayed_round():
 # the update-space paths: a coordinate-wise combine (gated and not), the
 # weights-path aggregators over the update matrix (Krum, the client-level
 # trimmed mean, Weiszfeld), the trimmed mean under client sampling, and
-# two compressed exchanges
+# two compressed exchanges; the server-side baseline, the adaptive attack
+# (its attacker enters below its weight threshold, so it sends its honest
+# update) and FedTest at round 2 with its eval rows resampled every second
+# round (bucket 1, not the fixed prefix)
 CASES = {
     "trimmed_mean_coord": dict(aggregator="trimmed_mean_coord",
                                aggregator_kwargs={"score_gate": 0.5}),
@@ -498,6 +537,9 @@ CASES = {
     "median": dict(aggregator="median"),
     "fedtest_int8": dict(compressor="int8"),
     "fedtest_topk": dict(compressor="topk"),
+    "accuracy_based": dict(aggregator="accuracy_based"),
+    "adaptive_scale": dict(attack="adaptive_scale"),
+    "fedtest_resampled": dict(eval_resample_every=2, round_idx=2),
 }
 
 
@@ -506,15 +548,16 @@ def replayed_case(request):
     return _replay(entering_state=True, **CASES[request.param])
 
 
-def _near_ties(jmodel, models, tx, tester_ids, margin=1e-4):
-    """[K, N] count of eval samples whose top-two reference logits are
-    closer than ``margin`` — the only samples whose argmax may flip."""
-    out = np.zeros((len(tester_ids), N), np.int64)
+def _near_ties(jmodel, models, batches, margin=1e-4):
+    """[len(batches), N] count of eval samples whose top-two reference
+    logits are closer than ``margin`` — the only samples whose argmax may
+    flip."""
+    out = np.zeros((len(batches), N), np.int64)
     fwd = jax.jit(jmodel.forward_train)
     for ci in range(N):
         p = jax.tree_util.tree_map(lambda leaf: leaf[ci], models)
-        for ki, t in enumerate(tester_ids):
-            logits = np.sort(np.asarray(fwd(p, {"images": tx[t]})[0]), -1)
+        for ki, x in enumerate(batches):
+            logits = np.sort(np.asarray(fwd(p, {"images": x})[0]), -1)
             out[ki, ci] = int((logits[:, -1] - logits[:, -2] < margin).sum())
     return out
 
@@ -524,9 +567,19 @@ def _assert_counts_match(r):
     got = np.rint(r["tbackend"].acc.numpy() * EVAL).astype(np.int64)
     assert want.shape == got.shape == (K, N)
     ties = _near_ties(r["jmodel"], r["jmodels"],
-                      r["jdata"].test.xs[:, :EVAL], r["tester_ids"])
+                      [r["jtx"][t] for t in r["tester_ids"]])
     assert ties.sum() <= 1, ties
     assert (np.abs(got - want) <= ties).all(), (got, want, ties)
+    if r["jserver"] is not None:
+        # the server's eval of every model: [N] counts on its rows
+        want = np.rint(np.asarray(r["jserver"]) * EVAL).astype(np.int64)
+        got = np.rint(r["tbackend"].server_acc.numpy() * EVAL).astype(
+            np.int64)
+        assert want.shape == got.shape == (N,)
+        ties = _near_ties(r["jmodel"], r["jmodels"],
+                          [r["jdata"].server_x[:EVAL]])[0]
+        assert ties.sum() <= 1, ties
+        assert (np.abs(got - want) <= ties).all(), (got, want, ties)
 
 
 def _assert_round_matches(r):
@@ -580,6 +633,13 @@ def test_update_space_round_matches_reference(replayed_case):
     if replayed_case["gated"]:
         # the malicious client entered with the lowest score: gated out
         assert float(replayed_case["tmetrics"]["malicious_weight"]) == 0.0
+    if replayed_case["jserver"] is not None:
+        assert replayed_case["tbackend"].server_acc.shape == (N,)
+    if replayed_case["eval_idx"] is not None:
+        # bucket 1's rows, not the fixed prefix
+        idx = np.asarray(replayed_case["eval_idx"])
+        assert idx.shape == (N, EVAL)
+        assert (idx != np.arange(EVAL)[None]).any()
 
 
 # ------------------------------------------------------ the port's dynamics
@@ -726,11 +786,14 @@ def test_reference_fedconfig_maps_over_field_for_field():
                      participation=0.5, attack="sign_flip",
                      aggregator="trimmed_mean_coord",
                      aggregator_kwargs={"score_gate": 0.5},
-                     compressor="int8", compressor_kwargs={"chunk": 64})
+                     compressor="int8", compressor_kwargs={"chunk": 64},
+                     server_test_fraction=0.2, crosstest_impl="reference")
     port = dataclasses.asdict(_port_fed_config(ref))
     assert port == {k: v for k, v in dataclasses.asdict(ref).items()
                     if k in port}
     assert port["compressor_kwargs"] == (("chunk", 64),)
+    assert port["server_test_fraction"] == 0.2
+    assert port["crosstest_impl"] == "reference"
     with pytest.raises(ValueError, match="item 11"):
         _port_fed_config(JFedConfig(coalition="mutual_boost",
                                     coalition_size=2))
@@ -754,9 +817,9 @@ def test_comp_state_from_reference_checks_width_and_values():
         comp_state_from_reference(buf, "cpu", model=model, num_users=3)
 
 
-@pytest.mark.parametrize("kw", [dict(server_test_fraction=0.2),
+@pytest.mark.parametrize("kw", [dict(coalition_kwargs={"boost_to": 0.9}),
                                 dict(fault_rate=0.3),
-                                dict(crosstest_impl="reference")])
+                                dict(fault_kwargs={"deadline": 2.0})])
 def test_reference_fedconfig_with_an_unported_field_is_refused(kw):
     with pytest.raises(ValueError, match=next(iter(kw))):
         _port_fed_config(JFedConfig(**kw))
@@ -791,9 +854,9 @@ def test_resolve_device_makes_cudnn_deterministic(monkeypatch):
     (dict(fault="dropout"), "item 10"),
     (dict(compressor="no_such_thing"), "unknown compressor"),
     (dict(cohort=3, participation=0.5), "item 14"),
-    (dict(aggregator="accuracy_based"), "item 6"),
-    (dict(attack="adaptive_scale"), "item 6"),
-    (dict(selector="coverage"), "item 6"),
+    (dict(attack="scaled_collusion"), "item 11"),
+    (dict(attack="no_such_thing"), "unknown attack"),
+    (dict(selector="no_such_thing"), "unknown selector"),
     (dict(aggregator="no_such_thing"), "unknown aggregator"),
 ])
 def test_fedconfig_refuses_what_is_not_ported(kw, match):
