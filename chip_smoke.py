@@ -50,7 +50,17 @@ toolkit (``nvcc``), and exits non-zero on the first phase that fails.
    baseline ``accuracy_based`` (every model evaluated on the server's
    held-out rows), the ``score_weighted`` selector and each tester's eval
    rows redrawn every second round: ``weighted_aggregate`` once a round
-   and no other kernel, its step table with a ``server_eval`` column. In
+   and no other kernel, its step table with a ``server_eval`` column.
+   Then E, the coordinated adversary under failures
+   (``--scenario full_collusion_vs_fedtest --fault straggler_deadline``:
+   4 sybils splitting a scale-8 poison and boosting each other's
+   reports, tester trust and clipped reports, stragglers past the
+   deadline dropped), and F, the paper's Sec. V-C ablation
+   (``--scenario paper_lying_testers``: testers 0 and 1 report uniform
+   draws): ``weighted_aggregate`` once a round and no other kernel, each
+   dropped client paid exactly 0 and keeping its score,
+   ``dropped_fraction`` its share; each round's dropped clients,
+   ``dropped_fraction`` and the coalition's weight are printed. In
    every path the testers must be K distinct ids. Then the paper's
    comparison (Figs. 4-5): ``repro_torch.examples.fedtest_cifar``'s
    ``run_curve`` at its full scale, 3 rounds each of ``fedtest``,
@@ -59,7 +69,16 @@ toolkit (``nvcc``), and exits non-zero on the first phase that fails.
    FedAvg's. Then path A twice more from one seed:
    its global params and score state must be bitwise equal, and its
    rounds are timed again with ``cudnn.deterministic`` off, for what the
-   deterministic algorithms cost.
+   deterministic algorithms cost. Then durability, on path E's flags: 5
+   rounds unbroken against 3, a checkpoint (``CheckpointManager``), a
+   trainer built anew restoring it, and 2 more: params, score fields and
+   generator state bitwise equal; then the train CLI in a subprocess,
+   sent SIGTERM after its first checkpoint (exit 1, the round it reached
+   saved), and ``--resume`` to round 5 in a second one: its checkpoint
+   equal to the unbroken run, bitwise. Save, restore and SIGTERM-to-exit
+   times are printed. Then a checkpoint of the reduced ``qwen2-0.5b``
+   served with ``--ckpt-dir``: tokens and logits equal to serving its
+   params directly.
 5. Serve: ``qwen2-0.5b`` at full width in bf16 (494,032,768 params drawn
    from a seed) through ``repro_torch.launch.serve``'s code path: a
    prompt batch of 8 x 512 tokens prefilled (``flash_attention``, one
@@ -97,19 +116,34 @@ import json
 import math
 import os
 import re
+import shutil
+import signal
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ROUNDS = 3
-MAIN_PATH_ARGS = [
+# the run-only flags of every round path; paths E and F take their
+# FedConfig from a scenario preset, whose fields --users, --malicious,
+# --attack, --aggregator and --selector would override
+RUN_ARGS = [
     "--device", "cuda", "--arch", "fedtest-cnn", "--dataset", "cifar_like",
-    "--samples", "20000", "--users", "20", "--testers", "5",
-    "--malicious", "3", "--attack", "random_weights",
-    "--aggregator", "fedtest", "--selector", "rotating",
-    "--local-steps", "10", "--batch", "32", "--lr", "0.05",
-    "--optimizer", "sgd", "--rounds", str(ROUNDS)]
+    "--samples", "20000", "--local-steps", "10", "--batch", "32",
+    "--lr", "0.05", "--optimizer", "sgd", "--rounds", str(ROUNDS)]
+MAIN_PATH_ARGS = RUN_ARGS + [
+    "--users", "20", "--testers", "5", "--malicious", "3",
+    "--attack", "random_weights", "--aggregator", "fedtest",
+    "--selector", "rotating"]
+# E: the coordinated adversary under failures (20 users, K=5, 4 sybils
+# splitting a scale-8 poison and boosting each other, tester trust with
+# decay 0.3 and reports clipped at 0.2), stragglers past the deadline
+# dropped; F: the paper's Sec. V-C ablation (3 random_weights attackers,
+# testers 0 and 1 reporting uniform draws)
+E_ARGS = RUN_ARGS + ["--scenario", "full_collusion_vs_fedtest", "--fault",
+                     "straggler_deadline"]
+F_ARGS = RUN_ARGS + ["--scenario", "paper_lying_testers"]
 TRIM = 0.2
 COMBINE_ARGS = ["--aggregator", "trimmed_mean_coord", "--agg-kwargs",
                 json.dumps({"trim_fraction": TRIM, "score_gate": 0.5})]
@@ -130,7 +164,14 @@ PATHS = (
     ("D", MAIN_PATH_ARGS + ["--aggregator", "accuracy_based", "--selector",
                             "score_weighted", "--eval-resample-every", "2"],
      "weighted_aggregate", ROUNDS),
+    ("E", E_ARGS, "weighted_aggregate", ROUNDS),
+    ("F", F_ARGS, "weighted_aggregate", ROUNDS),
 )
+# the durability phase: path E unbroken for DURABLE_ROUNDS rounds, against
+# DURABLE_SPLIT rounds, a checkpoint, a new trainer restoring it and the
+# rest; then the CLI killed by SIGTERM after its first checkpoint and
+# resumed to DURABLE_ROUNDS
+DURABLE_ROUNDS, DURABLE_SPLIT = 5, 3
 # the paper's comparison (Figs. 4-5): rounds of each curve, attackers
 COMPARE_ROUNDS, COMPARE_MALICIOUS = 3, 3
 KERNELS = ("weighted_aggregate", "robust_combine", "dequant_aggregate",
@@ -1233,13 +1274,29 @@ def phase_path(torch, path, argv, op_name, rounds):
                                                server_eval(*a))
     if trainer.eval_resample_every > 0:
         trainer.eval_batches = timed("eval_batches", trainer.eval_batches)
+    fed = trainer.fed
+    adversary = (program.use_faults or program.coalition_active
+                 or fed.lying_testers > 0)
+    if adversary:
+        # keep each round's draws, to name the clients its faults dropped
+        draw = trainer.draw
+
+        def keep_draws(*args):
+            seen["draws"] = draw(*args)
+            return seen["draws"]
+        trainer.draw = keep_draws
+        print(f"path {path}: coalition {fed.coalition} members "
+              f"{program.coalition.members(fed.num_users)}, fault "
+              f"{fed.fault}, lying testers {fed.lying_testers}, "
+              f"aggregator_kwargs {dict(fed.aggregator_kwargs)}")
 
     kernel_ops = ops()
     torch.cuda.synchronize()
     reset_counts(kernel_ops)
-    walls = []
+    walls, adversary_rows = [], []
     for _ in range(rounds):
         step_ms.clear()
+        before = state.scores.scores
         t0 = time.perf_counter()
         state, metrics = trainer.run_round(state, data)
         torch.cuda.synchronize()
@@ -1269,6 +1326,10 @@ def phase_path(torch, path, argv, op_name, rounds):
               f"{walls[-1]:.1f} ms  local_loss {values[0]:.4f}  "
               f"malicious_weight {values[1]:.5f}  global_acc {acc:.4f}  "
               f"weights [{' '.join(f'{v:.4f}' for v in w.tolist())}]")
+        if adversary:
+            adversary_rows.append(check_adversary_round(
+                torch, path, program, seen["draws"], state.round_idx - 1,
+                before, metrics, ids))
     counts = {name: op.launches for name, op in kernel_ops.items()}
     # path A: the grouped kernel's launches for the tree (one a table of
     # TABLE leaves: 1 for fedtest-cnn's 10); B and C: one a round
@@ -1318,7 +1379,47 @@ def phase_path(torch, path, argv, op_name, rounds):
         worst = max(worst, float((got - want_t).abs().max()))
     print(f"path {path}: last round's {op_name} output == plain version on "
           f"its own inputs (max |err| {worst:.3g})")
-    return counts[op_name], walls
+    return counts[op_name], walls, adversary_rows
+
+
+def check_adversary_round(torch, path, program, draws, round_idx, before,
+                          metrics, tester_ids):
+    """A round of path E or F against its draws: the clients its faults
+    dropped (the composed mask, recomputed from the round's draws) are
+    paid exactly 0 and keep the score they entered with, and
+    ``dropped_fraction`` is their share. Returns the round's numbers."""
+    from repro_torch.core.engine import compose_fault_mask
+    fed = program.fed
+    part = draws.part_mask
+    kept = part
+    if program.use_faults:
+        kept = compose_fault_mask(part, program.fault.mask(
+            draws.fault_draws, fed.num_users, round_idx, device=part.device))
+    out = kept == 0
+    w, scores = metrics["weights"], metrics["scores"]
+    dropped = float(metrics["dropped_fraction"])
+    want = float((part.sum() - kept.sum()) / torch.clamp(part.sum(), min=1))
+    check(bool((w[out] == 0).all()),
+          f"path {path}: dropped clients are paid 0, got {w[out].tolist()}")
+    check(torch.equal(scores[out], before[out]),
+          f"path {path}: dropped clients keep their scores")
+    check(dropped == want, f"path {path}: dropped_fraction {dropped} is "
+          f"the dropped share {want}")
+    members = program.coalition.members(fed.num_users)
+    row = {"round": round_idx + 1,
+           "dropped": out.nonzero().flatten().tolist(),
+           "dropped_fraction": dropped,
+           "coalition_weight": float(w[list(members)].sum())
+           if members else 0.0,
+           "malicious_weight": float(metrics["malicious_weight"]),
+           "liar_testers": [i for i in tester_ids
+                            if i < fed.lying_testers]}
+    print(f"path {path} round {row['round']}: dropped {row['dropped']} "
+          f"(dropped_fraction {dropped:.4f}), coalition weight "
+          f"{row['coalition_weight']:.5f}, malicious weight "
+          f"{row['malicious_weight']:.5f}, lying testers on the committee "
+          f"{row['liar_testers']}")
+    return row
 
 
 def phase_comparison(torch, card):
@@ -1434,6 +1535,191 @@ def phase_reproducible(torch, card):
           f"{numbers['steady_deterministic_mean_ms']:.3f} against "
           f"{numbers['steady_nondeterministic_mean_ms']:.3f} ({card})")
     return numbers
+
+
+def _state_tensors(state):
+    """A round state's tensors by name: params, the three score fields
+    and the generator's state."""
+    from repro_torch.utils import tree_leaves
+    out = {f"param {i}": t
+           for i, t in enumerate(tree_leaves(state.global_params))}
+    out.update({f"scores.{k}": v for k, v in state.scores._asdict().items()})
+    out["gen_state"] = state.gen.get_state()
+    return out
+
+
+def _bitwise(torch, one, two, what):
+    a, b = _state_tensors(one), _state_tensors(two)
+    differ = [k for k in a if not torch.equal(a[k], b[k])]
+    check(a.keys() == b.keys() and not differ
+          and one.round_idx == two.round_idx,
+          f"{what}: bitwise equal ({len(a)} tensors; differ: {differ})")
+    return len(a)
+
+
+def phase_durability(torch, card, scratch):
+    """Path E's flags (the coalition, trust, stragglers): DURABLE_ROUNDS
+    rounds unbroken, against DURABLE_SPLIT rounds, a checkpoint through
+    ``CheckpointManager``, a trainer built anew by ``build`` restoring it,
+    and the rest; every param, the three score fields and the generator
+    state must be bitwise equal. Then the train CLI in a subprocess with
+    ``--ckpt-dir``, sent SIGTERM once its first checkpoint is on disk: it
+    must exit 1 with the reference's message and have saved the round it
+    reached; ``--resume`` in a second subprocess runs it on to
+    DURABLE_ROUNDS, and that final checkpoint must equal the unbroken
+    run's state bitwise. Returns the numbers printed."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch.train import build, parse_args
+
+    def rounds_of(trainer, state, data, n):
+        for _ in range(n):
+            state, _ = trainer.run_round(state, data)
+        return state
+
+    argv = E_ARGS + ["--rounds", str(DURABLE_ROUNDS)]
+    trainer, data, _ = build(parse_args(argv))
+    whole = rounds_of(trainer, trainer.init(), data, DURABLE_ROUNDS)
+    trainer, data, _ = build(parse_args(argv))
+    part = rounds_of(trainer, trainer.init(), data, DURABLE_SPLIT)
+    mgr = CheckpointManager(os.path.join(scratch, "inproc"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = trainer.save_checkpoint(mgr, part)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    again, data, _ = build(parse_args(argv))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, at = again.restore_checkpoint(mgr)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    check(at == DURABLE_SPLIT, f"restored round {at}")
+    _bitwise(torch, part, state, "the restored state against the saved")
+    resumed = rounds_of(again, state, data, DURABLE_ROUNDS - DURABLE_SPLIT)
+    n = _bitwise(torch, whole, resumed,
+                 f"{DURABLE_SPLIT} rounds + checkpoint + restore + "
+                 f"{DURABLE_ROUNDS - DURABLE_SPLIT} against "
+                 f"{DURABLE_ROUNDS} unbroken")
+    size = os.path.getsize(path)
+    print(f"durability: {DURABLE_SPLIT} + {DURABLE_ROUNDS - DURABLE_SPLIT} "
+          f"rounds through a checkpoint == {DURABLE_ROUNDS} unbroken, "
+          f"bitwise ({n} tensors); save {save_ms:.3f} ms, restore "
+          f"{restore_ms:.3f} ms ({size:,} bytes; {card})")
+
+    # the CLI: SIGTERM at a round boundary, then --resume. Hand the
+    # blocks this process's allocator keeps (path B100's cross-testing
+    # alone reserves tens of GB) back to the card first: the CLI's own
+    # process needs its share
+    reserved = torch.cuda.memory_reserved()
+    torch.cuda.empty_cache()
+    print(f"durability: {reserved / 2**30:.2f} GiB reserved by this "
+          f"process, {torch.cuda.memory_reserved() / 2**30:.2f} GiB after "
+          "empty_cache")
+    ckpt = os.path.join(scratch, "cli")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    cli = [sys.executable, "-m", "repro_torch.launch.train", *E_ARGS,
+           "--ckpt-dir", ckpt, "--out", os.path.join(scratch, "out")]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cli + ["--rounds", "1000", "--ckpt-every", "1"],
+                            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        while not (os.path.isdir(ckpt) and any(
+                f.startswith("ckpt_") for f in os.listdir(ckpt))):
+            if proc.poll() is not None or time.perf_counter() - t0 > 300:
+                proc.kill()
+                out, err = proc.communicate(timeout=60)
+                check(False, f"the CLI wrote a checkpoint: rc "
+                      f"{proc.returncode}, {err[-2000:]}")
+            time.sleep(0.02)
+        first_ckpt_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        out, err = proc.communicate(timeout=300)
+        sigterm_ms = (time.perf_counter() - t1) * 1e3
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    stopped = re.search(r"interrupted at round (\d+) \(state saved\)", err)
+    check(proc.returncode == 1 and stopped is not None,
+          f"the CLI exits 1 on SIGTERM with the reference's message: "
+          f"rc {proc.returncode}, {err[-500:]}")
+    stopped = int(stopped.group(1))
+    check(CheckpointManager(ckpt).latest_step() == stopped
+          and 1 <= stopped < DURABLE_ROUNDS,
+          f"the CLI saved round {stopped} as its newest checkpoint")
+    print(f"durability: CLI SIGTERM at round {stopped} (first checkpoint "
+          f"{first_ckpt_s:.2f} s after start, SIGTERM to exit "
+          f"{sigterm_ms:.1f} ms; {card})")
+    done = subprocess.run(cli + ["--rounds", str(DURABLE_ROUNDS),
+                                 "--resume"],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=600)
+    check(done.returncode == 0
+          and f"resuming from round {stopped}" in done.stdout,
+          f"--resume ran on: rc {done.returncode}, {done.stderr[-500:]}")
+    final, at = trainer.restore_checkpoint(CheckpointManager(ckpt))
+    check(at == DURABLE_ROUNDS, f"the resumed CLI saved round {at}")
+    _bitwise(torch, whole, final,
+             f"the CLI's SIGTERM + --resume to round {DURABLE_ROUNDS} "
+             "against the unbroken run")
+    print(f"durability: the CLI stopped at round {stopped} and resumed to "
+          f"{DURABLE_ROUNDS} == the unbroken run, bitwise")
+    return {"save_ms": save_ms, "restore_ms": restore_ms,
+            "checkpoint_bytes": size, "sigterm_round": stopped,
+            "sigterm_to_exit_ms": sigterm_ms,
+            "first_checkpoint_s": first_ckpt_s, "card": card}
+
+
+def phase_serve_checkpoint(torch, card, scratch):
+    """The reduced ``qwen2-0.5b`` (f32), its params written by the port's
+    ``CheckpointManager`` through a trainer's ``save_checkpoint``, served
+    by ``repro_torch.launch.serve`` with ``--ckpt-dir`` on the card: the
+    params read back, the greedy tokens and every step's logits must
+    equal serving the same params directly on the same prompt."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.config import FedConfig, TrainConfig, reduce_for_smoke
+    from repro_torch.configs import get_config
+    from repro_torch.core import FederatedTrainer
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import build_model
+    from repro_torch.utils import tree_leaves
+
+    cfg = reduce_for_smoke(get_config("qwen2-0.5b")).replace(dtype="float32")
+    writer = FederatedTrainer(build_model(cfg),
+                              FedConfig(num_users=2, num_testers=1),
+                              TrainConfig(), device="cuda")
+    saved = writer.init()
+    ckpt = os.path.join(scratch, "serve")
+    writer.save_checkpoint(CheckpointManager(ckpt), saved, step=7)
+    args = serve_mod.parse_args(["--device", "cuda", "--smoke", "--batch",
+                                 "4", "--prompt-len", "64", "--gen", "8",
+                                 "--ckpt-dir", ckpt])
+    model, params, tokens, gen = serve_mod.build(args)
+    check(all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(params), tree_leaves(saved.global_params))),
+        "the served params are the checkpoint's")
+    logits = {}
+
+    def keep(name):
+        def on_step(i, out):
+            logits[(name, i)] = out.clone()
+        return on_step
+
+    got = serve_mod.serve(model, params, tokens, args.gen, 0.0, gen,
+                          on_step=keep("checkpoint"))
+    want = serve_mod.serve(model, saved.global_params, tokens, args.gen,
+                           0.0, gen, on_step=keep("direct"))
+    check(torch.equal(got["tokens"], want["tokens"])
+          and all(torch.equal(logits[("checkpoint", i)],
+                              logits[("direct", i)])
+                  for i in range(args.gen)),
+          "serving the checkpoint == serving its params directly (tokens "
+          "and logits)")
+    print(f"serve --ckpt-dir: {cfg.name} from a round-7 checkpoint, batch "
+          f"{tokens.shape[0]}, prompt {tokens.shape[1]}, {args.gen} greedy "
+          f"tokens and {args.gen} logits == the params served directly "
+          f"({card})")
 
 
 def name_nondeterministic_op() -> None:
@@ -1828,10 +2114,13 @@ def main() -> int:
     rows.update(phase_attention_times(torch, peaks))
     rows.update(phase_ssd_times(torch, peaks))
 
-    launches, walls = {}, {}
-    for path, argv, op_name, rounds in PATHS:   # A and D, B and B100 add up
-        n, walls[path] = phase_path(torch, path, argv, op_name, rounds)
+    launches, walls, adversary = {}, {}, {}
+    for path, argv, op_name, rounds in PATHS:   # A, D, E, F and B, B100 add
+        n, walls[path], per_round = phase_path(torch, path, argv, op_name,
+                                               rounds)
         launches[op_name] = launches.get(op_name, 0) + n
+        if per_round:
+            adversary[path] = per_round
     comparison = phase_comparison(torch, card)
     repro = phase_reproducible(torch, card)
     serve_counts, serve_out = phase_serve(torch, card)
@@ -1839,6 +2128,14 @@ def main() -> int:
     launches["decode_attention"] = serve_counts["decode_attention"]
     ssm_counts, ssm_out = phase_ssm_serve(torch, card)
     launches["ssd_scan"] = ssm_counts["ssd_scan"]
+    # after the serve phases: the durability phase empties this process's
+    # allocator cache and starts two CUDA processes
+    scratch = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        durability = phase_durability(torch, card, scratch)
+        phase_serve_checkpoint(torch, card, scratch)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
 
     def entry(name, path_rows, shape):
         def total(key):    # None where no PyTorch call computes the same
@@ -1866,7 +2163,8 @@ def main() -> int:
               f"first) {[round(t, 3) for t in walls[path][1:]]} ({card})")
     print(json.dumps({"kernels": [
         # one round of path A: its 10 leaves in one grouped launch, C=20
-        # (path D's launches are counted in: the same call a round)
+        # (paths D, E and F's launches are counted in: the same call a
+        # round)
         entry("weighted_aggregate", rows["weighted_aggregate"][:1],
               "C=20, one grouped launch a round, M=" + "+".join(
                   str(m) for m in leaves)),
@@ -1889,7 +2187,8 @@ def main() -> int:
               "bf16")]}))
     print(json.dumps({"serve": serve_out, "ssm_serve": ssm_out,
                       "reproducible_path_a": repro,
-                      "comparison": comparison}))
+                      "comparison": comparison, "adversary": adversary,
+                      "durability": durability}))
     print(f"chip_smoke passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

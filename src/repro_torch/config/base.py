@@ -4,11 +4,11 @@
 paper's classifiers ``cnn`` and ``mlp``, the ``dense`` decoder-only LM
 and the attention-free Mamba2 ``ssm`` stack. The other LM families are
 refused with the ``ROADMAP.md`` item that ports them. ``FedConfig`` keeps
-the reference's fields that the round reads, with the reference's names
-and defaults; a field comes over with the slice that first reads it
+every field of the reference's, with its names, defaults and checks
 (``server_test_fraction`` is read by nothing, in the reference too, and
-comes over inert). The strategy names the port does not run yet are
-refused with the ``ROADMAP.md`` item that will port them.
+comes over inert). The one value the port does not run yet, a cohort
+(the population tier), is refused with the ``ROADMAP.md`` item that
+will port it.
 """
 from __future__ import annotations
 
@@ -193,24 +193,28 @@ def _freeze_kwargs(kw: Any) -> Tuple[Tuple[str, Any], ...]:
     return tuple(out)
 
 
-# FedConfig values the reference runs and this slice does not, each with
+# FedConfig values the reference runs and the port does not yet, each with
 # the ROADMAP.md queue-1 item that ports it
 _NOT_PORTED = (
-    ("coalition", "none", "item 11 (adversary surface)"),
-    ("coalition_size", 0, "item 11 (adversary surface)"),
-    ("lying_testers", 0, "item 11 (adversary surface)"),
-    ("fault", "none", "item 10 (durability and faults)"),
     ("cohort", 0, "item 14 (population tier)"),
 )
 
 
 @dataclasses.dataclass(frozen=True)
 class FedConfig:
-    """The paper's knobs (Sec. III, Algorithm 1), a subset of the
-    reference's fields. ``aggregator`` / ``attack`` / ``selector`` /
-    ``compressor`` are names in the port's registries
+    """The paper's knobs (Sec. III, Algorithm 1), the reference's fields.
+    ``aggregator`` / ``attack`` / ``selector`` / ``coalition`` /
+    ``fault`` / ``compressor`` are names in the port's registries
     (:mod:`repro_torch.strategies`); each ``*_kwargs`` mapping goes to
-    the strategy's constructor, stored as a sorted tuple."""
+    the strategy's constructor, stored as a sorted tuple.
+
+    ``fault`` names a client-failure model whose survival mask is ANDed
+    into the participation mask after selection (DESIGN.md §9);
+    ``coalition`` a coordinated adversary of ``coalition_size`` members
+    (or ``size=`` / ``indices=`` in ``coalition_kwargs``), counted as
+    malicious in union with the ``attack``'s set (DESIGN.md §7);
+    ``lying_testers`` makes testers with id below it report uniform
+    draws (Sec. V-C)."""
 
     num_users: int = 20
     num_testers: int = 5
@@ -228,8 +232,11 @@ class FedConfig:
     selector: str = "rotating"
     selector_kwargs: Any = ()
     coalition: str = "none"
+    coalition_kwargs: Any = ()     # e.g. boost_to=0.9, placement='first'
     coalition_size: int = 0
     fault: str = "none"
+    fault_kwargs: Any = ()         # e.g. deadline=2.0, placement='first'
+    fault_rate: float = 0.1        # default drop rate offered to faults
     lying_testers: int = 0
     # the accuracy-based baseline's server test set; nothing reads it, as
     # in the reference, whose builder takes its own server_frac=0.1
@@ -244,6 +251,8 @@ class FedConfig:
     def __post_init__(self) -> None:
         _require(0 < self.num_testers <= self.num_users, "need 0 < K <= N")
         _require(self.num_malicious < self.num_users, "M < N")
+        _require(self.coalition_size < self.num_users, "coalition_size < N")
+        _require(0.0 <= self.fault_rate < 1.0, "fault_rate in [0, 1)")
         _require(0.0 < self.participation <= 1.0,
                  f"participation={self.participation} must be in (0, 1]")
         _require(self.crosstest_impl in ("batched", "reference"),
@@ -255,19 +264,42 @@ class FedConfig:
                      f"(ROADMAP.md queue 1 {item}); the port runs "
                      f"{field}={default!r}")
         for f in ("aggregator_kwargs", "attack_kwargs", "selector_kwargs",
-                  "compressor_kwargs"):
+                  "coalition_kwargs", "fault_kwargs", "compressor_kwargs"):
             object.__setattr__(self, f, _freeze_kwargs(getattr(self, f)))
         # lazy import: repro_torch.strategies never imports the config
         from repro_torch.strategies import (
-            AGGREGATORS, ATTACKS, COMPRESSORS, SELECTORS)
+            AGGREGATORS, ATTACKS, COALITIONS, COMPRESSORS, FAULTS,
+            SELECTORS)
         AGGREGATORS.get(self.aggregator)
         ATTACKS.get(self.attack)
         SELECTORS.get(self.selector)
+        COALITIONS.get(self.coalition)
+        FAULTS.get(self.fault)
         COMPRESSORS.get(self.compressor)
+        # a named coalition needs members and members need a named
+        # coalition, else the run silently measures no adversary; they
+        # come from coalition_size or coalition_kwargs' size= / indices=
+        if self.coalition != "none":
+            kw = dict(self.coalition_kwargs)
+            idx = kw.get("indices") or ()
+            members = (self.coalition_size or int(kw.get("size") or 0)
+                       or len(idx))
+            _require(members > 0,
+                     f"coalition {self.coalition!r} needs members: set "
+                     "coalition_size > 0 or pass size=/indices= in "
+                     "coalition_kwargs")
+            _require(members < self.num_users, "coalition members < N")
+            _require(all(0 <= int(i) < self.num_users for i in idx),
+                     f"coalition indices {tuple(idx)} out of range for "
+                     f"num_users={self.num_users}")
+        else:
+            _require(self.coalition_size == 0,
+                     "coalition_size > 0 but coalition='none' — name "
+                     "the coalition (e.g. coalition='mutual_boost')")
 
     def strategy_kwargs(self, field: str) -> dict:
-        """``aggregator`` | ``attack`` | ``selector`` | ``compressor``
-        kwargs as a dict."""
+        """``aggregator`` | ``attack`` | ``selector`` | ``coalition`` |
+        ``fault`` | ``compressor`` kwargs as a dict."""
         return dict(getattr(self, field + "_kwargs"))
 
 

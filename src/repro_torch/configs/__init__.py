@@ -1,8 +1,13 @@
-"""Model configs: the cnn/mlp, dense and ssm subset of ``repro.configs``.
+"""Model configs (the cnn/mlp, dense and ssm subset of ``repro.configs``)
+and the named federated scenarios.
 
-Each module defines ``config() -> ModelConfig`` with the values of its
-reference twin; ``get_config(arch_id)`` resolves the CLI ``--arch`` id.
+Each model module defines ``config() -> ModelConfig`` with the values of
+its reference twin; ``get_config(arch_id)`` resolves the CLI ``--arch``
+id, ``get_scenario(name)`` a ``--scenario`` preset.
 """
 from repro_torch.configs.registry import ARCH_IDS, get_config, list_configs
+from repro_torch.configs.scenarios import (
+    SCENARIOS, get_scenario, list_scenarios, scenario_for_pod)
 
-__all__ = ["ARCH_IDS", "get_config", "list_configs"]
+__all__ = ["ARCH_IDS", "SCENARIOS", "get_config", "get_scenario",
+           "list_configs", "list_scenarios", "scenario_for_pod"]

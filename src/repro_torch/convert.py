@@ -1,5 +1,5 @@
-"""State converter: the reference's params and error-feedback buffer ->
-the port's.
+"""State converter: the reference's params, error-feedback buffer and
+checkpoints -> the port's.
 
 Both packages keep the same tree (names, layouts, dtypes: conv weights
 HWIO, dense weights ``[in, out]``, decoder layers stacked ``[L, ...]``),
@@ -8,12 +8,19 @@ device, and the flat ``[N, D]`` update layout is the same in both.
 """
 from __future__ import annotations
 
+import json
+import os
 from typing import Any, Dict
 
 import numpy as np
 import torch
 
-from repro_torch.utils import flat_update_dim
+from repro_torch.checkpoint import (
+    manifest_mismatches, params_tree, read_leaves)
+from repro_torch.checkpoint.manager import MANIFEST_NAME
+from repro_torch.core.engine.driver import RoundState
+from repro_torch.core.scoring import ScoreState
+from repro_torch.utils import derived_seed, flat_update_dim
 
 
 def params_from_reference(tree_of_numpy: Dict[str, Any], device, *,
@@ -63,3 +70,74 @@ def comp_state_from_reference(comp_state, device, *, model,
     if not np.isfinite(arr).all():
         raise ValueError("comp_state holds non-finite entries")
     return torch.as_tensor(arr.astype(np.float32), device=device)
+
+
+def _reference_manifest_mismatches(saved: dict, trainer) -> list:
+    """What a reference run's manifest and ``trainer``'s disagree on,
+    over the fields the two packages share."""
+    mine = trainer.manifest()
+    train = sorted(set(mine["train"]) & set(saved.get("train", {})))
+
+    def shared(m):
+        return {"arch": m.get("arch"), "fed": m.get("fed"),
+                "use_trust": m.get("use_trust"),
+                "train": {k: m.get("train", {}).get(k) for k in train}}
+
+    return manifest_mismatches(shared(saved), shared(mine))
+
+
+def state_from_reference_checkpoint(path: str, trainer) -> RoundState:
+    """A checkpoint the reference's ``CheckpointManager`` wrote (``path``,
+    a ``ckpt_*.npz``), read with numpy alone by path string, as
+    ``trainer``'s :class:`RoundState`: the params, the scores with tester
+    trust and ``rounds_seen``, ``round_idx`` and the error feedback, each
+    as the reference stored it.
+
+    The reference's ``.key`` is dropped, since the port does not draw
+    threefry: the generator is seeded from (``fed.seed``, ``round_idx``),
+    so the run continues on the port's own stream, not the reference's.
+
+    When the directory holds the reference's ``manifest.json``, it must
+    agree with ``trainer``'s on ``arch``, ``fed``, ``use_trust`` and the
+    ``train`` fields both packages have; ``ValueError`` names what
+    differs. Not compared: ``model``, since the reference's
+    ``ModelConfig`` has fields the port lacks (the moe, hybrid, encdec
+    and vlm families, ROADMAP.md queue 1 item 16) and the port's has the
+    classifiers' own; ``train.remat`` and ``train.seed``, which the
+    port's ``TrainConfig`` lacks; ``family`` and ``manifest_version``."""
+    man = os.path.join(os.path.dirname(os.path.abspath(path)), MANIFEST_NAME)
+    if os.path.exists(man):
+        with open(man) as f:
+            diffs = _reference_manifest_mismatches(json.load(f), trainer)
+        if diffs:
+            raise ValueError("reference checkpoint is from another run:\n  "
+                             + "\n  ".join(diffs))
+    leaves = read_leaves(path)
+    dev = trainer.device
+    fed = trainer.fed
+    round_idx = int(leaves[".round_idx"])
+    comp = leaves.get(".comp_state")
+    if (comp is not None) != trainer.program.use_compression:
+        raise ValueError(f"the reference checkpoint's error feedback "
+                         f"({'present' if comp is not None else 'absent'}) "
+                         f"does not fit compressor {fed.compressor!r}")
+    for p in (".scores/.scores", ".scores/.tester_trust"):
+        if leaves[p].shape != (fed.num_users,):
+            raise ValueError(f"{p} shape {leaves[p].shape} != "
+                             f"({fed.num_users},)")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(derived_seed(fed.seed, round_idx))
+    return RoundState(
+        global_params=params_from_reference(params_tree(leaves), dev,
+                                            model=trainer.model),
+        scores=ScoreState(
+            scores=torch.tensor(leaves[".scores/.scores"],
+                                dtype=torch.float32, device=dev),
+            rounds_seen=torch.tensor(leaves[".scores/.rounds_seen"],
+                                     dtype=torch.int32, device=dev),
+            tester_trust=torch.tensor(leaves[".scores/.tester_trust"],
+                                      dtype=torch.float32, device=dev)),
+        round_idx=round_idx, gen=gen,
+        comp_state=(None if comp is None else comp_state_from_reference(
+            comp, dev, model=trainer.model, num_users=fed.num_users)),
+        seed=fed.seed)

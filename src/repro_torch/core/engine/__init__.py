@@ -3,15 +3,17 @@
 ``local`` exchange backend, and the :class:`FederatedTrainer` driver."""
 from repro_torch.core.engine.backends import LocalBackend
 from repro_torch.core.engine.driver import (
-    FederatedTrainer, RoundState, resolve_device)
+    FederatedTrainer, RoundState, StateDict, resolve_device)
 from repro_torch.core.engine.program import (
-    RoundDraws, RoundProgram, aggregator_defaults, flat_update_dim,
-    init_comp_state, participation_mask, renormalize_over_subset,
-    resolve_compressor, resolve_strategies)
+    RoundDraws, RoundProgram, aggregator_defaults, compose_fault_mask,
+    flat_update_dim, init_comp_state, participation_mask,
+    renormalize_over_subset, resolve_coalition, resolve_compressor,
+    resolve_fault, resolve_strategies)
 
 __all__ = [
     "FederatedTrainer", "LocalBackend", "RoundDraws", "RoundProgram",
-    "RoundState", "aggregator_defaults", "flat_update_dim",
-    "init_comp_state", "participation_mask", "renormalize_over_subset",
-    "resolve_compressor", "resolve_device", "resolve_strategies",
+    "RoundState", "StateDict", "aggregator_defaults", "compose_fault_mask",
+    "flat_update_dim", "init_comp_state", "participation_mask",
+    "renormalize_over_subset", "resolve_coalition", "resolve_compressor",
+    "resolve_device", "resolve_fault", "resolve_strategies",
 ]

@@ -4,9 +4,16 @@
 :class:`FederatedTrainer` drives :class:`RoundProgram` on the
 :class:`LocalBackend`, one eager round per :meth:`run_round`. It runs on
 the card unless the caller passes ``device="cpu"``; asked for the card
-where there is none, it raises rather than carrying on on the CPU.
-Checkpointing (ROADMAP.md queue 1 item 10) and the scanned multi-round
-driver (``rounds_per_call``, item 8) are not ported.
+where there is none, it raises rather than carrying on on the CPU. The
+scanned multi-round driver (``rounds_per_call``, ROADMAP.md queue 1 item
+8) is not ported.
+
+Durability (DESIGN.md §9): :meth:`FederatedTrainer.state_dict` copies a
+round state to host arrays, the generator's ``get_state()`` bytes
+included, and :meth:`~FederatedTrainer.load_state` rebuilds it; a
+checkpoint (``repro_torch.checkpoint``) holds that tree with the run
+manifest, and a run resumed from it draws the stream an unbroken run
+draws, so it is bitwise the same run. Nothing is drawn at build time.
 
 Each round's tester eval rows are every client's first ``eval_batch``
 test rows, or, with ``eval_resample_every`` = r > 0, rows drawn anew
@@ -18,10 +25,13 @@ they are.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, NamedTuple, Optional
+from typing import Any, Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
+from repro_torch.checkpoint import LeafSpec, check_manifest, run_manifest
+from repro_torch.checkpoint.serialization import conform, flatten_with_paths
 from repro_torch.config import FedConfig, TrainConfig
 from repro_torch.core.cross_testing import (
     eval_batch_indices, gather_eval_batches)
@@ -30,6 +40,7 @@ from repro_torch.core.engine.program import (
     RoundDraws, RoundProgram, init_comp_state)
 from repro_torch.core.scoring import ScoreState, init_scores
 from repro_torch.data.pipeline import FederatedDataset, gather_client_batches
+from repro_torch.utils import tree_map
 
 
 def resolve_device(device) -> torch.device:
@@ -61,6 +72,27 @@ class RoundState(NamedTuple):
     # the exchange is uncompressed
     comp_state: Optional[torch.Tensor] = None
     seed: int = 0                   # the run's seed (eval-batch draws)
+
+
+class StateDict(NamedTuple):
+    """A :class:`RoundState` as host (numpy) arrays: the tree a checkpoint
+    holds, bf16 leaves as f32. Its path strings are the reference's
+    (``.global_params/conv0/b``, ``.scores/.tester_trust``,
+    ``.round_idx``); ``.gen_state`` (the generator's ``get_state()``
+    bytes) and ``.seed`` are the port's own."""
+
+    global_params: Any
+    scores: ScoreState
+    round_idx: Any                  # 0-d int32
+    gen_state: Any                  # [bytes] uint8
+    comp_state: Any = None          # [N, D] f32, or None uncompressed
+    seed: Any = None                # 0-d int64
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A tensor's copy in host memory, bf16 as f32 (numpy has no bf16)."""
+    dtype = torch.float32 if t.dtype == torch.bfloat16 else t.dtype
+    return t.detach().to("cpu", dtype, copy=True).numpy()
 
 
 @dataclasses.dataclass
@@ -99,6 +131,82 @@ class FederatedTrainer:
                           comp_state=init_comp_state(self.fed, self.model,
                                                      self.device),
                           seed=seed)
+
+    # ------------------------------------------------------------ durability
+    def manifest(self) -> dict:
+        """The run's resume fingerprint, stored beside its checkpoints."""
+        return run_manifest(self.model.cfg, self.fed, self.train)
+
+    def state_template(self) -> StateDict:
+        """The shapes and dtypes of this run's :class:`StateDict`; builds
+        no params and draws nothing."""
+        n = self.fed.num_users
+        gen_bytes = torch.Generator(device=self.device).get_state().numel()
+        return StateDict(
+            global_params=tree_map(lambda s: LeafSpec(tuple(s), np.float32),
+                                   self.model.param_shapes()),
+            scores=ScoreState(LeafSpec((n,), np.float32),
+                              LeafSpec((), np.int32),
+                              LeafSpec((n,), np.float32)),
+            round_idx=LeafSpec((), np.int32),
+            gen_state=LeafSpec((gen_bytes,), np.uint8),
+            comp_state=(LeafSpec((n, self.program.compressor.dim),
+                                 np.float32)
+                        if self.program.use_compression else None),
+            seed=LeafSpec((), np.int64))
+
+    def state_dict(self, state: RoundState) -> StateDict:
+        """A host copy of the whole round state: params, scores with
+        tester trust, the round, the generator's state, the error
+        feedback and the seed."""
+        return StateDict(
+            global_params=tree_map(_host, state.global_params),
+            scores=ScoreState(*(_host(t) for t in state.scores)),
+            round_idx=np.asarray(state.round_idx, np.int32),
+            gen_state=state.gen.get_state().numpy(),
+            comp_state=(None if state.comp_state is None
+                        else _host(state.comp_state)),
+            seed=np.asarray(state.seed, np.int64))
+
+    def load_state(self, state_dict: StateDict) -> RoundState:
+        """The :class:`RoundState` on this trainer's device, each leaf
+        cast to the template's dtype (``rounds_seen`` int32) and then the
+        model's; ``ValueError`` on a leaf count, path or shape that is not
+        this run's. The generator resumes at the saved state."""
+        sd = conform(self.state_template(), flatten_with_paths(state_dict))
+        dev = self.device
+
+        def put(a, dtype=None):
+            return torch.tensor(a, device=dev, dtype=dtype)
+
+        gen = torch.Generator(device=dev)
+        gen.set_state(torch.from_numpy(np.ascontiguousarray(sd.gen_state)))
+        return RoundState(
+            global_params=tree_map(put, sd.global_params,
+                                   self.model.param_dtypes()),
+            scores=ScoreState(*(put(a) for a in sd.scores)),
+            round_idx=int(sd.round_idx), gen=gen,
+            comp_state=None if sd.comp_state is None else put(sd.comp_state),
+            seed=int(sd.seed))
+
+    def save_checkpoint(self, mgr, state: RoundState,
+                        step: Optional[int] = None) -> str:
+        """Write ``state`` atomically at its round (or ``step``); the
+        run manifest goes beside the directory's first checkpoint, and
+        another run's refuses the save."""
+        step = state.round_idx if step is None else int(step)
+        return mgr.save(step, self.state_dict(state),
+                        manifest=self.manifest())
+
+    def restore_checkpoint(self, mgr, step: Optional[int] = None):
+        """``(state, step)`` from the newest loadable checkpoint (or
+        ``step``), refusing another run's manifest before reading any
+        array."""
+        saved = mgr.read_manifest()
+        if saved is not None:
+            check_manifest(saved, self.manifest())
+        state_dict, at = mgr.restore_with_step(self.state_template(), step)
+        return self.load_state(state_dict), at
 
     # ------------------------------------------------------------------- API
     def draw(self, state: RoundState, data: FederatedDataset
@@ -150,15 +258,35 @@ class FederatedTrainer:
                                           data.global_x[:2048],
                                           data.global_y[:2048]))
 
-    def run(self, data: FederatedDataset, verbose: bool = False):
-        """``fed.rounds`` rounds from a fresh state, evaluated after each;
-        returns (final_state, history dict)."""
-        state = self.init()
+    def run(self, data: FederatedDataset, rounds: Optional[int] = None,
+            eval_every: int = 1, verbose: bool = False,
+            state: Optional[RoundState] = None, ckpt=None,
+            should_stop: Optional[Callable[[], bool]] = None):
+        """Rounds up to ``rounds`` (default ``fed.rounds``), the global
+        accuracy read every ``eval_every`` rounds and after the last;
+        returns (final_state, history dict).
+
+        ``state`` resumes a run (from :meth:`restore_checkpoint`):
+        ``rounds`` is the total, so a state at round k runs rounds k to
+        ``rounds``, bitwise as an unbroken run would. ``ckpt``, a
+        ``CheckpointManager``, saves at its ``save_every`` cadence;
+        ``should_stop()`` is asked
+        before each round, so a signal handler ends the loop at a round
+        boundary and the caller saves the returned state."""
+        rounds = self.fed.rounds if rounds is None else rounds
+        if state is None:
+            state = self.init()
         history = {"round": [], "global_accuracy": [], "local_loss": [],
                    "malicious_weight": []}
-        while state.round_idx < self.fed.rounds:
+        while state.round_idx < rounds:
+            if should_stop is not None and should_stop():
+                break
             state, metrics = self.run_round(state, data)
             done = state.round_idx
+            if ckpt is not None and ckpt.should_save(done):
+                self.save_checkpoint(ckpt, state)
+            if done % eval_every and done < rounds:
+                continue
             ga = self.global_accuracy(state, data)
             history["round"].append(done)
             history["global_accuracy"].append(ga)

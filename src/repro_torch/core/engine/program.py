@@ -3,11 +3,19 @@
 
   1.  broadcast the global model to all N users
   2.  every user runs ``local_steps`` optimizer steps on its own shard
-  3.  malicious users swap in attacked models              (Sec. IV)
+  2b. client failures: the fault model's survival mask is ANDed into the
+      participation mask, so a dropped client is a non-sampled one
+      (zero weight, frozen score, masked tester row)      (DESIGN.md §9)
+  3.  malicious users swap in attacked models              (Sec. IV);
+      a coalition's model attack composes in, its members joining the
+      malicious set                                        (DESIGN.md §7)
   3b. non-participants' slots revert to the global model
   3c. compressed exchange: each client's update is encoded with error
       feedback, and every later step sees the decoded models
   4.  K testers evaluate all N models on their own data
+  5.  lying testers (id < ``lying_testers``) report uniform draws
+      instead                                              (Sec. V-C)
+  5b. the coalition's members rewrite their tester rows   (DESIGN.md §7)
   6.  the server computes scores / weights (an aggregator that sets
       ``needs_server_eval`` gets ``ctx.server_eval``, every model's
       accuracy on the server's held-out set)
@@ -17,15 +25,14 @@
       (``robust_combine``); or, compressed, a weighted sum of the decoded
       updates (``dequant_aggregate`` for int8)
 
-Step 5 (lying testers) and the fault and coalition seams are not ported
-yet; ``FedConfig`` refuses them.
-
 Randomness: where the reference derives every draw from
 ``round_keys(fold_in(key, round_idx))``, the port takes every draw of a
 round from one :class:`RoundDraws`. Production draws it from a
 ``torch.Generator`` on the device (:meth:`RoundProgram.draw_round`); the
 parity tests build it from the reference's key schedule, so both
-packages run a round on the same random numbers.
+packages run a round on the same random numbers. Steps 2b and 5 draw
+only when their seam is on: a round without a fault or liars draws what
+it drew before they were ported.
 """
 from __future__ import annotations
 
@@ -56,6 +63,11 @@ class RoundDraws(NamedTuple):
     # [N, eval_batch] int64 tester eval rows under eval resampling
     # (cross_testing.eval_batch_indices); None keeps the fixed prefix
     eval_idx: Optional[torch.Tensor] = None
+    # [N] the fault model's draws (Fault.draw); None without a fault or
+    # for a fault that draws nothing
+    fault_draws: Optional[torch.Tensor] = None
+    # [K, N] uniform reports of the lying testers; None without liars
+    lies: Optional[torch.Tensor] = None
 
 
 def participation_mask(gen: torch.Generator, num_users: int,
@@ -66,6 +78,15 @@ def participation_mask(gen: torch.Generator, num_users: int,
     u = torch.rand((num_users,), generator=gen, device=gen.device)
     bern = (u < participation).float()
     return torch.where(bern.any(), bern, torch.ones_like(bern))
+
+
+def compose_fault_mask(part_mask: torch.Tensor, alive: torch.Tensor
+                       ) -> torch.Tensor:
+    """AND the fault survival mask into the participation mask (step 2b).
+    If every selected client dropped, the faults are ignored for the
+    round, so a round is always well defined."""
+    combined = part_mask * alive
+    return torch.where(combined.sum() > 0, combined, part_mask)
 
 
 def renormalize_over_subset(weights: torch.Tensor, part_mask: torch.Tensor
@@ -101,6 +122,24 @@ def resolve_strategies(fed: FedConfig):
     return agg, atk, sel
 
 
+def resolve_fault(fed: FedConfig):
+    """Name -> object resolution for ``fed.fault``; ``rate`` defaults to
+    ``fed.fault_rate`` (dropped where the model does not take it)."""
+    from repro_torch.strategies import FAULTS
+    return FAULTS.build(fed.fault, fed.strategy_kwargs("fault"),
+                        dict(rate=fed.fault_rate))
+
+
+def resolve_coalition(fed: FedConfig):
+    """Name -> object resolution for ``fed.coalition``; ``size`` defaults
+    to ``fed.coalition_size`` and the model attack's total ``scale`` to
+    ``fed.attack_scale`` (each dropped where not taken)."""
+    from repro_torch.strategies import COALITIONS
+    return COALITIONS.build(fed.coalition, fed.strategy_kwargs("coalition"),
+                            dict(size=fed.coalition_size,
+                                 scale=fed.attack_scale))
+
+
 def resolve_compressor(fed: FedConfig, model):
     """Name -> object resolution for ``fed.compressor``, with the flat
     update width ``dim`` injected."""
@@ -130,6 +169,14 @@ class RoundProgram:
         # one eval fn, shared by cross-testing and the global accuracy
         self.eval_fn = make_eval_fn(model)
         self.aggregator, self.attack, self.selector = resolve_strategies(fed)
+        # a coalition's model attack composes into step 3 (the malicious
+        # set becomes the union), its report transform runs as step 5b
+        self.coalition = resolve_coalition(fed)
+        self.coalition_active = self.coalition.active
+        if self.coalition_active:
+            self.attack = self.coalition.compose(self.attack, fed.num_users)
+        self.fault = resolve_fault(fed)
+        self.use_faults = fed.fault != "none"
         self.malicious_idx = self.attack.malicious_indices(fed.num_users)
         self.use_participation = fed.participation < 1.0
         # a non-None combine hook routes step 7 through the per-coordinate
@@ -181,7 +228,15 @@ class RoundProgram:
                                      device=gen.device)
                          for leaf in tree_leaves(global_params)]
                      for c in self.malicious_idx}
-        return RoundDraws(batch_idx, tester_ids, part_mask, noise)
+        # the seams of steps 2b and 5 draw after everything else, and only
+        # when they are on
+        fault_draws = (self.fault.draw(gen, fed.num_users)
+                       if self.use_faults else None)
+        lies = (torch.rand((fed.num_testers, fed.num_users), generator=gen,
+                           device=gen.device)
+                if fed.lying_testers else None)
+        return RoundDraws(batch_idx, tester_ids, part_mask, noise,
+                          fault_draws=fault_draws, lies=lies)
 
     # ------------------------------------------------------------ the round
     def run(self, backend, global_params, scores, *, bx, by, tx, ty,
@@ -198,6 +253,17 @@ class RoundProgram:
         fed = self.fed
         pmask = draws.part_mask if self.use_participation else None
         tester_ids = draws.tester_ids
+
+        # 2b. client failures: a dropped client is a non-sampled one from
+        # here on (zero weight, frozen score, masked tester row)
+        dropped_fraction = torch.zeros((), device=draws.part_mask.device)
+        if self.use_faults:
+            part = draws.part_mask
+            alive = self.fault.mask(draws.fault_draws, fed.num_users,
+                                    round_idx, device=part.device)
+            pmask = compose_fault_mask(part, alive)
+            dropped_fraction = ((part.sum() - pmask.sum())
+                                / torch.clamp(part.sum(), min=1.0))
 
         # 1-2. broadcast + local training
         models, local_loss = backend.train(self.local_train, global_params,
@@ -230,6 +296,18 @@ class RoundProgram:
 
         # 4. the round's testers measure accuracies on their own data
         acc = backend.cross_test(self.eval_fn, models, tx, ty, tester_ids)
+
+        # 5. lying testers (Sec. V-C): a tester with id < lying_testers
+        # reports uniform draws whenever it is selected
+        if fed.lying_testers:
+            liar_rows = (tester_ids < fed.lying_testers)[:, None]
+            acc = torch.where(liar_rows, draws.lies, acc)
+
+        # 5b. the coalition's members rewrite their tester rows (mutual
+        # boost and targeted defamation by the scores entering the round)
+        if self.coalition_active:
+            acc = self.coalition.transform_reports(None, acc, tester_ids,
+                                                   actx)
 
         # 6. scores, then weights, via the aggregation strategy; the
         # [N, D] update matrix is built at most once a round, for
@@ -286,5 +364,7 @@ class RoundProgram:
             "scores": new_scores.scores,
             "participation_rate": (pmask.mean() if pmask is not None
                                    else torch.ones((), device=acc.device)),
+            # the share of the selected clients lost to faults
+            "dropped_fraction": dropped_fraction,
         }
         return new_global, new_scores, new_comp_state, metrics

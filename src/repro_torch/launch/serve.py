@@ -16,8 +16,16 @@ and decode steps the recurrence in plain torch. ``--device cpu --smoke``
 runs the reduced config in f32 on the CPU (the kernels' plain versions);
 ``--device cuda`` without a card raises. Prompt tokens and sampling come
 from a ``torch.Generator``, so the tokens differ from the reference's
-JAX draws. Serving a training run's checkpoint (``--ckpt-dir``) waits
-for checkpointing (ROADMAP.md queue 1 item 10).
+JAX draws.
+
+Serve-while-training (DESIGN.md §9): with ``--ckpt-dir`` the server
+waits up to ``--wait-secs`` for a checkpoint of the port's
+``CheckpointManager``, refuses one of another arch, and serves the
+global params of the newest one that loads (saves are atomic, so it
+never reads a torn file):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
+      --ckpt-dir ckpt --wait-secs 60
 """
 from __future__ import annotations
 
@@ -27,10 +35,16 @@ from typing import Dict, List
 
 import torch
 
+from repro_torch.checkpoint import (
+    CheckpointManager, params_tree, read_leaves)
 from repro_torch.config import reduce_for_smoke
 from repro_torch.configs import get_config, list_configs
+from repro_torch.convert import params_from_reference
 from repro_torch.core.engine import resolve_device
 from repro_torch.models import build_model
+
+# seconds between looks for a first checkpoint under --wait-secs
+POLL_S = 0.5
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -47,20 +61,47 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="torch device of the run; 'cuda' raises when no "
                          "card is present")
     ap.add_argument("--ckpt-dir", default=None,
-                    help="not ported yet: serving a checkpoint waits for "
-                         "ROADMAP.md queue 1 item 10")
+                    help="serve the newest checkpoint of a (possibly still "
+                         "running) training run instead of weights drawn "
+                         "from --seed")
+    ap.add_argument("--wait-secs", type=float, default=0.0,
+                    help="poll --ckpt-dir this long for a first checkpoint "
+                         "before giving up")
     args = ap.parse_args(argv)
-    if args.ckpt_dir is not None:
-        ap.error("--ckpt-dir is not ported yet (ROADMAP.md queue 1 item 10, "
-                 "checkpointing); the port serves weights drawn from --seed")
     if args.gen < 1 or args.prompt_len < 1 or args.batch < 1:
         ap.error("--batch, --prompt-len and --gen must be positive")
     return args
 
 
+def load_serving_params(mgr: CheckpointManager, model, arch: str = None,
+                        wait_secs: float = 0.0, device="cpu"):
+    """``(global_params, step)`` of the newest checkpoint in ``mgr`` whose
+    params load into ``model``, polled for up to ``wait_secs``; the params
+    on ``device`` in the model's dtypes. Only the ``.global_params/``
+    leaves are read, so the rest of the round state (and the run's
+    ``FedConfig``) is not needed; a manifest beside the checkpoints that
+    names another arch is refused."""
+    deadline = time.time() + wait_secs
+    while mgr.latest_step() is None:
+        if time.time() >= deadline:
+            raise FileNotFoundError(
+                f"no checkpoint appeared in {mgr.directory} within "
+                f"{wait_secs:.0f}s")
+        time.sleep(POLL_S)
+    saved_arch = (mgr.read_manifest() or {}).get("arch")
+    if arch is not None and saved_arch is not None and saved_arch != arch:
+        raise SystemExit(
+            f"checkpoint dir holds arch {saved_arch!r}, server was asked "
+            f"to serve {arch!r} — refusing")
+    return mgr.load_newest(lambda path: params_from_reference(
+        params_tree(read_leaves(path)), device, model=model))
+
+
 def build(args: argparse.Namespace):
     """(model, params, prompt tokens [B, S] int32, generator) for the
-    parsed flags, on the run's device."""
+    parsed flags, on the run's device. With ``--ckpt-dir`` the params
+    are the newest checkpoint's and the prompt is drawn from ``--seed``
+    as the first draw."""
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.smoke:
@@ -69,7 +110,13 @@ def build(args: argparse.Namespace):
         raise SystemExit(f"{cfg.name} ({cfg.family}) has no serving path")
     model = build_model(cfg)
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = model.init(gen)
+    if args.ckpt_dir:
+        params, step = load_serving_params(
+            CheckpointManager(args.ckpt_dir), model, arch=cfg.name,
+            wait_secs=args.wait_secs, device=device)
+        print(f"serving round-{step} weights from {args.ckpt_dir}")
+    else:
+        params = model.init(gen)
     tokens = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            generator=gen, device=device, dtype=torch.int32)
     return model, params, tokens, gen

@@ -6,40 +6,57 @@ Runs the FedTest round on the card by default:
       --dataset cifar_like --aggregator fedtest --users 20 --testers 5 \\
       --malicious 3 --rounds 60
 
+  # a named scenario preset (repro_torch.configs.scenarios); a flag
+  # passed explicitly overrides that field of the preset:
+  PYTHONPATH=src python -m repro_torch.launch.train --scenario \\
+      full_collusion_vs_fedtest --fault straggler_deadline --rounds 10
+
+  # durable: a checkpoint every 2 rounds and at the end; SIGTERM stops at
+  # the next round boundary and saves; --resume continues to --rounds
+  PYTHONPATH=src python -m repro_torch.launch.train --ckpt-dir ckpt \\
+      --ckpt-every 2 --rounds 10
+  PYTHONPATH=src python -m repro_torch.launch.train --ckpt-dir ckpt \\
+      --resume --rounds 20
+
 ``--device cpu`` runs on the CPU; ``--device cuda`` without a card
-raises. The flags are the subset of ``repro.launch.train`` that the
-port runs, with its defaults: the main path, plus the update-space
-aggregators (``--aggregator trimmed_mean_coord --agg-kwargs
-'{"score_gate": 0.5}'``), the compressed exchange (``--compressor
-int8``), the server-side baseline (``--aggregator accuracy_based``),
-every attack and selector the port registers (``--attack-kwargs``,
-``--selector-kwargs``), the cross-testing dispatch
-(``--crosstest-impl``) and eval-batch resampling
-(``--eval-resample-every``). The port's registries list the names they
-refuse, each with its ROADMAP.md item, beside the ones they run, and
-the choices take both, so that a refused name says which item ports it.
+raises. The flags are ``repro.launch.train``'s, with its defaults, less
+those of the parts not ported yet (``--population``, ``--cohort``,
+``--testers-from-cohort``: ROADMAP.md queue 1 item 14;
+``--rounds-per-call``: item 8; ``--dataset lm``: item 16), plus
+``--device`` and ``--participation``.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
+import signal
 import time
 
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.config import FedConfig, TrainConfig, reduce_for_smoke
-from repro_torch.configs import get_config, list_configs
+from repro_torch.configs import (
+    get_config, get_scenario, list_configs, list_scenarios)
 from repro_torch.core import CROSSTEST_IMPLS, FederatedTrainer
 from repro_torch.core.engine import resolve_device
 from repro_torch.data import (
     CIFAR_LIKE, MNIST_LIKE, make_federated_image_dataset)
 from repro_torch.models import build_model
 from repro_torch.strategies import (
-    AGGREGATORS, ATTACKS, COMPRESSORS, SELECTORS)
+    AGGREGATORS, ATTACKS, COALITIONS, COMPRESSORS, FAULTS, SELECTORS)
 
-
-def _names(registry):
-    """A registry's names, the refused ones included."""
-    return sorted(registry.names() + tuple(registry.not_ported))
+# FedConfig fields the command line leaves unset take these (the flags
+# default to None, so --scenario can tell a flag passed from one not)
+_FED_CLI_DEFAULTS = dict(
+    num_users=20, num_testers=5, num_malicious=0, rounds=40,
+    local_steps=10, score_power=4.0, score_decay=0.5,
+    aggregator="fedtest", aggregator_kwargs={},
+    attack="random_weights", attack_kwargs={}, attack_scale=1.0,
+    selector="rotating", selector_kwargs={},
+    coalition="none", coalition_kwargs={}, coalition_size=0,
+    fault="none", fault_kwargs={}, fault_rate=0.1,
+    compressor="identity", compressor_kwargs={}, seed=0)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -49,28 +66,49 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="the reduced config (reduce_for_smoke) in f32")
     ap.add_argument("--dataset", default="cifar_like",
                     choices=["cifar_like", "mnist_like"])
-    ap.add_argument("--users", type=int, default=20)
-    ap.add_argument("--testers", type=int, default=5)
-    ap.add_argument("--malicious", type=int, default=0)
-    ap.add_argument("--attack", default="random_weights",
-                    choices=_names(ATTACKS))
+    ap.add_argument("--scenario", default=None, choices=list_scenarios(),
+                    help="named FedConfig preset; flags passed explicitly "
+                         "override its fields")
+    ap.add_argument("--users", type=int, default=None)
+    ap.add_argument("--testers", type=int, default=None)
+    ap.add_argument("--malicious", type=int, default=None)
+    ap.add_argument("--attack", default=None, choices=list(ATTACKS.names()))
     ap.add_argument("--attack-kwargs", default=None, type=json.loads,
                     help="JSON kwargs for the attack ctor, e.g. "
                          '\'{"placement": "first"}\'')
-    ap.add_argument("--attack-scale", type=float, default=1.0)
-    ap.add_argument("--aggregator", default="fedtest",
-                    choices=_names(AGGREGATORS))
+    ap.add_argument("--attack-scale", type=float, default=None)
+    ap.add_argument("--aggregator", default=None,
+                    choices=list(AGGREGATORS.names()))
     ap.add_argument("--agg-kwargs", default=None, type=json.loads,
                     help="JSON kwargs for the aggregator ctor, e.g. "
                          '\'{"trim_fraction": 0.2, "score_gate": 0.5}\'')
-    ap.add_argument("--score-power", type=float, default=4.0)
-    ap.add_argument("--score-decay", type=float, default=0.5)
-    ap.add_argument("--selector", default="rotating",
-                    choices=_names(SELECTORS))
+    ap.add_argument("--score-power", type=float, default=None)
+    ap.add_argument("--score-decay", type=float, default=None)
+    ap.add_argument("--selector", default=None,
+                    choices=list(SELECTORS.names()))
     ap.add_argument("--selector-kwargs", default=None, type=json.loads,
                     help="JSON kwargs for the selector ctor, e.g. "
                          '\'{"indices": [0, 3]}\' (fixed)')
-    ap.add_argument("--crosstest-impl", default="batched",
+    ap.add_argument("--coalition", default=None,
+                    choices=list(COALITIONS.names()),
+                    help="coordinated multi-client adversary "
+                         "(DESIGN.md §7); size via --coalition-size")
+    ap.add_argument("--coalition-size", type=int, default=None,
+                    help="number of coordinated members (placement via "
+                         "--coalition-kwargs)")
+    ap.add_argument("--coalition-kwargs", default=None, type=json.loads,
+                    help="JSON kwargs for the coalition ctor, e.g. "
+                         '\'{"boost_to": 0.9, "deflate_top": 2}\'')
+    ap.add_argument("--fault", default=None, choices=list(FAULTS.names()),
+                    help="client failures injected after tester selection "
+                         "(DESIGN.md §9)")
+    ap.add_argument("--fault-rate", type=float, default=None,
+                    help="per-round drop probability offered to the fault "
+                         "model (dropout)")
+    ap.add_argument("--fault-kwargs", default=None, type=json.loads,
+                    help="JSON kwargs for the fault ctor, e.g. "
+                         '\'{"placement": "first", "size": 2}\'')
+    ap.add_argument("--crosstest-impl", default=None,
                     choices=list(CROSSTEST_IMPLS),
                     help="cross-testing dispatch: one batched eval over "
                          "all models, or one eval a (tester, client) pair "
@@ -78,16 +116,16 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--eval-resample-every", type=int, default=0,
                     help="redraw each tester's eval rows every N rounds "
                          "(0: the fixed first rows, every round)")
-    ap.add_argument("--rounds", type=int, default=40)
-    ap.add_argument("--local-steps", type=int, default=10)
+    ap.add_argument("--rounds", type=int, default=None)
+    ap.add_argument("--local-steps", type=int, default=None)
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--lr", type=float, default=0.05)
     ap.add_argument("--optimizer", default="sgd",
                     choices=["sgd", "momentum", "adam", "adamw"])
     ap.add_argument("--samples", type=int, default=20000)
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--participation", type=float, default=1.0)
-    ap.add_argument("--compressor", default="identity",
+    ap.add_argument("--seed", type=int, default=None)
+    ap.add_argument("--participation", type=float, default=None)
+    ap.add_argument("--compressor", default=None,
                     choices=list(COMPRESSORS.names()),
                     help="compressed update exchange: clients send encoded "
                          "updates with per-client error feedback")
@@ -99,7 +137,45 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="torch device of the run; 'cuda' raises when no "
                          "card is present")
     ap.add_argument("--out", default="experiments/train")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="checkpoint directory (the final state is always "
+                         "saved there; periodic saves via --ckpt-every)")
+    ap.add_argument("--ckpt-every", type=int, default=0,
+                    help="save the whole round state every N completed "
+                         "rounds (0: the final save only)")
+    ap.add_argument("--resume", action="store_true",
+                    help="restore the newest checkpoint from --ckpt-dir "
+                         "and continue to --rounds; refuses another run's "
+                         "manifest")
     return ap.parse_args(argv)
+
+
+def fed_config(args: argparse.Namespace) -> FedConfig:
+    """The run's FedConfig: the ``--scenario`` preset (else the CLI
+    defaults), with every flag passed explicitly in place of its field."""
+    passed = dict(num_users=args.users, num_testers=args.testers,
+                  num_malicious=args.malicious, rounds=args.rounds,
+                  local_steps=args.local_steps,
+                  score_power=args.score_power,
+                  score_decay=args.score_decay,
+                  aggregator=args.aggregator,
+                  aggregator_kwargs=args.agg_kwargs,
+                  attack=args.attack, attack_kwargs=args.attack_kwargs,
+                  attack_scale=args.attack_scale, selector=args.selector,
+                  selector_kwargs=args.selector_kwargs,
+                  coalition=args.coalition,
+                  coalition_size=args.coalition_size,
+                  coalition_kwargs=args.coalition_kwargs,
+                  fault=args.fault, fault_kwargs=args.fault_kwargs,
+                  fault_rate=args.fault_rate,
+                  participation=args.participation,
+                  compressor=args.compressor,
+                  compressor_kwargs=args.compressor_kwargs,
+                  crosstest_impl=args.crosstest_impl, seed=args.seed)
+    passed = {f: v for f, v in passed.items() if v is not None}
+    if args.scenario:
+        return dataclasses.replace(get_scenario(args.scenario), **passed)
+    return FedConfig(**{**_FED_CLI_DEFAULTS, **passed})
 
 
 def build(args: argparse.Namespace):
@@ -112,21 +188,7 @@ def build(args: argparse.Namespace):
         cfg = get_config("fedtest-cnn-mnist")
     if args.smoke:
         cfg = reduce_for_smoke(cfg).replace(dtype="float32")
-    fed = FedConfig(num_users=args.users, num_testers=args.testers,
-                    num_malicious=args.malicious, rounds=args.rounds,
-                    local_steps=args.local_steps,
-                    score_power=args.score_power,
-                    score_decay=args.score_decay,
-                    aggregator=args.aggregator,
-                    aggregator_kwargs=args.agg_kwargs, attack=args.attack,
-                    attack_kwargs=args.attack_kwargs,
-                    attack_scale=args.attack_scale, selector=args.selector,
-                    selector_kwargs=args.selector_kwargs,
-                    participation=args.participation,
-                    crosstest_impl=args.crosstest_impl,
-                    compressor=args.compressor,
-                    compressor_kwargs=args.compressor_kwargs,
-                    seed=args.seed)
+    fed = fed_config(args)
     tc = TrainConfig(optimizer=args.optimizer, lr=args.lr,
                      schedule="constant", batch_size=args.batch,
                      grad_clip=0.0)
@@ -143,27 +205,68 @@ def main(argv=None):
     args = parse_args(argv)
     trainer, data, cfg = build(args)
     fed = trainer.fed
+    mgr = None
+    if args.ckpt_dir:
+        mgr = CheckpointManager(args.ckpt_dir, save_every=args.ckpt_every)
+    init_state = None
+    if args.resume:
+        if mgr is None:
+            raise SystemExit("--resume requires --ckpt-dir")
+        init_state, at = trainer.restore_checkpoint(mgr)
+        print(f"resuming from round {at} in {args.ckpt_dir}")
+
+    # SIGTERM stops the loop at the next round boundary; the state run()
+    # returns is then saved below like any other, so a soft kill loses no
+    # completed round
+    stop = {"flag": False}
+
+    def on_sigterm(signum, frame):
+        stop["flag"] = True
+        print("SIGTERM: finishing the current round, then checkpointing",
+              flush=True)
+
+    prev_handler = signal.signal(signal.SIGTERM, on_sigterm)
     t0 = time.time()
-    state, history = trainer.run(data, verbose=True)
+    try:
+        state, history = trainer.run(data, verbose=True, state=init_state,
+                                     ckpt=mgr,
+                                     should_stop=lambda: stop["flag"])
+    finally:
+        signal.signal(signal.SIGTERM, prev_handler)
+    completed = state.round_idx     # not fed.rounds: SIGTERM, or resumed
+    if mgr is not None:
+        trainer.save_checkpoint(mgr, state, step=completed)
+        print(f"checkpoint saved at round {completed} -> {args.ckpt_dir}")
+    if stop["flag"]:
+        raise SystemExit(f"interrupted at round {completed} (state saved)")
+
     history["wall_s"] = time.time() - t0
     history["config"] = {"arch": cfg.name, "dataset": args.dataset,
                          "aggregator": fed.aggregator, "attack": fed.attack,
                          "selector": fed.selector,
+                         "coalition": fed.coalition,
+                         "coalition_size": fed.coalition_size,
+                         "fault": fed.fault, "fault_rate": fed.fault_rate,
                          "compressor": fed.compressor,
+                         "scenario": args.scenario,
                          "crosstest_impl": fed.crosstest_impl,
                          "eval_resample_every":
                              trainer.eval_resample_every,
                          "users": fed.num_users,
                          "testers": fed.num_testers,
                          "malicious": fed.num_malicious,
+                         "resumed": bool(args.resume),
                          "device": str(trainer.device)}
     os.makedirs(args.out, exist_ok=True)
     tag = (f"{cfg.name}__{args.dataset}__{fed.aggregator}"
            f"__{fed.attack}__m{fed.num_malicious}__torch")
     with open(os.path.join(args.out, tag + ".json"), "w") as f:
         json.dump(history, f, indent=1)
-    print(f"final accuracy: {history['global_accuracy'][-1]:.4f} "
-          f"({history['wall_s']:.0f}s) -> {args.out}/{tag}.json")
+    if history["global_accuracy"]:
+        print(f"final accuracy: {history['global_accuracy'][-1]:.4f} "
+              f"({history['wall_s']:.0f}s) -> {args.out}/{tag}.json")
+    else:   # resumed at or past the target: nothing ran
+        print(f"no rounds to run (already at {completed}/{fed.rounds})")
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
-"""Registered malicious-client strategies (the entries of
-``repro/strategies/attacks.py`` that this slice runs).
+"""Registered malicious-client strategies (counterpart of
+``repro/strategies/attacks.py``).
 
 * ``none``           — honest run (also what ``num_malicious=0`` means).
 * ``random_weights`` — the paper's attack (Sec. IV): random weights with
@@ -11,6 +11,8 @@
 * ``adaptive_scale`` — the sign-flip at ``scale`` while the attacker's own
   implied weight is at least ``weight_threshold / N``, else the honest
   update, so that the testers rebuild its score.
+* ``scaled_collusion`` — sybil-split poisoning: each malicious client sends
+  its ``1/split`` share of one sign-flip poison at ``scale``.
 """
 from __future__ import annotations
 
@@ -69,6 +71,29 @@ class LabelFlipProxy(Attack):
     def corrupt(self, key, trained, global_params, ctx=None,
                 client_idx=None):
         return _sign_flip(key, trained, global_params, 1.0)
+
+
+@register(ATTACKS, "scaled_collusion")
+class ScaledCollusion(Attack):
+    """Sybil-split model poisoning (DESIGN.md §7): each malicious client
+    sends ``g - (scale/split)·(t - g)``, its even share of one full-scale
+    sign-flip poison. ``split`` defaults to the malicious-set size, so no
+    single update deviates more than a ``scale/split`` attacker's while
+    the coalition's sum rebuilds the whole poison. The ``sybil_split`` and
+    ``full_collusion`` coalitions run it over their members."""
+
+    def __init__(self, *, num_malicious: int = 0, scale: float = 8.0,
+                 placement: str = "last", indices=None, split: int = 0):
+        super().__init__(num_malicious=num_malicious, scale=scale,
+                         placement=placement, indices=indices)
+        if split < 0:
+            raise ValueError(f"split must be >= 0, got {split}")
+        self.split = int(split) if split else max(1, self.num_malicious)
+
+    def corrupt(self, key, trained, global_params, ctx=None,
+                client_idx=None):
+        return _sign_flip(key, trained, global_params,
+                          self.scale / self.split)
 
 
 @register(ATTACKS, "scaled_update")

@@ -3,19 +3,22 @@ of ``repro/strategies/base.py``).
 
 Everything a strategy could vary — how aggregation weights are produced,
 how malicious clients corrupt their models, how testers are selected —
-is resolved to a plain Python object before the round runs. Three
+is resolved to a plain Python object before the round runs. Five
 registries live here (the compressors' in ``strategies/compressors.py``):
 
 * ``AGGREGATORS`` — :class:`Aggregator`: ``weights(ctx) -> [N]`` simplex,
   or ``combine(ctx, updates) -> [D]``.
 * ``ATTACKS``     — :class:`Attack`: corrupt malicious clients' models.
 * ``SELECTORS``   — :class:`Selector`: pick the K tester ids per round.
+* ``COALITIONS``  — ``Coalition`` (``strategies/coalition.py``): a
+  coordinated member set with a model attack and/or a report transform.
+* ``FAULTS``      — :class:`Fault`: the per-round client survival mask.
 
 Randomness differs from the reference in one way: the port's round takes
 every random number from its :class:`RoundDraws`
 (``repro_torch.core.engine.program``), so the ``key`` a strategy is
 handed is a ``torch.Generator`` (selectors) or the draws themselves
-(attacks), never a JAX key.
+(attacks, faults), never a JAX key.
 """
 from __future__ import annotations
 
@@ -69,16 +72,10 @@ class RoundContext(NamedTuple):
 
 
 class Registry:
-    """Name -> strategy-class registry with decorator registration.
+    """Name -> strategy-class registry with decorator registration."""
 
-    ``not_ported`` maps names the reference registers and the port does
-    not yet to the ``ROADMAP.md`` item that ports them, so asking for one
-    fails with that pointer instead of a bare unknown-name error.
-    """
-
-    def __init__(self, kind: str, not_ported: Optional[Dict[str, str]] = None):
+    def __init__(self, kind: str):
         self.kind = kind
-        self.not_ported = dict(not_ported or {})
         self._entries: Dict[str, Callable] = {}
 
     def register(self, name: str, entry: Callable) -> Callable:
@@ -95,11 +92,6 @@ class Registry:
     def get(self, name: str) -> Callable:
         if name in self._entries:
             return self._entries[name]
-        if name in self.not_ported:
-            raise KeyError(
-                f"{self.kind} {name!r} is not ported yet (ROADMAP.md "
-                f"queue 1 {self.not_ported[name]}); ported "
-                f"{self.kind}s: {list(self.names())}")
         raise KeyError(f"unknown {self.kind} {name!r}; registered "
                        f"{self.kind}s: {list(self.names())}")
 
@@ -281,6 +273,36 @@ class Attack:
                 f"placement={self.placement}>")
 
 
+class Fault:
+    """Per-round client-failure model (DESIGN.md §9), in two parts:
+
+    * ``draw(gen, num_users)`` — the round's random numbers for the fault,
+      taken from the round's ``torch.Generator`` (None for a model that
+      draws nothing);
+    * ``mask(draws, num_users, round_idx, device=None)`` — a pure function
+      of those draws giving the ``[N]`` 0/1 f32 survival mask (1: the
+      client completes the round), on the draws' device or ``device``.
+
+    The engine ANDs the mask into the participation mask after selection,
+    so a dropped client gets the non-sampled semantics: zero weight, a
+    frozen score, a masked report row. The parity tests hand ``mask`` the
+    reference's ``keys.fault`` draws, so the masks are compared exactly.
+    """
+
+    name = "base"
+
+    def draw(self, gen: torch.Generator, num_users: int
+             ) -> Optional[torch.Tensor]:
+        return None
+
+    def mask(self, draws, num_users: int, round_idx: int,
+             device=None) -> torch.Tensor:
+        raise NotImplementedError
+
+    def __repr__(self) -> str:
+        return f"<fault {self.name}>"
+
+
 class Selector:
     """Picks the K tester ids for a round, int32 on the device of ``key``,
     the round's ``torch.Generator`` (the CPU when it is None); ``scores``
@@ -298,5 +320,7 @@ class Selector:
 
 
 AGGREGATORS = Registry("aggregator")
-ATTACKS = Registry("attack", not_ported={"scaled_collusion": "item 11"})
+ATTACKS = Registry("attack")
 SELECTORS = Registry("selector")
+COALITIONS = Registry("coalition")
+FAULTS = Registry("fault")

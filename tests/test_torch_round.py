@@ -393,9 +393,19 @@ def _client_noise(attack_key, c, leaves):
             for k, leaf in zip(ks, leaves)]
 
 
+# the reference's draws of a fault model, from its keys.fault stream, as
+# the port's Fault.draw makes them (targeted draws nothing)
+FAULT_DRAWS = {
+    "dropout": lambda key, n: jax.random.uniform(key, (n,)),
+    "straggler_deadline": lambda key, n: jax.random.exponential(key, (n,)),
+    "targeted": lambda key, n: None,
+}
+
+
 def _replay(aggregator="fedtest", aggregator_kwargs=(),
             compressor="identity", participation=1.0, entering_state=False,
-            attack="random_weights", eval_resample_every=0, round_idx=0):
+            attack="random_weights", eval_resample_every=0, round_idx=0,
+            fed_extra=None, convert=None):
     """One round of the quickstart-sized config in both packages, the
     port replaying the reference's draws. ``entering_state`` starts the
     round from non-zero scores (the malicious client's lowest) and, with
@@ -403,7 +413,12 @@ def _replay(aggregator="fedtest", aggregator_kwargs=(),
     and handed to both packages. ``round_idx`` is the round played; with
     ``eval_resample_every`` the testers' eval rows are the reference's
     schedule-keyed draw for that round, replayed through
-    ``RoundDraws.eval_idx``."""
+    ``RoundDraws.eval_idx``. ``fed_extra`` adds FedConfig fields to both
+    (a fault's, the liars' and a coalition's draws are replayed too).
+    ``convert(jtrainer, ttrainer, jstate, jdata)`` replaces the entering
+    state:
+    it returns the reference's and the port's (for a checkpoint
+    converted from the reference)."""
     kw = dict(num_samples=3000, global_test=400, seed=0)
     jdata = jmake_data(J_MNIST, N, **kw)
     tdata = make_federated_image_dataset(MNIST_LIKE, N, device="cpu", **kw)
@@ -412,7 +427,8 @@ def _replay(aggregator="fedtest", aggregator_kwargs=(),
     fed = dict(num_users=N, num_testers=K, num_malicious=1,
                local_steps=STEPS, attack=attack,
                aggregator=aggregator, aggregator_kwargs=aggregator_kwargs,
-               compressor=compressor, participation=participation)
+               compressor=compressor, participation=participation,
+               **(fed_extra or {}))
     tc = dict(optimizer="sgd", lr=0.1, schedule="constant",
               batch_size=BATCH, grad_clip=0.0)
     jtrainer = JTrainer(jmodel, JFedConfig(**fed),
@@ -474,16 +490,25 @@ def _replay(aggregator="fedtest", aggregator_kwargs=(),
             comp_state=comp)
         leaves = jax.tree_util.tree_leaves(state.global_params)
         noise = {c: _client_noise(keys.attack, c, leaves) for c in malicious}
+        fault_draws = (FAULT_DRAWS[fed["fault"]](keys.fault, N)
+                       if fed.get("fault", "none") != "none" else None)
+        lies = (jax.random.uniform(keys.lie, (K, N))
+                if fed.get("lying_testers") else None)
         return (out, rec.acc, rec.models, rec.server_acc, tester_ids,
                 part_mask, batch_idx, eval_idx, tx, noise,
-                jselect(keys.test, N, K, 0))
+                jselect(keys.test, N, K, state.round_idx), fault_draws, lies)
 
+    tstate = None
+    if convert is not None:
+        jstate, tstate = convert(jtrainer, ttrainer, jstate, jdata)
     ((jglobal, jscores, jcomp, jmetrics), jacc, jmodels, jserver, tester_ids,
-     part_mask, batch_idx, eval_idx, jtx, noise, selected) = jround(
+     part_mask, batch_idx, eval_idx, jtx, noise, selected, fault_draws,
+     lies) = jround(
         jstate, None if comp_state is None else jnp.asarray(comp_state))
-    # the selector's ids are select_testers' on the round's test key
-    np.testing.assert_array_equal(np.asarray(tester_ids),
-                                  np.asarray(selected))
+    if "selector" not in fed:
+        # the selector's ids are select_testers' on the round's test key
+        np.testing.assert_array_equal(np.asarray(tester_ids),
+                                      np.asarray(selected))
 
     # the same draws and entering state, in the port's form
     noise = {c: [_t(z) for z in zs] for c, zs in noise.items()}
@@ -491,15 +516,20 @@ def _replay(aggregator="fedtest", aggregator_kwargs=(),
                        tester_ids=_t(tester_ids), part_mask=_t(part_mask),
                        noise=noise,
                        eval_idx=(None if eval_idx is None
-                                 else _t(eval_idx).long()))
-    tparams = params_from_reference(
-        jax.tree_util.tree_map(np.asarray, jstate.global_params), "cpu",
-        model=tmodel)
-    tstate = RoundState(
-        global_params=tparams, scores=scores, round_idx=round_idx,
-        gen=torch.Generator(),
-        comp_state=(None if comp_state is None else comp_state_from_reference(
-            comp_state, "cpu", model=tmodel, num_users=N)))
+                                 else _t(eval_idx).long()),
+                       fault_draws=(None if fault_draws is None
+                                    else _t(fault_draws)),
+                       lies=None if lies is None else _t(lies))
+    if tstate is None:
+        tparams = params_from_reference(
+            jax.tree_util.tree_map(np.asarray, jstate.global_params), "cpu",
+            model=tmodel)
+        tstate = RoundState(
+            global_params=tparams, scores=scores, round_idx=round_idx,
+            gen=torch.Generator(),
+            comp_state=(None if comp_state is None
+                        else comp_state_from_reference(
+                            comp_state, "cpu", model=tmodel, num_users=N)))
     ttrainer.backend = _Recorder(ttrainer.backend)
     tnew, tmetrics = ttrainer.run_round(tstate, tdata, draws=draws)
     return dict(jmodel=jmodel, jacc=jacc, jmodels=jmodels, jdata=jdata,
@@ -794,9 +824,14 @@ def test_reference_fedconfig_maps_over_field_for_field():
     assert port["compressor_kwargs"] == (("chunk", 64),)
     assert port["server_test_fraction"] == 0.2
     assert port["crosstest_impl"] == "reference"
-    with pytest.raises(ValueError, match="item 11"):
-        _port_fed_config(JFedConfig(coalition="mutual_boost",
-                                    coalition_size=2))
+    # the adversary surface maps over too; only a cohort is refused
+    ref = JFedConfig(coalition="mutual_boost", coalition_size=2,
+                     coalition_kwargs={"boost_to": 0.9}, fault="dropout",
+                     fault_rate=0.3, lying_testers=1)
+    assert dataclasses.asdict(_port_fed_config(ref)) == \
+        dataclasses.asdict(ref)
+    with pytest.raises(ValueError, match="item 14"):
+        _port_fed_config(JFedConfig(cohort=3, participation=0.5))
 
 
 def test_comp_state_from_reference_checks_width_and_values():
@@ -817,14 +852,15 @@ def test_comp_state_from_reference_checks_width_and_values():
         comp_state_from_reference(buf, "cpu", model=model, num_users=3)
 
 
-@pytest.mark.parametrize("kw", [dict(coalition_kwargs={"boost_to": 0.9}),
-                                dict(fault_rate=0.3),
-                                dict(fault_kwargs={"deadline": 2.0})])
+@pytest.mark.parametrize("kw", [dict(cohort=3, participation=0.5),
+                                dict(cohort=1, participation=0.1),
+                                dict(cohort=20)])
 def test_reference_fedconfig_with_an_unported_field_is_refused(kw):
-    with pytest.raises(ValueError, match=next(iter(kw))):
+    """Every reference field is a port field now; a cohort (the
+    population tier) is the one value the port refuses."""
+    JFedConfig(**kw)
+    with pytest.raises(ValueError, match="cohort.*item 14"):
         _port_fed_config(JFedConfig(**kw))
-    with pytest.raises(TypeError):
-        FedConfig(**kw)
 
 
 def test_default_device_raises_without_a_card(small_setup, monkeypatch):
@@ -849,12 +885,12 @@ def test_resolve_device_makes_cudnn_deterministic(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(coalition="mutual_boost", coalition_size=1), "item 11"),
-    (dict(lying_testers=1), "item 11"),
-    (dict(fault="dropout"), "item 10"),
+    (dict(coalition="mutual_boost"), "needs members"),
+    (dict(coalition_size=1), "name the coalition"),
+    (dict(fault_rate=1.0), "fault_rate"),
     (dict(compressor="no_such_thing"), "unknown compressor"),
     (dict(cohort=3, participation=0.5), "item 14"),
-    (dict(attack="scaled_collusion"), "item 11"),
+    (dict(coalition="sybil_split", coalition_size=6), "coalition_size < N"),
     (dict(attack="no_such_thing"), "unknown attack"),
     (dict(selector="no_such_thing"), "unknown selector"),
     (dict(aggregator="no_such_thing"), "unknown aggregator"),

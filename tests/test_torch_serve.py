@@ -258,8 +258,9 @@ def test_serve_cli_runs_on_cpu_and_refuses_what_is_not_ported(monkeypatch):
                           "--prompt-len", "8", "--gen", "3"])
     assert res["tokens"].shape == (2, 3)
     assert res["cache"]["length"].tolist() == [10, 10]
-    with pytest.raises(SystemExit):
-        serve_mod.parse_args(["--ckpt-dir", "somewhere"])
+    with pytest.raises(SystemExit, match="no serving path"):
+        serve_mod.build(serve_mod.parse_args(["--device", "cpu",
+                                              "--arch", "fedtest-cnn"]))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):
         serve_mod.build(serve_mod.parse_args(["--smoke"]))

@@ -51,7 +51,7 @@ from repro_torch.data import (  # noqa: E402
 from repro_torch.eval import classify_accuracy, evaluate_classifier  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.strategies import (  # noqa: E402
-    AGGREGATORS, ATTACKS, COMPRESSORS, SELECTORS)
+    AGGREGATORS, ATTACKS, COALITIONS, COMPRESSORS, FAULTS, SELECTORS)
 from repro_torch.strategies.base import AttackContext  # noqa: E402
 from repro_torch.strategies.selectors import (  # noqa: E402
     coverage_ids, score_weighted_ids)
@@ -486,18 +486,21 @@ README_NAMES = {
                     "trimmed_mean", "median", "trimmed_mean_coord",
                     "median_coord", "uniform"),
     "ATTACKS": ("none", "random_weights", "sign_flip", "label_flip_proxy",
-                "scaled_update", "adaptive_scale"),
+                "scaled_update", "adaptive_scale", "scaled_collusion"),
     "SELECTORS": ("rotating", "uniform", "round_robin", "coverage",
                   "score_weighted", "fixed"),
+    "COALITIONS": ("none", "mutual_boost", "sybil_split", "full_collusion"),
+    "FAULTS": ("none", "dropout", "straggler_deadline", "targeted"),
     "COMPRESSORS": ("identity", "topk", "int8", "lowrank"),
 }
 PORT_REGISTRIES = dict(AGGREGATORS=AGGREGATORS, ATTACKS=ATTACKS,
-                       SELECTORS=SELECTORS, COMPRESSORS=COMPRESSORS)
+                       SELECTORS=SELECTORS, COALITIONS=COALITIONS,
+                       FAULTS=FAULTS, COMPRESSORS=COMPRESSORS)
 
 
 def test_readme_registry_table_lists_these_names():
-    """The table's names, less ``scaled_collusion`` and the coalitions
-    (ROADMAP.md queue 1 item 11), are the ones the next test resolves."""
+    """The table's names are the ones the next test resolves, in both
+    packages."""
     rows = {}
     for line in open(os.path.join(ROOT, "README.md")):
         cells = [c.strip() for c in line.split("|")]
@@ -506,7 +509,7 @@ def test_readme_registry_table_lists_these_names():
                 n.strip("` ") for n in cells[2].replace("/", ",").split(","))
     assert set(rows) == set(README_NAMES)
     for reg, names in README_NAMES.items():
-        assert rows[reg] - {"scaled_collusion"} == set(names), reg
+        assert rows[reg] == set(names), reg
 
 
 @pytest.mark.parametrize("registry,name", [
@@ -519,9 +522,21 @@ def test_registry_name_resolves_in_both_packages(registry, name):
     kw = {"num_users": 6, "num_testers": 2, "num_malicious": 1}
     if field == "selector" and name == "fixed":
         kw["selector_kwargs"] = {"indices": (0, 1)}
+    if field == "coalition" and name != "none":
+        kw["coalition_size"] = 2
     fed = FedConfig(**kw, **{field: name})
     assert getattr(fed, field) == name
-    if field != "compressor":
+    if field == "coalition":
+        from repro.core.engine.program import resolve_coalition as jres
+        from repro_torch.core.engine import resolve_coalition
+        assert (type(resolve_coalition(fed)).__name__
+                == type(jres(JFedConfig(**kw, **{field: name}))).__name__)
+    elif field == "fault":
+        from repro.core.engine.program import resolve_fault as jres
+        from repro_torch.core.engine import resolve_fault
+        assert (type(resolve_fault(fed)).__name__
+                == type(jres(JFedConfig(**kw, **{field: name}))).__name__)
+    elif field != "compressor":
         agg, atk, sel = resolve_strategies(fed)
         jagg_, jatk, jsel = j_resolve(JFedConfig(**kw, **{field: name}))
         assert type(agg).__name__ == type(jagg_).__name__
@@ -605,12 +620,6 @@ def test_cli_runs_each_new_flag_on_the_cpu(tmp_path, flags, config):
     assert all(np.isfinite(hist["global_accuracy"]))
     for k, v in config.items():
         assert hist["config"][k] == v
-
-
-def test_cli_refuses_scaled_collusion_by_its_item():
-    from repro_torch.launch.train import build, parse_args
-    with pytest.raises(KeyError, match="item 11"):
-        build(parse_args(CLI + ["--attack", "scaled_collusion"]))
 
 
 def test_quickstart_twin_runs_on_the_cpu(capsys):
