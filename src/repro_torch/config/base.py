@@ -6,9 +6,9 @@ and the attention-free Mamba2 ``ssm`` stack. The other LM families are
 refused with the ``ROADMAP.md`` item that ports them. ``FedConfig`` keeps
 every field of the reference's, with its names, defaults and checks
 (``server_test_fraction`` is read by nothing, in the reference too, and
-comes over inert). The one value the port does not run yet, a cohort
-(the population tier), is refused with the ``ROADMAP.md`` item that
-will port it.
+comes over inert). ``cohort`` > 0 is the population tier's slot capacity
+(``repro_torch.core.engine.population``), checked as the reference
+checks it.
 """
 from __future__ import annotations
 
@@ -193,13 +193,6 @@ def _freeze_kwargs(kw: Any) -> Tuple[Tuple[str, Any], ...]:
     return tuple(out)
 
 
-# FedConfig values the reference runs and the port does not yet, each with
-# the ROADMAP.md queue-1 item that ports it
-_NOT_PORTED = (
-    ("cohort", 0, "item 14 (population tier)"),
-)
-
-
 @dataclasses.dataclass(frozen=True)
 class FedConfig:
     """The paper's knobs (Sec. III, Algorithm 1), the reference's fields.
@@ -214,7 +207,9 @@ class FedConfig:
     (or ``size=`` / ``indices=`` in ``coalition_kwargs``), counted as
     malicious in union with the ``attack``'s set (DESIGN.md §7);
     ``lying_testers`` makes testers with id below it report uniform
-    draws (Sec. V-C)."""
+    draws (Sec. V-C). ``cohort`` is the population tier's per-round slot
+    capacity C (DESIGN.md §11): 0 is dense, and 0 < C < N needs
+    ``participation`` < 1 (about C/N)."""
 
     num_users: int = 20
     num_testers: int = 5
@@ -250,6 +245,16 @@ class FedConfig:
 
     def __post_init__(self) -> None:
         _require(0 < self.num_testers <= self.num_users, "need 0 < K <= N")
+        _require(0 <= self.cohort <= self.num_users,
+                 f"cohort={self.cohort} must be in [0, "
+                 f"num_users={self.num_users}] (C > N gathers clients "
+                 "that do not exist)")
+        if 0 < self.cohort < self.num_users:
+            _require(self.participation < 1.0,
+                     "cohort < num_users requires participation < 1.0 "
+                     "(with everyone sampled, cohort truncation would "
+                     "bias toward low client indices); set "
+                     "participation ≈ cohort/num_users")
         _require(self.num_malicious < self.num_users, "M < N")
         _require(self.coalition_size < self.num_users, "coalition_size < N")
         _require(0.0 <= self.fault_rate < 1.0, "fault_rate in [0, 1)")
@@ -258,11 +263,6 @@ class FedConfig:
         _require(self.crosstest_impl in ("batched", "reference"),
                  f"crosstest_impl must be 'batched'|'reference', "
                  f"got {self.crosstest_impl!r}")
-        for field, default, item in _NOT_PORTED:
-            _require(getattr(self, field) == default,
-                     f"{field}={getattr(self, field)!r} is not ported yet "
-                     f"(ROADMAP.md queue 1 {item}); the port runs "
-                     f"{field}={default!r}")
         for f in ("aggregator_kwargs", "attack_kwargs", "selector_kwargs",
                   "coalition_kwargs", "fault_kwargs", "compressor_kwargs"):
             object.__setattr__(self, f, _freeze_kwargs(getattr(self, f)))

@@ -3,9 +3,8 @@ the reference's presets, each a full :class:`FedConfig` of the port.
 ``--scenario`` in ``repro_torch.launch.train`` resolves them by name, and
 flags passed on the command line override single fields.
 :func:`scenario_for_pod` refits a preset's client-count-dependent fields
-to a smaller federation. The reference's ``scenario_for_population``,
-which sets a cohort, waits for the population tier (ROADMAP.md queue 1
-item 14).
+to another federation size, and :func:`scenario_for_population` refits it
+onto the population tier (a cohort of C clients sampled from N).
 """
 from __future__ import annotations
 
@@ -138,11 +137,12 @@ def list_scenarios() -> List[str]:
 def scenario_for_pod(name: str, num_clients: int) -> FedConfig:
     """A named preset refit to ``num_clients`` clients, as the reference
     refits it for a pod of that many devices (a pure function of the
-    preset; the port's pod backends, ROADMAP.md queue 1 item 15, will use
-    it). Testers and attackers are clamped to stay valid. A coalition
-    refits by fraction (4 of 20 becomes 1 of 4, 2 of 8), floored at one
-    member, and drags a paired attack of the same size along; every other
-    field carries over (DESIGN.md §7)."""
+    preset; :func:`scenario_for_population` refits through it, and the
+    port's pod backends, ROADMAP.md queue 1 item 15, will use it).
+    Testers and attackers are clamped to stay valid. A coalition refits by
+    fraction (4 of 20 becomes 1 of 4, 2 of 8), floored at one member, and
+    drags a paired attack of the same size along; every other field
+    carries over (DESIGN.md §7)."""
     fed = get_scenario(name)
     num_mal = min(fed.num_malicious, max(num_clients - 1, 0))
     coal = 0
@@ -172,3 +172,24 @@ def scenario_for_pod(name: str, num_clients: int) -> FedConfig:
         # name with the members or FedConfig rejects the vacuous config
         coalition=fed.coalition if coal else "none",
         coalition_kwargs=ckw, coalition_size=coal)
+
+
+def scenario_for_population(name: str, population: int, cohort: int
+                            ) -> FedConfig:
+    """A named preset refit onto the population tier (DESIGN.md §11):
+    :func:`scenario_for_pod`'s refit to ``population`` clients, then the
+    cohort capacity, with the Bernoulli sampling rate replaced by
+    ``cohort / population`` so that the expected cohort fills the buffer
+    (a preset's own partial participation is replaced, not composed: on
+    this tier the rate is the cohort budget). Raises when ``cohort`` is
+    outside ``[1, population]``."""
+    if not 1 <= cohort <= population:
+        raise ValueError(
+            f"cohort={cohort} must be in [1, population={population}] — "
+            "a cohort larger than the population gathers clients that "
+            "do not exist")
+    fed = scenario_for_pod(name, population)
+    if cohort < population:
+        return dataclasses.replace(fed, cohort=cohort,
+                                   participation=cohort / population)
+    return dataclasses.replace(fed, cohort=cohort)

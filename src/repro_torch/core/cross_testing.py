@@ -11,7 +11,10 @@ data: the ``[K, N]`` accuracy matrix.
 * :func:`cross_test_reference` — one eval per (tester, client) pair, the
   oracle the batched form is held against, bitwise;
 * :func:`cross_test_accuracies` — dispatch by name between the two
-  (``FedConfig.crosstest_impl``).
+  (``FedConfig.crosstest_impl``);
+* :func:`cross_test_tiled` — the population tier's: the matrix in
+  ``[K, block]`` tiles over the model axis, so the live eval
+  activations scale with ``block``, not with the cohort.
 
 ``torch.argmax`` and ``jnp.argmax`` both return the first maximal index,
 so equal logits give equal predictions in both packages.
@@ -83,6 +86,28 @@ def cross_test_accuracies(eval_fn, stacked_params, tester_x, tester_y,
                                     tester_y)
     raise ValueError(f"crosstest_impl must be one of {CROSSTEST_IMPLS}, "
                      f"got {impl!r}")
+
+
+def cross_test_tiled(eval_fn, stacked_params, tester_x, tester_y, *,
+                     block: int = 0, impl: str = "batched") -> torch.Tensor:
+    """The accuracy matrix in ``[K, block]`` tiles over the model axis
+    (DESIGN.md §11): a Python loop over the blocks, the twin of the
+    reference's ``lax.map``. ``block <= 0`` or ``block >= C`` is the
+    untiled call. A ragged tail is wrap-padded with the leading rows and
+    sliced off, so padding is recomputed work that never reaches the
+    caller."""
+    c = tree_leaves(stacked_params)[0].shape[0]
+    if block <= 0 or block >= c:
+        return cross_test_accuracies(eval_fn, stacked_params, tester_x,
+                                     tester_y, impl=impl)
+    num_blocks = -(-c // block)
+    pad = num_blocks * block - c
+    padded = (tree_map(lambda t: torch.cat([t, t[:pad]]), stacked_params)
+              if pad else stacked_params)
+    tiles = [cross_test_accuracies(
+        eval_fn, tree_map(lambda t, lo=b * block: t[lo:lo + block], padded),
+        tester_x, tester_y, impl=impl) for b in range(num_blocks)]
+    return torch.cat(tiles, dim=1)[:, :c]
 
 
 # ------------------------------------------------------- eval-batch sampling

@@ -1,6 +1,8 @@
 """The FedTest round engine of the port (counterpart of
 ``repro.core.engine``): one :class:`RoundProgram` owning steps 1-7, the
-``local`` exchange backend, and the :class:`FederatedTrainer` driver."""
+``local`` exchange backend, the :class:`FederatedTrainer` driver, and
+the population tier (:class:`PopulationTrainer` on the cohort-gather
+:class:`PopulationBackend`)."""
 from repro_torch.core.engine.backends import LocalBackend
 from repro_torch.core.engine.driver import (
     FederatedTrainer, RoundState, StateDict, resolve_device)
@@ -9,10 +11,16 @@ from repro_torch.core.engine.program import (
     flat_update_dim, init_comp_state, participation_mask,
     renormalize_over_subset, resolve_coalition, resolve_compressor,
     resolve_fault, resolve_strategies)
+from repro_torch.core.engine.population import (
+    CohortModels, CohortPlan, PopulationBackend, PopulationTrainer,
+    client_noise,
+    cohort_from_mask, recruit_testers)
 
 __all__ = [
-    "FederatedTrainer", "LocalBackend", "RoundDraws", "RoundProgram",
-    "RoundState", "StateDict", "aggregator_defaults", "compose_fault_mask",
+    "CohortModels", "CohortPlan", "FederatedTrainer", "LocalBackend", "PopulationBackend",
+    "PopulationTrainer", "RoundDraws", "RoundProgram", "RoundState",
+    "StateDict", "aggregator_defaults", "client_noise", "cohort_from_mask",
+    "compose_fault_mask", "recruit_testers",
     "flat_update_dim", "init_comp_state", "participation_mask",
     "renormalize_over_subset", "resolve_coalition", "resolve_compressor",
     "resolve_device", "resolve_fault", "resolve_strategies",

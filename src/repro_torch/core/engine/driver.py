@@ -4,7 +4,9 @@
 :class:`FederatedTrainer` drives :class:`RoundProgram` on the
 :class:`LocalBackend`, one eager round per :meth:`run_round`. It runs on
 the card unless the caller passes ``device="cpu"``; asked for the card
-where there is none, it raises rather than carrying on on the CPU. The
+where there is none, it raises rather than carrying on on the CPU.
+``PopulationTrainer`` (``core/engine/population.py``) subclasses it for
+cohort rounds through :meth:`FederatedTrainer._make_backend`. The
 scanned multi-round driver (``rounds_per_call``, ROADMAP.md queue 1 item
 8) is not ported.
 
@@ -110,12 +112,16 @@ class FederatedTrainer:
     def __post_init__(self):
         self.device = resolve_device(self.device)
         self.program = RoundProgram(self.model, self.fed, self.train)
-        self.backend = LocalBackend(
-            self.fed.num_users, self.crosstest_impl or self.fed.crosstest_impl)
+        self.backend = self._make_backend(
+            self.crosstest_impl or self.fed.crosstest_impl)
         self.opt = self.program.opt
         self.aggregator = self.program.aggregator
         self.attack = self.program.attack
         self.selector = self.program.selector
+
+    def _make_backend(self, impl: str):
+        """The backend factory hook; the population tier overrides it."""
+        return LocalBackend(self.fed.num_users, impl)
 
     # ------------------------------------------------------------------ init
     def init(self, seed: Optional[int] = None) -> RoundState:

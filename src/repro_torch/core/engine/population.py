@@ -1,0 +1,358 @@
+"""Population tier: cohort-sampled rounds that never build an ``[N, D]``
+model stack (counterpart of ``repro/core/engine/population.py``,
+DESIGN.md §11).
+
+A FedTest round only computes on its sampled cohort, and every client
+outside it already has defined semantics: zero aggregation weight
+(``renormalize_over_subset``), a frozen score (the participation mask),
+a masked tester row, and a cross-test column equal to the global
+model's accuracy (a client that sends nothing is seen as the stale
+global copy, as ``mask_models`` makes it on the dense backend). So the
+round runs on a gathered ``[C, ...]`` model stack (:class:`CohortModels`)
+while the population state stays a dense ``[N]`` ``ScoreState``:
+
+* **gather**  — :func:`cohort_from_mask` turns the round's participation
+  mask into C slot indices; the training batches and the model stack are
+  gathered to ``[C]``, never broadcast to ``[N]``;
+* **compute** — the unchanged :class:`RoundProgram` drives
+  :class:`PopulationBackend`: vmapped local training and the attack over
+  ``[C]``, cross-testing in ``[K, block]`` tiles
+  (:func:`~repro_torch.core.cross_testing.cross_test_tiled`), and the
+  ``weighted_aggregate`` kernel over the cohort stack (every other
+  summand of the population's sum has weight exactly 0);
+* **scatter** — the cohort's columns go into a ``[K, N]`` matrix of the
+  global model's accuracies and its losses into zeros, rebuilding the
+  arrays the program scores.
+
+The port holds this tier to its own dense engine: discrete outputs
+exactly, floats to the last bits (a vmap over C rows and one over N may
+round differently). The reference's ``mesh`` sharding of the cohort axis
+is not ported (ROADMAP.md queue 1 item 15).
+
+The sentinel N marks an unfilled slot. torch has no ``mode="drop"``
+scatter, and an out-of-range index is a device-side assert on the card,
+so no tensor is ever indexed with it: gathers clamp it to N - 1 and
+scatters write the filled slots only.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, NamedTuple, Tuple
+
+import torch
+from torch.func import vmap
+
+from repro_torch.core.cross_testing import CROSSTEST_IMPLS, cross_test_tiled
+from repro_torch.core.engine.backends import _flatten_updates
+from repro_torch.core.engine.driver import FederatedTrainer, RoundState
+from repro_torch.core.engine.program import RoundDraws
+from repro_torch.data.pipeline import batch_indices_from_uniforms
+from repro_torch.kernels.weighted_aggregate import aggregate_pytree
+from repro_torch.utils import (
+    derived_seed, tree_add_vector, tree_leaves, tree_map)
+
+# the attack-noise stream's constant: a malicious cohort member's noise is
+# drawn from (run seed, NOISE_STREAM, round, client) alone
+NOISE_STREAM = 12
+
+
+def cohort_from_mask(part_mask: torch.Tensor, capacity: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The round's participation mask ``[N]`` -> its cohort plan
+    ``(idx, valid, eff_mask)``:
+
+    * ``idx [capacity]`` int64 — the sampled clients in ascending order,
+      padded with the sentinel N;
+    * ``valid [capacity]`` f32 — 1 where the slot holds a client;
+    * ``eff_mask [N]`` — the mask the round honours: a draw that
+      oversubscribes the buffer keeps its first ``capacity`` clients in
+      index order and the rest revert to non-sampled; a draw that fits is
+      ``part_mask`` itself, bitwise."""
+    n = part_mask.shape[0]
+    ids = torch.where(part_mask > 0,
+                      torch.arange(n, device=part_mask.device),
+                      torch.full((), n, device=part_mask.device))
+    idx = torch.sort(ids).values[:capacity]
+    valid = (idx < n).to(torch.float32)
+    kept = (torch.cumsum(part_mask, 0) <= capacity).to(part_mask.dtype)
+    return idx, valid, part_mask * kept
+
+
+def recruit_testers(tester_ids: torch.Tensor, idx: torch.Tensor,
+                    count: int, num_users: int) -> torch.Tensor:
+    """``testers_from_cohort``: the selector's ``[K]`` ids remapped onto
+    the cohort, ``idx[id mod count]`` (``count`` filled slots, at least
+    1), clamped below N as the reference clamps them; int32."""
+    slot = tester_ids.long() % max(count, 1)
+    return torch.clamp(idx[slot], max=num_users - 1).to(torch.int32)
+
+
+def client_noise(seed: int, round_idx: int, client: int, leaves):
+    """``random_weights``' draws for one client in one round: a standard
+    normal like each of ``leaves``, from a generator seeded from
+    ``(seed, NOISE_STREAM, round_idx, client)`` alone, so a client's noise
+    is the same whichever other clients are sampled."""
+    dev = leaves[0].device
+    gen = torch.Generator(device=dev).manual_seed(
+        derived_seed(seed, NOISE_STREAM, round_idx, client))
+    return [torch.randn(leaf.shape, generator=gen, device=dev)
+            for leaf in leaves]
+
+
+class CohortPlan(NamedTuple):
+    """The round's cohort, drawn once (``PopulationTrainer.draw``) and
+    carried in ``RoundDraws.cohort``: ``idx`` maps slots to clients
+    (sentinel N: unfilled), ``valid`` flags the filled slots, and ``ids``
+    are the filled slots' clients as host ints."""
+
+    idx: torch.Tensor          # [C] int64 (N: unfilled)
+    valid: torch.Tensor        # [C] f32 1/0
+    ids: Tuple[int, ...]       # clients of the filled slots, ascending
+
+
+class CohortModels(NamedTuple):
+    """The population tier's model handle: a ``[C]`` gathered stack, the
+    round's :class:`CohortPlan`, and the round's global model (what every
+    column outside the cohort reports)."""
+
+    stack: Any                 # param tree, leaves [C, ...]
+    plan: CohortPlan
+    global_ref: Any            # the unstacked global params
+
+
+class PopulationBackend:
+    """Cohort-gather exchange: compute on ``[C]``, report as ``[N]`` and
+    ``[K, N]``. ``tx, ty`` arrive gathered to the K testers' rows (the
+    population tier holds no ``[N, eval_batch]`` test stack), which is why
+    :meth:`cross_test` ignores ``tester_ids``."""
+
+    name = "population"
+
+    def __init__(self, num_users: int, capacity: int,
+                 crosstest_impl: str = "batched", *, block: int = 0):
+        if crosstest_impl not in CROSSTEST_IMPLS:
+            raise ValueError(f"crosstest_impl must be one of "
+                             f"{CROSSTEST_IMPLS}, got {crosstest_impl!r}")
+        if not 1 <= capacity <= num_users:
+            raise ValueError(
+                f"cohort capacity must be in [1, num_users={num_users}], "
+                f"got {capacity}")
+        self.num_users = num_users
+        self.capacity = capacity
+        self.crosstest_impl = crosstest_impl
+        self.block = block
+
+    def _safe_idx(self, plan: CohortPlan) -> torch.Tensor:
+        # sentinel slots gather client N - 1; their results never escape
+        # (zero weight, unwritten scatters)
+        return plan.idx.clamp(max=self.num_users - 1)
+
+    def _cohort_weights(self, plan: CohortPlan, weights: torch.Tensor):
+        """The ``[N]`` weights gathered to the slots; ``valid`` zeroes the
+        sentinel slots, whose gathered weight is client N - 1's."""
+        return weights[self._safe_idx(plan)] * plan.valid
+
+    @staticmethod
+    def _scatter(base: torch.Tensor, plan: CohortPlan,
+                 values: torch.Tensor) -> torch.Tensor:
+        """``base`` with the filled slots' ``values`` written at their
+        clients along the last axis."""
+        count = len(plan.ids)
+        return base.index_copy(base.dim() - 1, plan.idx[:count],
+                               values[..., :count].to(base.dtype))
+
+    # ------------------------------------------------------ backend protocol
+    def train(self, local_train, global_params, bx, by):
+        """Broadcast to the C slots + local phase. ``bx`` packs the cohort
+        plan with the gathered batches: ``(plan, x)``."""
+        plan, cx = bx
+        stack = tree_map(
+            lambda x: x[None].expand((self.capacity,) + x.shape),
+            global_params)
+        stack, loss = vmap(local_train)(stack, cx, by)
+        models = CohortModels(stack, plan, global_params)
+        # clients outside the cohort report 0; the program's loss metric
+        # masks them out
+        losses = self._scatter(
+            torch.zeros((self.num_users,), dtype=loss.dtype,
+                        device=loss.device), plan, loss)
+        return models, losses
+
+    def apply_attack(self, attack, noise, models, global_params, actx):
+        """Step 3 on the filled slots, each corrupted as its client."""
+        stack = attack.apply(noise, models.stack, global_params, actx,
+                             client_ids=models.plan.ids)
+        return models._replace(stack=stack)
+
+    def mask_models(self, models, global_params, part_mask):
+        my_part = part_mask[self._safe_idx(models.plan)]
+        stack = tree_map(
+            lambda t, g: torch.where(
+                my_part.reshape((-1,) + (1,) * (t.dim() - 1)) > 0,
+                t, g[None].to(t.dtype)),
+            models.stack, global_params)
+        return models._replace(stack=stack)
+
+    def cross_test(self, eval_fn, models, tx, ty, tester_ids):
+        """Step 4: the ``[K, N]`` matrix. A column outside the cohort is
+        the tester's accuracy on the global model, the value the dense
+        backend measures on a masked slot."""
+        acc_c = cross_test_tiled(eval_fn, models.stack, tx, ty,
+                                 block=self.block,
+                                 impl=self.crosstest_impl)        # [K, C]
+        base = vmap(lambda x, y: eval_fn(models.global_ref, x, y))(tx, ty)
+        acc = base[:, None].expand(base.shape[0], self.num_users)
+        return self._scatter(acc, models.plan, acc_c)
+
+    def server_eval(self, eval_fn, models, sx, sy):
+        def run():
+            accs = vmap(lambda p: eval_fn(p, sx, sy))(models.stack)
+            base = eval_fn(models.global_ref, sx, sy)
+            return self._scatter(base.expand(self.num_users), models.plan,
+                                 accs)
+        return run
+
+    def updates(self, models, global_params):
+        raise NotImplementedError(
+            "the population tier refuses to build the [N, D] update "
+            "matrix: aggregators that need it (krum, trimmed_mean, median, "
+            "the coordinate-wise combine) are the replication wall this "
+            "tier exists to break. Use a score-weighted aggregator "
+            "(fedtest, fedavg, ...) or the dense engine.")
+
+    def weighted_sum(self, models, weights, global_params):
+        """Step 7 over the cohort stack: ``weights`` is the ``[N]``
+        simplex, exactly 0 outside the (effective) cohort, so this is the
+        population's sum."""
+        return aggregate_pytree(models.stack,
+                                self._cohort_weights(models.plan, weights))
+
+    def compress_exchange(self, compressor, models, global_params,
+                          comp_state, part_mask):
+        """Step 3c on the cohort's rows. The ``[N, D]`` error feedback
+        stays population-dense (DESIGN.md §12): only the cohort's rows are
+        gathered, encoded and written back. The payloads go out tagged
+        with the plan, ``(plan, payloads)``, so that :meth:`compressed_sum`
+        can gather the ``[N]`` weights to their slots."""
+        plan = models.plan
+        safe = self._safe_idx(plan)
+        updates = _flatten_updates(models.stack, global_params)  # [C, D]
+        state_rows = comp_state[safe]
+        payloads, new_rows = compressor.encode(state_rows, updates)
+        decoded = compressor.decode(payloads)
+        eff = plan.valid * (part_mask[safe] if part_mask is not None
+                            else 1.0)
+        # masked and sentinel slots sent nothing: their rows stay and
+        # their decoded update is exactly 0
+        keep = (eff > 0)[:, None]
+        new_rows = torch.where(keep, new_rows, state_rows)
+        decoded = torch.where(keep, decoded, 0.0)
+        count = len(plan.ids)
+        new_state = comp_state.index_copy(0, plan.idx[:count],
+                                          new_rows[:count])
+        stack = tree_add_vector(global_params, decoded)
+        return (models._replace(stack=stack), (plan, payloads), decoded,
+                new_state)
+
+    def compressed_sum(self, compressor, payloads, decoded, weights):
+        plan, payloads = payloads
+        return compressor.aggregate(payloads, decoded,
+                                    self._cohort_weights(plan, weights))
+
+
+@dataclasses.dataclass
+class PopulationTrainer(FederatedTrainer):
+    """The single-device driver of the population tier (DESIGN.md §11).
+
+    A :class:`FederatedTrainer` whose round gathers the sampled cohort
+    before the program runs. It draws the dense engine's stream in the
+    same order (selector, participation, the ``[N, steps, batch]`` batch
+    uniforms, then faults and lies), so with a noise-free attack a small
+    run is the dense run; only the cohort's rows of the batch data are
+    read. Noise is drawn for the cohort's malicious members only, each
+    from :func:`client_noise`, never from the round's generator. The
+    round state is the dense :class:`RoundState`, so checkpoints,
+    manifests and bitwise resume are inherited.
+
+    ``fed.cohort`` (0: ``fed.num_users``) is the slot capacity C, which
+    ``FedConfig`` checks; ``crosstest_block`` tiles the tester eval in ``[K,
+    block]`` tiles; ``testers_from_cohort`` remaps the selector's tester
+    ids onto cohort members (slot = id mod the cohort's size), since at
+    C ≪ N a population-wide tester is almost never sampled and the
+    scores degenerate to zero. Data comes from a population provider
+    (:mod:`repro_torch.data.population`)."""
+
+    crosstest_block: int = 0
+    testers_from_cohort: bool = False
+
+    def __post_init__(self):
+        self.capacity = self.fed.cohort or self.fed.num_users
+        if self.eval_resample_every:
+            raise ValueError(
+                "eval_resample_every is a dense-driver feature (it draws "
+                "[N, eval_batch] gather indices); the population tier "
+                "gathers tester rows directly")
+        super().__post_init__()
+        if self.program.needs_updates:
+            raise ValueError(
+                f"aggregator {self.program.aggregator.name!r} needs the "
+                "[N, D] update matrix — the population tier refuses it "
+                "(that matrix is the replication wall). Use a "
+                "score-weighted aggregator or the dense engine.")
+
+    def _make_backend(self, impl: str):
+        return PopulationBackend(self.fed.num_users, self.capacity, impl,
+                                 block=self.crosstest_block)
+
+    def draw(self, state: RoundState, data) -> RoundDraws:
+        """The round's draws: the dense engine's stream, the batch
+        uniforms gathered to the cohort's rows before any index is made,
+        and noise for the cohort's malicious members alone."""
+        fed, program = self.fed, self.program
+        n, gen = fed.num_users, state.gen
+        tester_ids, part_mask = program.draw_selection(
+            gen, state.round_idx, state.scores.scores)
+        idx, valid, eff_mask = cohort_from_mask(part_mask, self.capacity)
+        # the round's one read of the cohort plan to the host: the attack
+        # and the noise name their clients there. A CUDA graph of the
+        # round (ROADMAP.md queue 1 item 8) would have to move it
+        ids = tuple(i for i in idx.tolist() if i < n)
+        if self.testers_from_cohort:
+            tester_ids = recruit_testers(tester_ids, idx, len(ids), n)
+        safe = idx.clamp(max=n - 1)
+        u = torch.rand((n, fed.local_steps, self.train.batch_size),
+                       generator=gen, device=gen.device)
+        batch_idx = batch_indices_from_uniforms(u[safe],
+                                                data.train_counts[safe])
+        noise = None
+        if program.attack.needs_noise:
+            bad = program.attack.malicious_set(n)
+            leaves = tree_leaves(state.global_params)
+            noise = {c: client_noise(state.seed, state.round_idx, c, leaves)
+                     for c in ids if c in bad}
+        fault_draws, lies = program.draw_seams(gen)
+        return RoundDraws(batch_idx, tester_ids, eff_mask, noise,
+                          fault_draws=fault_draws, lies=lies,
+                          cohort=CohortPlan(idx, valid, ids))
+
+    def run_round(self, state: RoundState, data, draws=None):
+        """One round on the cohort; ``draws`` replaces the round's own
+        (its ``batch_idx`` the cohort's rows, its ``part_mask`` the
+        honoured mask, its ``cohort`` that mask's :class:`CohortPlan`)."""
+        if draws is None:
+            draws = self.draw(state, data)
+        plan = draws.cohort
+        cx, cy = data.cohort_train(plan.idx.clamp(max=self.fed.num_users - 1))
+        rows = torch.arange(self.capacity,
+                            device=plan.idx.device)[:, None, None]
+        bx, by = cx[rows, draws.batch_idx], cy[rows, draws.batch_idx]
+        tx, ty = data.tester_batches(draws.tester_ids, self.eval_batch)
+        new_global, new_scores, new_comp, metrics = self.program.run(
+            self.backend, state.global_params, state.scores,
+            bx=(plan, bx), by=by, tx=tx, ty=ty, draws=draws,
+            round_idx=state.round_idx, counts=data.train_counts,
+            server_data=data.server_batch(self.eval_batch),
+            comp_state=state.comp_state)
+        return state._replace(global_params=new_global, scores=new_scores,
+                              round_idx=state.round_idx + 1,
+                              comp_state=new_comp), metrics

@@ -54,11 +54,16 @@ from repro_torch.utils import flat_update_dim, tree_add_vector, tree_leaves
 class RoundDraws(NamedTuple):
     """Every random number one round consumes."""
 
-    batch_idx: torch.Tensor          # [N, steps, batch] int64 row indices
+    # [N, steps, batch] int64 row indices; the population tier's are the
+    # cohort's rows of the same draw, [C, steps, batch]
+    batch_idx: torch.Tensor
     tester_ids: torch.Tensor         # [K] int32
-    part_mask: torch.Tensor          # [N] f32, all ones at participation 1
+    # [N] f32, all ones at participation 1; the population tier's is the
+    # mask its cohort honours (cohort_from_mask's eff_mask)
+    part_mask: torch.Tensor
     # malicious client -> one standard normal per param leaf (tree_leaves
-    # order); None when the attack draws no noise
+    # order); None when the attack draws no noise. The population tier
+    # holds only its cohort's malicious members
     noise: Optional[Dict[int, List[torch.Tensor]]] = None
     # [N, eval_batch] int64 tester eval rows under eval resampling
     # (cross_testing.eval_batch_indices); None keeps the fixed prefix
@@ -68,6 +73,10 @@ class RoundDraws(NamedTuple):
     fault_draws: Optional[torch.Tensor] = None
     # [K, N] uniform reports of the lying testers; None without liars
     lies: Optional[torch.Tensor] = None
+    # the population tier's cohort (population.CohortPlan: its slots and
+    # their clients, derived from part_mask and read to the host once a
+    # round); None on the dense engine
+    cohort: Optional[Any] = None
 
 
 def participation_mask(gen: torch.Generator, num_users: int,
@@ -206,10 +215,11 @@ class RoundProgram:
         return params, torch.stack(losses).mean()
 
     # ------------------------------------------------------- round plumbing
-    def draw_round(self, gen: torch.Generator, counts: torch.Tensor,
-                   round_idx: int, global_params, scores=None) -> RoundDraws:
-        """The round's random numbers, drawn from ``gen`` on its device.
-        ``scores`` are the ``[N]`` scores entering the round."""
+    def draw_selection(self, gen: torch.Generator, round_idx: int,
+                       scores=None):
+        """The round's first draws: the ``[K]`` tester ids, then the
+        ``[N]`` participation mask (all ones at participation 1, drawing
+        nothing)."""
         fed = self.fed
         tester_ids = self.selector.select(gen, fed.num_users,
                                           fed.num_testers, round_idx,
@@ -219,8 +229,29 @@ class RoundProgram:
                                            fed.participation)
         else:
             part_mask = torch.ones((fed.num_users,), dtype=torch.float32,
-                                   device=counts.device)
-        batch_idx = sample_batch_indices(gen, counts, fed.local_steps,
+                                   device=gen.device)
+        return tester_ids, part_mask
+
+    def draw_seams(self, gen: torch.Generator):
+        """The round's last draws, ``(fault_draws, lies)``: the seams of
+        steps 2b and 5 draw after everything else, and only when they
+        are on."""
+        fed = self.fed
+        fault_draws = (self.fault.draw(gen, fed.num_users)
+                       if self.use_faults else None)
+        lies = (torch.rand((fed.num_testers, fed.num_users), generator=gen,
+                           device=gen.device)
+                if fed.lying_testers else None)
+        return fault_draws, lies
+
+    def draw_round(self, gen: torch.Generator, counts: torch.Tensor,
+                   round_idx: int, global_params, scores=None) -> RoundDraws:
+        """The round's random numbers, drawn from ``gen`` on its device.
+        ``scores`` are the ``[N]`` scores entering the round. The
+        population tier draws the same stream up to the noise
+        (``PopulationTrainer.draw``)."""
+        tester_ids, part_mask = self.draw_selection(gen, round_idx, scores)
+        batch_idx = sample_batch_indices(gen, counts, self.fed.local_steps,
                                          self.train_cfg.batch_size)
         noise = None
         if self.attack.needs_noise:
@@ -228,13 +259,7 @@ class RoundProgram:
                                      device=gen.device)
                          for leaf in tree_leaves(global_params)]
                      for c in self.malicious_idx}
-        # the seams of steps 2b and 5 draw after everything else, and only
-        # when they are on
-        fault_draws = (self.fault.draw(gen, fed.num_users)
-                       if self.use_faults else None)
-        lies = (torch.rand((fed.num_testers, fed.num_users), generator=gen,
-                           device=gen.device)
-                if fed.lying_testers else None)
+        fault_draws, lies = self.draw_seams(gen)
         return RoundDraws(batch_idx, tester_ids, part_mask, noise,
                           fault_draws=fault_draws, lies=lies)
 

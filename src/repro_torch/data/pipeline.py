@@ -5,7 +5,9 @@ one ``[N, local_steps, batch, ...]`` gather from the stacked client
 tensors. The gather indices are one of the round's random draws
 (:class:`~repro_torch.core.engine.program.RoundDraws`); this module only
 draws them (:func:`sample_batch_indices`) and applies them
-(:func:`gather_client_batches`).
+(:func:`gather_client_batches`). The population tier turns its gathered
+rows of the same uniforms into indices with
+:func:`batch_indices_from_uniforms`.
 """
 from __future__ import annotations
 
@@ -48,6 +50,14 @@ def sample_batch_indices(gen: torch.Generator, counts: torch.Tensor,
     the client's valid rows."""
     n = counts.shape[0]
     u = torch.rand((n, steps, batch), generator=gen, device=counts.device)
+    return batch_indices_from_uniforms(u, counts)
+
+
+def batch_indices_from_uniforms(u: torch.Tensor, counts: torch.Tensor
+                                ) -> torch.Tensor:
+    """``u [R, steps, batch]`` uniforms and the ``[R]`` counts of their
+    clients -> int64 row indices. Elementwise, so the rows of a cohort's
+    gathered uniforms give the rows the whole draw would."""
     idx = (u * counts[:, None, None]).to(torch.int64)
     return torch.minimum(idx, (counts.to(torch.int64) - 1)[:, None, None])
 

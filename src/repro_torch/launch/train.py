@@ -18,12 +18,17 @@ Runs the FedTest round on the card by default:
   PYTHONPATH=src python -m repro_torch.launch.train --ckpt-dir ckpt \\
       --resume --rounds 20
 
+  # the population tier (DESIGN.md §11): N clients, a cohort of C
+  # sampled a round (participation C/N), testers recruited from it
+  PYTHONPATH=src python -m repro_torch.launch.train --population 4096 \\
+      --cohort 32 --testers 8 --testers-from-cohort --rounds 12
+
 ``--device cpu`` runs on the CPU; ``--device cuda`` without a card
 raises. The flags are ``repro.launch.train``'s, with its defaults, less
-those of the parts not ported yet (``--population``, ``--cohort``,
-``--testers-from-cohort``: ROADMAP.md queue 1 item 14;
-``--rounds-per-call``: item 8; ``--dataset lm``: item 16), plus
-``--device`` and ``--participation``.
+those of the parts not ported yet (``--rounds-per-call``: ROADMAP.md
+queue 1 item 8; ``--dataset lm``: item 16), plus ``--device`` and
+``--participation``. ``--population`` runs ``PopulationTrainer`` over
+the dense dataset through ``DensePopulationData``.
 """
 from __future__ import annotations
 
@@ -37,11 +42,13 @@ import time
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.config import FedConfig, TrainConfig, reduce_for_smoke
 from repro_torch.configs import (
-    get_config, get_scenario, list_configs, list_scenarios)
+    get_config, get_scenario, list_configs, list_scenarios,
+    scenario_for_population)
 from repro_torch.core import CROSSTEST_IMPLS, FederatedTrainer
-from repro_torch.core.engine import resolve_device
+from repro_torch.core.engine import PopulationTrainer, resolve_device
 from repro_torch.data import (
-    CIFAR_LIKE, MNIST_LIKE, make_federated_image_dataset)
+    CIFAR_LIKE, MNIST_LIKE, DensePopulationData,
+    make_federated_image_dataset)
 from repro_torch.models import build_model
 from repro_torch.strategies import (
     AGGREGATORS, ATTACKS, COALITIONS, COMPRESSORS, FAULTS, SELECTORS)
@@ -70,6 +77,22 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="named FedConfig preset; flags passed explicitly "
                          "override its fields")
     ap.add_argument("--users", type=int, default=None)
+    ap.add_argument("--population", type=int, default=None,
+                    help="run the population tier (DESIGN.md §11) over "
+                         "this many clients: a round computes only on the "
+                         "sampled cohort (--cohort), scores stay dense "
+                         "[N]. Scenario presets are refit via "
+                         "scenario_for_population")
+    ap.add_argument("--cohort", type=int, default=None,
+                    help="cohort slot capacity C for --population "
+                         "(default: the whole population); the Bernoulli "
+                         "sampling rate is refit to C/N. Errors when "
+                         "C > N")
+    ap.add_argument("--testers-from-cohort", action="store_true",
+                    help="population tier: recruit the round's testing "
+                         "committee from the sampled cohort (at C << N a "
+                         "population-wide tester almost never "
+                         "participates and scoring degenerates)")
     ap.add_argument("--testers", type=int, default=None)
     ap.add_argument("--malicious", type=int, default=None)
     ap.add_argument("--attack", default=None, choices=list(ATTACKS.names()))
@@ -173,6 +196,29 @@ def fed_config(args: argparse.Namespace) -> FedConfig:
                   compressor_kwargs=args.compressor_kwargs,
                   crosstest_impl=args.crosstest_impl, seed=args.seed)
     passed = {f: v for f, v in passed.items() if v is not None}
+    if args.cohort is not None and args.population is None:
+        raise SystemExit("--cohort requires --population")
+    if args.population is not None:
+        # the population tier: N from --population, the sampling rate
+        # from the cohort budget
+        if args.users is not None:
+            raise SystemExit("--population replaces --users; pass one")
+        if args.eval_resample_every:
+            raise SystemExit("--eval-resample-every is a dense-driver "
+                             "feature; the population tier gathers "
+                             "tester rows directly")
+        cohort = args.cohort or args.population
+        if args.scenario:
+            # scenario_for_population refuses C > N and refits the
+            # coalition's members inside the population
+            fed = scenario_for_population(args.scenario, args.population,
+                                          cohort)
+            return dataclasses.replace(fed, **passed)
+        base = {**_FED_CLI_DEFAULTS, **passed,
+                "num_users": args.population, "cohort": cohort}
+        if cohort < args.population:
+            base["participation"] = cohort / args.population
+        return FedConfig(**base)
     if args.scenario:
         return dataclasses.replace(get_scenario(args.scenario), **passed)
     return FedConfig(**{**_FED_CLI_DEFAULTS, **passed})
@@ -181,7 +227,9 @@ def fed_config(args: argparse.Namespace) -> FedConfig:
 def build(args: argparse.Namespace):
     """(trainer, data, model config) for the parsed flags; the data keep
     the server's held-out split (``server_x`` / ``server_y``) that
-    ``accuracy_based`` evaluates on."""
+    ``accuracy_based`` evaluates on. With ``--population`` the trainer is
+    a ``PopulationTrainer`` and the data its ``DensePopulationData``
+    view."""
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.dataset == "mnist_like" and args.arch == "fedtest-cnn":
@@ -196,6 +244,11 @@ def build(args: argparse.Namespace):
     data = make_federated_image_dataset(spec, fed.num_users,
                                         num_samples=args.samples,
                                         seed=fed.seed, device=device)
+    if args.population is not None:
+        trainer = PopulationTrainer(
+            build_model(cfg), fed, tc, device=device,
+            testers_from_cohort=args.testers_from_cohort)
+        return trainer, DensePopulationData(data), cfg
     trainer = FederatedTrainer(build_model(cfg), fed, tc, device=device,
                                eval_resample_every=args.eval_resample_every)
     return trainer, data, cfg
@@ -255,6 +308,8 @@ def main(argv=None):
                          "users": fed.num_users,
                          "testers": fed.num_testers,
                          "malicious": fed.num_malicious,
+                         "cohort": fed.cohort,
+                         "testers_from_cohort": args.testers_from_cohort,
                          "resumed": bool(args.resume),
                          "device": str(trainer.device)}
     os.makedirs(args.out, exist_ok=True)

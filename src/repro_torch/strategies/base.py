@@ -248,22 +248,41 @@ class Attack:
         """
         raise NotImplementedError
 
-    def apply(self, noise, stacked_params, global_params, ctx=None):
+    def malicious_set(self, num_users: int) -> frozenset:
+        """:meth:`malicious_indices` as a set, built once for each N (a
+        population of 10⁵ holds tens of thousands of ids)."""
+        sets = self.__dict__.setdefault("_malicious_sets", {})
+        if num_users not in sets:
+            sets[num_users] = frozenset(self.malicious_indices(num_users))
+        return sets[num_users]
+
+    def apply(self, noise, stacked_params, global_params, ctx=None,
+              client_ids=None):
         """Swap corrupted models into the malicious slots of the stack.
-        ``noise`` maps a malicious client index to its draws."""
-        num_users = tree_leaves(stacked_params)[0].shape[0]
-        idx = self.malicious_indices(num_users)
-        if not idx:
+        ``noise`` maps a malicious client index to its draws.
+
+        ``client_ids`` (the population tier) names the client of each of
+        the stack's first ``len(client_ids)`` slots, in a population of
+        ``ctx.num_users``; None: slot c is client c, and N is the stack's
+        length."""
+        if client_ids is None:
+            num_users = tree_leaves(stacked_params)[0].shape[0]
+            slots = [(c, c) for c in self.malicious_indices(num_users)]
+        else:
+            bad_ids = self.malicious_set(ctx.num_users)
+            slots = [(s, c) for s, c in enumerate(client_ids)
+                     if c in bad_ids]
+        if not slots:
             return stacked_params
         bad = [self.corrupt(noise[c] if noise is not None else None,
-                            tree_map(lambda a, _c=c: a[_c], stacked_params),
+                            tree_map(lambda a, _s=s: a[_s], stacked_params),
                             global_params, ctx, c)
-               for c in idx]
+               for s, c in slots]
 
         def merge(stack, *bad_leaves):
             out = stack.clone()
-            for c, bl in zip(idx, bad_leaves):
-                out[c] = bl
+            for (s, _), bl in zip(slots, bad_leaves):
+                out[s] = bl
             return out
 
         return tree_map(merge, stacked_params, *bad)

@@ -97,6 +97,9 @@ class CoalitionAttack(Attack):
         self.num_users = int(num_users)
         self.needs_noise = base_attack.needs_noise
         union = self.malicious_indices(num_users)
+        # built once: corrupt() routes every client by membership
+        self._members = frozenset(coalition.members(self.num_users))
+        self._base_ids = base_attack.malicious_set(self.num_users)
         self.num_malicious = len(union)
         self.scale = base_attack.scale
         self.placement = base_attack.placement
@@ -108,12 +111,10 @@ class CoalitionAttack(Attack):
 
     def corrupt(self, key, trained, global_params, ctx=None,
                 client_idx=None):
-        n = self.num_users
-        if (self.coal_attack is not None
-                and client_idx in self.coalition.members(n)):
+        if self.coal_attack is not None and client_idx in self._members:
             return self.coal_attack.corrupt(key, trained, global_params,
                                             ctx, client_idx)
-        if client_idx in self.base.malicious_indices(n):
+        if client_idx in self._base_ids:
             return self.base.corrupt(key, trained, global_params, ctx,
                                      client_idx)
         return trained

@@ -824,14 +824,15 @@ def test_reference_fedconfig_maps_over_field_for_field():
     assert port["compressor_kwargs"] == (("chunk", 64),)
     assert port["server_test_fraction"] == 0.2
     assert port["crosstest_impl"] == "reference"
-    # the adversary surface maps over too; only a cohort is refused
+    # the adversary surface and a cohort map over too
     ref = JFedConfig(coalition="mutual_boost", coalition_size=2,
                      coalition_kwargs={"boost_to": 0.9}, fault="dropout",
                      fault_rate=0.3, lying_testers=1)
     assert dataclasses.asdict(_port_fed_config(ref)) == \
         dataclasses.asdict(ref)
-    with pytest.raises(ValueError, match="item 14"):
-        _port_fed_config(JFedConfig(cohort=3, participation=0.5))
+    ref = JFedConfig(cohort=3, participation=0.5)
+    assert dataclasses.asdict(_port_fed_config(ref)) == \
+        dataclasses.asdict(ref)
 
 
 def test_comp_state_from_reference_checks_width_and_values():
@@ -856,11 +857,13 @@ def test_comp_state_from_reference_checks_width_and_values():
                                 dict(cohort=1, participation=0.1),
                                 dict(cohort=20)])
 def test_reference_fedconfig_with_an_unported_field_is_refused(kw):
-    """Every reference field is a port field now; a cohort (the
-    population tier) is the one value the port refuses."""
-    JFedConfig(**kw)
-    with pytest.raises(ValueError, match="cohort.*item 14"):
-        _port_fed_config(JFedConfig(**kw))
+    """Every reference field is a port field, and every value maps over:
+    the port's FedConfig equals the reference's for these cohort kwargs
+    (the population tier's)."""
+    ref = JFedConfig(**kw)
+    assert dataclasses.asdict(_port_fed_config(ref)) == \
+        dataclasses.asdict(ref)
+    assert dataclasses.asdict(FedConfig(**kw)) == dataclasses.asdict(ref)
 
 
 def test_default_device_raises_without_a_card(small_setup, monkeypatch):
@@ -889,13 +892,16 @@ def test_resolve_device_makes_cudnn_deterministic(monkeypatch):
     (dict(coalition_size=1), "name the coalition"),
     (dict(fault_rate=1.0), "fault_rate"),
     (dict(compressor="no_such_thing"), "unknown compressor"),
-    (dict(cohort=3, participation=0.5), "item 14"),
+    (dict(cohort=7), "cohort=7 must be in"),
     (dict(coalition="sybil_split", coalition_size=6), "coalition_size < N"),
     (dict(attack="no_such_thing"), "unknown attack"),
     (dict(selector="no_such_thing"), "unknown selector"),
     (dict(aggregator="no_such_thing"), "unknown aggregator"),
+    (dict(cohort=3), "cohort < num_users requires participation < 1.0"),
 ])
 def test_fedconfig_refuses_what_is_not_ported(kw, match):
+    with pytest.raises((ValueError, KeyError), match=match):
+        JFedConfig(num_users=6, num_testers=2, **kw)
     with pytest.raises((ValueError, KeyError), match=match):
         FedConfig(num_users=6, num_testers=2, **kw)
 
