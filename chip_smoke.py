@@ -35,7 +35,9 @@ toolkit (``nvcc``), and exits non-zero on the first phase that fails.
    library yardstick (timed here only; the port never calls it).
    ``ssd_scan`` is timed at the Mamba2 serve path's shape and at one long
    shape; no single PyTorch call computes the scan, so it has no library
-   row.
+   row. Both are timed again at the shapes the LM round's cross-test
+   folds them to (phases L and M below; ``ssd_scan`` with ``[Bt, H]`` A
+   and D).
 4. Three paths, three rounds each, of the paper's FedTest round at the
    full width of ``fedtest-cnn`` (188,810 params; 20 users, 5 testers, 3
    ``random_weights`` attackers), built by ``repro_torch.launch.train``'s
@@ -72,7 +74,22 @@ toolkit (``nvcc``), and exits non-zero on the first phase that fails.
    round on the cohort's [32] stack and no other kernel, the testers
    from the cohort, at most 32 filled slots, the weights exactly 0 and
    the scores unchanged outside the cohort; each round's malicious
-   weight is printed. Then the CI job itself as
+   weight is printed. Then the LM round through the same launcher
+   (``--dataset lm``, the FedConfig and TrainConfig of
+   ``examples/federated_llm.py``: 4 users, 2 testers, 1
+   ``random_weights`` attacker, 8 AdamW steps of 16 sequences of 64
+   tokens), 3 rounds each: L, ``qwen2-0.5b`` at full width and depth
+   (494,032,768 params, bf16); M, ``mamba2-2.7b`` at its published
+   widths with 8 of its 64 layers (a ``reduced`` line says why). Local
+   training differentiates the kernels' plain-op twins and must launch
+   no kernel; a cross-test and the global eval must launch
+   ``flash_attention`` (L) or ``ssd_scan`` (M) once a layer, the vmap
+   rule folding testers x clients x eval rows into one batch; step 7
+   ``weighted_aggregate`` once a table (the bf16 leaves, the f32 ones);
+   no other kernel. The last cross-test's first folded launch must equal
+   its (tester, client) blocks launched one by one, bitwise, and the
+   plain version within the kernel checks' tolerances (in M each block
+   with its client's own A and D). Then the CI job itself as
    ``repro.launch.federated --population`` builds it (the CNN cut to
    (8, 16, 16) channels over a synthetic MNIST-like population, 12
    rounds): ``weighted_aggregate`` once a round and no other kernel, and
@@ -136,6 +153,7 @@ The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import gc
 import itertools
@@ -231,6 +249,21 @@ PATHS = (
     ("F", F_ARGS, "weighted_aggregate", ROUNDS),
     ("G", G_ARGS, "weighted_aggregate", CI_ROUNDS),
 )
+# the LM federated round (examples/federated_llm.py's FedConfig and
+# TrainConfig through the train CLI): L, qwen2-0.5b at full width and
+# depth; M, mamba2-2.7b at its published widths with M_LAYERS of its 64
+# layers (AdamW for 4 clients at full depth would not fit the card)
+LM_ROUNDS = 3
+LM_ARGS = ["--device", "cuda", "--dataset", "lm", "--users", "4",
+           "--testers", "2", "--malicious", "1", "--attack",
+           "random_weights", "--local-steps", "8", "--batch", "16",
+           "--optimizer", "adamw", "--lr", "2e-3", "--rounds",
+           str(LM_ROUNDS)]
+M_LAYERS = 8
+LM_PHASES = (("L", ["--arch", "qwen2-0.5b"] + LM_ARGS, "flash_attention",
+              None),
+             ("M", ["--arch", "mamba2-2.7b"] + LM_ARGS, "ssd_scan",
+              M_LAYERS))
 # the durability phase: path E unbroken for DURABLE_ROUNDS rounds, against
 # DURABLE_SPLIT rounds, a checkpoint, a new trainer restoring it and the
 # rest; then the CLI killed by SIGTERM after its first checkpoint and
@@ -799,6 +832,13 @@ def check_flash_attention(torch):
                                   and got.shape == q.shape,
                                   f"output {got.dtype} {tuple(got.shape)}")
                             _hold(torch, got, want, dtype, worst)
+    # a batch past the grid's 65,535 rows: two launches
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = _attn_inputs(torch, gen, (65_540, 3, 2, 32),
+                               (65_540, 3, 1, 32), dtype)
+        _hold(torch, flash_attention(q, k, v), attention_ref(q, k, v), dtype,
+              worst)
+        calls += 2
     check(flash_attention.launches == launches + calls,
           f"{flash_attention.launches - launches} launches for {calls} "
           f"calls")
@@ -816,7 +856,8 @@ def check_flash_attention(torch):
                                                    v), "a misaligned q")
     check(flash_attention.launches == launches + calls,
           "a refused input launches nothing")
-    print(f"flash_attention == plain version in {calls} cases (|err| <= "
+    print(f"flash_attention == plain version in {calls} launches, a batch "
+          f"of 65,540 rows in two of them (|err| <= "
           f"{ATTN_TOL['float32']['atol']} + {ATTN_TOL['float32']['rtol']}"
           f"|plain| in f32, <= {ATTN_TOL['bfloat16']['atol']} + "
           f"{ATTN_TOL['bfloat16']['rtol']}|plain| in bf16); max |err| "
@@ -979,6 +1020,32 @@ def check_ssd_scan(torch):
         check(y.shape == (Bt, S, H, P) and st.shape == (Bt, H, P, 128),
               f"outputs {tuple(y.shape)}, {tuple(st.shape)}")
         _hold_ssd(torch, (y, st), want, dtype, worst)
+    # A and D a row a batch row, as the vmap rule hands them on: each
+    # row equal to its own launch with its [H] A and D, bitwise
+    for dtype in (torch.float32, torch.bfloat16):
+        x, dt, A, B, C, D = _ssd_inputs(torch, gen, 3, 2 * 64 + 13, 80, 64,
+                                        1, 128, dtype, mamba_init=True,
+                                        strided=True)
+        A = (A[None] * torch.tensor([[0.5], [1.0], [2.0]],
+                                    device="cuda")).contiguous()
+        D = (D[None] + torch.arange(3, device="cuda")[:, None]).contiguous()
+        y, st = ssd_scan(x, dt, A, B, C, D, chunk=64)
+        _hold_ssd(torch, (y, st), ssd_ref(x, dt, A, B, C, D), dtype, worst)
+        calls += 1
+        for b in range(3):
+            yb, sb = ssd_scan(x[b:b + 1], dt[b:b + 1], A[b], B[b:b + 1],
+                              C[b:b + 1], D[b], chunk=64)
+            calls += 1
+            check(torch.equal(yb, y[b:b + 1]) and torch.equal(sb, st[b:b + 1]),
+                  f"ssd_scan {dtype}: row {b} with its [H] A, D == its row "
+                  "of the [Bt, H] call")
+    # a batch past the grid's 65,535 rows: two launches
+    x, dt, A, B, C, D = _ssd_inputs(torch, gen, 65_540, 3, 1, 32, 1, 16,
+                                    torch.float32, mamba_init=False,
+                                    strided=False)
+    _hold_ssd(torch, ssd_scan(x, dt, A, B, C, D, chunk=32),
+              ssd_ref(x, dt, A, B, C, D), torch.float32, worst)
+    calls += 2
     check(ssd_scan.launches == launches + calls,
           f"{ssd_scan.launches - launches} launches for {calls} calls")
     x, dt, A, B, C, D = _ssd_inputs(torch, gen, 1, 40, 4, 64, 2, 16,
@@ -1006,7 +1073,9 @@ def check_ssd_scan(torch):
           f"<= {SSD_TOL['float32']['atol']} + {SSD_TOL['float32']['rtol']}"
           f"|plain| in f32 and for the state, <= "
           f"{SSD_TOL['bfloat16']['atol']} + {SSD_TOL['bfloat16']['rtol']}"
-          f"|plain| for a bf16 y); max |err| {worst}; head dim 48, state 8, "
+          f"|plain| for a bf16 y), per-row A and D among them (each row "
+          f"== its own launch bitwise) and a batch of 65,540 rows in two "
+          f"launches; max |err| {worst}; head dim 48, state 8, "
           f"chunk 4096, a strided last dimension, H % G != 0, float16 and "
           f"a bf16 x off 16 bytes are refused without a launch")
 
@@ -1229,14 +1298,15 @@ def phase_attention_times(torch, peaks):
     return rows
 
 
-def ssd_work(Bt, S, H, P, G, N, chunk, itemsize):
+def ssd_work(Bt, S, H, P, G, N, chunk, itemsize, ad_rows=1):
     """(bytes, operations) of one scan: x and y, B, C (``itemsize`` bytes
-    each), dt and the final state (f32) moved once; per (b, h, chunk) of q
-    rows, the four products q (q + 1) (N + P) + 4 q P N: C B^T and its
-    product with x over the q (q + 1) / 2 pairs i >= j that the causal
-    decay keeps (the mask zeroes the rest), C h0^T and the state update."""
+    each), dt, the final state and ``ad_rows`` rows of A and D (f32)
+    moved once; per (b, h, chunk) of q rows, the four products q (q + 1)
+    (N + P) + 4 q P N: C B^T and its product with x over the q (q + 1) / 2
+    pairs i >= j that the causal decay keeps (the mask zeroes the rest),
+    C h0^T and the state update."""
     bytes_moved = (itemsize * (2 * Bt * S * H * P + 2 * Bt * S * G * N)
-                   + 4 * (Bt * S * H + Bt * H * P * N + 2 * H))
+                   + 4 * (Bt * S * H + Bt * H * P * N + 2 * ad_rows * H))
     rows = [min(chunk, S - c0) for c0 in range(0, S, chunk)]
     operations = Bt * H * sum(q * (q + 1) * (N + P) + 4 * q * P * N
                               for q in rows)
@@ -1282,6 +1352,74 @@ def phase_ssd_times(torch, peaks):
               f"{r['bound_ms']:.5f} ({r['bound_by']}), max |err| "
               f"{r['max_abs_err']:.3g}")
     return {"ssd_scan": rows}
+
+
+def phase_fold_times(torch, peaks, lm):
+    """The two LM kernels at the shapes the LM round's cross-test folds
+    them to (testers x clients x eval rows into the batch), bf16, beside
+    their plain versions and bounds as in ``phase_attention_times`` and
+    ``phase_ssd_times``: flash at phase L's folded batch (S = T = 64,
+    Hq=14, Hkv=2, D=64, causal) beside ``F.scaled_dot_product_attention``;
+    ``ssd_scan`` at phase M's (S=64, H=80, P=64, G=1, N=128, chunk 256:
+    one ragged chunk) with A and D a row a batch row, as the fold hands
+    them on, eight clients' values over the batch."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (
+        attention_ref, flash_attention)
+    from repro_torch.kernels.ssd_scan import ssd_ref, ssd_scan
+    hbm, bf16_peak = peaks[0], peaks[2]
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    B, S, Hq, D = lm["L"]["folded_shape"]
+    Hkv = 2
+
+    def make_attn():
+        return _attn_inputs(torch, gen, (B, S, Hq, D), (B, S, Hkv, D),
+                            torch.bfloat16)
+    q, k, v = make_attn()
+    err = float((flash_attention(q, k, v).float()
+                 - attention_ref(q, k, v).float()).abs().max())
+    flash = timing_row(
+        torch, "flash_attention", (B, S, S, Hq, Hkv, D), {
+            "kernel": flash_attention, "plain": attention_ref,
+            "library": lambda q, k, v: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True, enable_gqa=True)},
+        make_attn, err, 2 * (2 * q.numel() + k.numel() + v.numel()),
+        4 * D * Hq * B * (S * (S + 1) // 2), (hbm, bf16_peak),
+        iters={"kernel": 50, "plain": 5, "library": 50})
+    del q, k, v
+    Bt, S, H, P = lm["M"]["folded_shape"]
+    G, N, chunk, clients = 1, 128, 256, 8
+
+    def make_ssd():
+        x, dt, A, Bm, Cm, Dv = _ssd_inputs(
+            torch, gen, Bt, S, H, P, G, N, torch.bfloat16, mamba_init=True,
+            strided=False)
+        scale = 1 + 0.05 * torch.randn((clients, 1), generator=gen,
+                                       device="cuda")
+        rows = torch.arange(Bt, device="cuda") * clients // Bt
+        return (x, dt, (A * scale)[rows].contiguous(), Bm, Cm,
+                (Dv * scale)[rows].contiguous())
+    args = make_ssd()
+    y, st = ssd_scan(*args, chunk=chunk)
+    yr, sr = ssd_ref(*args)
+    err = max(float((y.float() - yr.float()).abs().max()),
+              float((st - sr).abs().max()))
+    del args, y, st, yr, sr
+    ssd = timing_row(
+        torch, "ssd_scan", (Bt, S, H, P, G, N), {
+            "kernel": lambda *a: ssd_scan(*a, chunk=chunk), "plain": ssd_ref},
+        make_ssd, err, *ssd_work(Bt, S, H, P, G, N, chunk, 2, ad_rows=Bt),
+        (hbm, bf16_peak), iters={"kernel": 20, "plain": 1})
+    for r in (flash, ssd):
+        print(f"{r['name']} folded {r['shape']}: device {r['kernel_ms']:.5f}"
+              f" ms (eager {r['kernel_eager_ms']:.5f}), plain "
+              f"{r['plain_ms']:.3f}, library "
+              f"{r.get('library_ms', float('nan')):.5f}, bound "
+              f"{r['bound_ms']:.5f} ({r['bound_by']}), max |err| "
+              f"{r['max_abs_err']:.3g}")
+    return {"flash_attention_fold": [flash], "ssd_scan_fold": [ssd]}
 
 
 def phase_path(torch, path, argv, op_name, rounds):
@@ -1483,6 +1621,249 @@ def phase_path(torch, path, argv, op_name, rounds):
     print(f"path {path}: last round's {op_name} output == plain version on "
           f"its own inputs (max |err| {worst:.3g})")
     return counts[op_name], walls, adversary_rows
+
+
+def lm_fold_check(torch, label, op_name, captured, testers, clients, rows):
+    """The first layer's folded launch of the last cross-test, held
+    against the K x N launches of its (tester, client) blocks, each
+    ``rows`` batch rows (every (batch row, head) is computed alone, so
+    they must be equal bitwise), and against the plain version within
+    ``ATTN_TOL`` / ``SSD_TOL``. For ``ssd_scan`` each block takes its
+    client's own ``[H]`` A and D (the folded launch read them a row a
+    batch row), and the clients' A must differ."""
+    from repro_torch.kernels.flash_attention import (
+        attention_ref, flash_attention)
+    from repro_torch.kernels.ssd_scan import ssd_ref, ssd_scan
+    args, out = captured
+    blocks = testers * clients
+    check(args[0].shape[0] == blocks * rows,
+          f"phase {label}: the folded batch is {args[0].shape[0]} rows, "
+          f"want {testers} x {clients} x {rows}")
+    with torch.no_grad():
+        if op_name == "flash_attention":
+            q, k, v, causal, window, scale, q_offset = args
+            kw = dict(causal=causal, sliding_window=window or None,
+                      scale=scale, q_offset=q_offset)
+            parts = [flash_attention(q[sl], k[sl], v[sl], **kw)
+                     for sl in (slice(i * rows, (i + 1) * rows)
+                                for i in range(blocks))]
+            check(torch.equal(torch.cat(parts), out),
+                  f"phase {label}: the folded flash launch == its "
+                  f"{blocks} block launches bitwise")
+            want = attention_ref(q, k, v, **kw)
+            torch.testing.assert_close(out.float(), want.float(),
+                                       **ATTN_TOL["bfloat16"])
+            err = float((out.float() - want.float()).abs().max())
+            shape = (tuple(q.shape), tuple(k.shape))
+        else:
+            x, dt, A, B, C, D, chunk = args
+            y, st = out
+            check(A.shape == (x.shape[0], x.shape[2]) == D.shape,
+                  f"phase {label}: A and D a row a folded batch row, got "
+                  f"{tuple(A.shape)}, {tuple(D.shape)}")
+            check(not torch.equal(A[0], A[rows]),
+                  f"phase {label}: the clients' A differ after training")
+            ys, sts = [], []
+            for i in range(blocks):
+                sl = slice(i * rows, (i + 1) * rows)
+                check(bool((A[sl] == A[sl][0]).all())
+                      and bool((D[sl] == D[sl][0]).all()),
+                      f"phase {label}: one client's A and D a block")
+                yb, sb = ssd_scan(x[sl], dt[sl], A[sl][0], B[sl], C[sl],
+                                  D[sl][0], chunk=chunk)
+                ys.append(yb)
+                sts.append(sb)
+            check(torch.equal(torch.cat(ys), y)
+                  and torch.equal(torch.cat(sts), st),
+                  f"phase {label}: the folded ssd_scan launch (per-row A, "
+                  f"D) == its {blocks} block launches ([H] A, D) bitwise")
+            yr, sr = ssd_ref(x, dt, A, B, C, D)
+            _hold_ssd(torch, (y, st), (yr, sr), x.dtype, {})
+            err = max(float((y.float() - yr.float()).abs().max()),
+                      float((st - sr).abs().max()))
+            shape = (tuple(x.shape), tuple(A.shape))
+    print(f"phase {label}: the first layer's folded {op_name} launch "
+          f"{shape} == its {blocks} (tester, client) launches bitwise and "
+          f"the plain version (max |err| {err:.3g})")
+    return err
+
+
+def phase_lm(torch, card, label, argv, op_name, num_layers=None):
+    """The LM federated round through the train launcher's code path
+    (``build(parse_args(argv))``, ``num_layers`` cutting the depth):
+    ``LM_ROUNDS`` rounds, each followed by the global accuracy. Every
+    kernel's count is set to 0 just before the rounds; read around each
+    step: local training launches nothing, a cross-test launches
+    ``op_name`` once a layer (the vmap rule folds K x N x rows into one
+    launch), so does the global eval, and step 7 launches
+    ``weighted_aggregate`` once a table (2 a round: the bf16 leaves and
+    the f32 ones); no other kernel runs. The last cross-test's first
+    folded launch is captured and checked (:func:`lm_fold_check`).
+    Returns the numbers printed."""
+    import repro_torch.kernels.flash_attention.ops as flash_ops
+    import repro_torch.kernels.ssd_scan.ops as ssd_ops
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.weighted_aggregate.ops import TABLE
+    from repro_torch.launch.train import build, parse_args
+    from repro_torch.models import build_model
+    from repro_torch.utils import tree_leaves
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    args = parse_args(argv)
+    trainer, data, cfg = build(args, num_layers=num_layers)
+    state = trainer.init()
+    torch.cuda.synchronize()
+    fed, model = trainer.fed, trainer.model
+    n_params = model.param_count(state.global_params)
+    full = get_config(args.arch)
+    check(n_params == model.param_count() and cfg.d_model == full.d_model
+          and cfg.vocab_size == full.vocab_size,
+          f"phase {label}: {cfg.name} at its published widths "
+          f"({n_params} params)")
+    if num_layers is not None:
+        full_params = build_model(full).param_count()
+        print(f"reduced: phase {label} runs {cfg.name} with {cfg.num_layers} "
+              f"of its {full.num_layers} layers ({n_params:,} of "
+              f"{full_params:,} params, widths unchanged): {fed.num_users} "
+              f"clients at 2 + 2 + 8 bytes a param (bf16 weights and "
+              f"gradients, AdamW's two f32 moments) take "
+              f"{full_params * fed.num_users * 12 / 1e9:.0f} GB at full "
+              f"depth, over the card's 80 GB")
+    print(f"phase {label}: {cfg.name} ({n_params:,} params, {cfg.num_layers}"
+          f" layers, d_model {cfg.d_model}, vocab {cfg.vocab_size}, "
+          f"{cfg.dtype}), {fed.num_users} users, {fed.num_testers} testers, "
+          f"malicious {list(trainer.attack.malicious_indices(fed.num_users))}"
+          f" ({fed.attack}), {fed.local_steps} steps of batch "
+          f"{trainer.train.batch_size}, {trainer.train.optimizer} at lr "
+          f"{trainer.train.lr}; train {tuple(data.train.xs.shape)}, eval "
+          f"rows {min(trainer.eval_batch, data.test.xs.shape[1])} a tester, "
+          f"global {tuple(data.global_x.shape)}; set-up "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    kernel_ops = ops()
+    step_ms, deltas = {}, {}
+
+    def counted(step, fn):
+        def run(*a):
+            torch.cuda.synchronize()
+            before = {n: op.launches for n, op in kernel_ops.items()}
+            t = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            step_ms[step] = (time.perf_counter() - t) * 1e3
+            deltas[step] = {n: op.launches - before[n]
+                            for n, op in kernel_ops.items()}
+            return out
+        return run
+
+    backend = trainer.backend
+    for step, method in (("train", "train"), ("cross_test", "cross_test"),
+                         ("aggregate", "weighted_sum")):
+        setattr(backend, method, counted(step, getattr(backend, method)))
+    global_eval = counted("global_eval", trainer.global_accuracy)
+
+    # the last round's cross-test: keep the first folded launch's inputs
+    # and output (the first layer's)
+    module = flash_ops if op_name == "flash_attention" else ssd_ops
+    launch, captured, armed = module._launch, [], [False]
+
+    def capturing(*a):
+        out = launch(*a)
+        if armed[0] and not captured:
+            captured.append((a, out))
+        return out
+    cross_test, testers = backend.cross_test, []
+
+    def arming(*a):
+        testers.append(a[4].tolist())
+        armed[0] = len(walls) == LM_ROUNDS - 1
+        try:
+            return cross_test(*a)
+        finally:
+            armed[0] = False
+    backend.cross_test = arming
+
+    # step 7: one grouped launch a table of up to TABLE leaves of a dtype
+    # (the bf16 weights, the f32 norm scales and Mamba2 dt_bias, A_log, D)
+    by_dtype = collections.Counter(
+        p.dtype for p in tree_leaves(state.global_params))
+    aggregates = sum(-(-n // TABLE) for n in by_dtype.values())
+    want_step = {"train": {}, "cross_test": {op_name: cfg.num_layers},
+                 "global_eval": {op_name: cfg.num_layers},
+                 "aggregate": {"weighted_aggregate": aggregates}}
+    walls, rows = [], []
+    torch.cuda.synchronize()
+    reset_counts(kernel_ops)
+    module._launch = capturing
+    try:
+        for _ in range(LM_ROUNDS):
+            step_ms.clear()
+            t = time.perf_counter()
+            state, metrics = trainer.run_round(state, data)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t) * 1e3)
+            acc = global_eval(state, data)
+            rest = walls[-1] - sum(v for k, v in step_ms.items()
+                                   if k != "global_eval")
+            w = metrics["weights"]
+            values = [float(metrics["local_loss"]),
+                      float(metrics["malicious_weight"]), acc]
+            check(all(math.isfinite(v) for v in values),
+                  f"phase {label}: finite loss, malicious weight, accuracy "
+                  f"{values}")
+            check(bool(torch.isfinite(w).all())
+                  and abs(float(w.sum()) - 1.0) < 1e-5,
+                  f"phase {label}: finite weights summing to 1: {w}")
+            check(all(bool(torch.isfinite(p).all())
+                      for p in tree_leaves(state.global_params)),
+                  f"phase {label}: finite global params")
+            check(len(set(testers[-1])) == fed.num_testers
+                  and all(0 <= i < fed.num_users for i in testers[-1]),
+                  f"phase {label}: {fed.num_testers} distinct testers, got "
+                  f"{testers[-1]}")
+            for step, want in want_step.items():
+                got = {n: c for n, c in deltas[step].items() if c}
+                check(got == want, f"phase {label} round "
+                      f"{state.round_idx}: {step} launched {got}, want "
+                      f"{want}")
+            rows.append(values[1])
+            print(f"phase {label} round {state.round_idx}: wall "
+                  f"{walls[-1]:.1f} ms (" + ", ".join(
+                      f"{k} {v:.2f}" for k, v in step_ms.items())
+                  + f", rest {rest:.2f})  local_loss {values[0]:.4f}  "
+                  f"malicious_weight {values[1]:.5f}  global token acc "
+                  f"{acc:.4f}  testers {testers[-1]}  weights "
+                  f"[{' '.join(f'{v:.4f}' for v in w.tolist())}]")
+    finally:
+        module._launch = launch
+    counts = {n: op.launches for n, op in kernel_ops.items()}
+    want = {n: 0 for n in kernel_ops}
+    want[op_name] = 2 * cfg.num_layers * LM_ROUNDS
+    want["weighted_aggregate"] = aggregates * LM_ROUNDS
+    check(counts == want
+          and kernel_ops["decode_attention"].merge_launches == 0,
+          f"phase {label} launches {counts}, want {want}")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"phase {label} launches: {counts} ({cfg.num_layers} {op_name} a "
+          f"cross-test and a global eval, {aggregates} weighted_aggregate "
+          f"a round ({dict((str(k), v) for k, v in by_dtype.items())} "
+          f"leaves), x "
+          f"{LM_ROUNDS} rounds; none in local training); allocator peak "
+          f"{peak / 2**30:.3f} GiB; {card}")
+    check(len(captured) == 1, f"phase {label}: the folded launch captured")
+    rows_per = min(trainer.eval_batch, data.test.xs.shape[1])
+    err = lm_fold_check(torch, label, op_name, captured[0], fed.num_testers,
+                        fed.num_users, rows_per)
+    folded = tuple(captured[0][0][0].shape)
+    del captured
+    return {"wall_ms": walls, "malicious_weight": rows,
+            "launches": counts[op_name], "peak_bytes": peak,
+            "params": n_params, "layers": cfg.num_layers,
+            "folded_shape": folded, "fold_max_abs_err": err}
 
 
 def _ids(ids, show=12):
@@ -2200,8 +2581,10 @@ def phase_serve(torch, card):
             step1["logits"] = logits[:, 0].float().clone()
 
     kernel_ops = ops()
-    originals = attn_mod.flash_attention, attn_mod.decode_attention
-    attn_mod.flash_attention = recorder("flash", originals[0])
+    # a sequence's attention goes through the model's table of routes
+    originals = (attn_mod.ATTENTION_IMPLS["kernel"],
+                 attn_mod.decode_attention)
+    attn_mod.ATTENTION_IMPLS["kernel"] = recorder("flash", originals[0])
     attn_mod.decode_attention = recorder("decode", originals[1])
     try:
         warm = serve_mod.serve(model, params, tokens, args.gen,
@@ -2216,7 +2599,8 @@ def phase_serve(torch, card):
         counts["decode_attention merge"] = (
             kernel_ops["decode_attention"].merge_launches)
     finally:
-        attn_mod.flash_attention, attn_mod.decode_attention = originals
+        (attn_mod.ATTENTION_IMPLS["kernel"],
+         attn_mod.decode_attention) = originals
     steps = args.gen - 1
     want = {name: 0 for name in counts}
     want.update({"flash_attention": cfg.num_layers,
@@ -2409,8 +2793,8 @@ def phase_ssm_serve(torch, card):
         if i == 1:
             step1["logits"] = logits[:, 0].float().clone()
 
-    originals = ssm_mod.ssd_scan
-    ssm_mod.ssd_scan = recorder
+    originals = ssm_mod.SSM_IMPLS["kernel"]
+    ssm_mod.SSM_IMPLS["kernel"] = recorder
     try:
         warm = serve_mod.serve(model, params, tokens, args.gen,
                                args.temperature, gen)
@@ -2423,7 +2807,7 @@ def phase_ssm_serve(torch, card):
         counts = {name: op.launches for name, op in kernel_ops.items()}
         merges = kernel_ops["decode_attention"].merge_launches
     finally:
-        ssm_mod.ssd_scan = originals
+        ssm_mod.SSM_IMPLS["kernel"] = originals
     steps = args.gen - 1
     want = {name: 0 for name in counts}
     want["ssd_scan"] = cfg.num_layers
@@ -2541,6 +2925,10 @@ def main() -> int:
                   f"{per_round[-1]:.5f} (the reference CI's job follows)")
         elif per_round:
             adversary[path] = per_round
+    # the LM round, after path G: qwen2-0.5b (L), then Mamba2 (M)
+    lm = {label: phase_lm(torch, card, label, argv, op_name, layers)
+          for label, argv, op_name, layers in LM_PHASES}
+    rows.update(phase_fold_times(torch, peaks, lm))
     population["ci"] = phase_population_ci(torch, card)
     launches["weighted_aggregate"] += population["ci"]["launches"]
     # the population phases: memory flat in N, and int8 on the cohort
@@ -2574,14 +2962,15 @@ def main() -> int:
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
-    def entry(name, path_rows, shape):
+    def entry(name, path_rows, shape, n=None):
         def total(key):    # None where no PyTorch call computes the same
             if any(key not in r for r in path_rows):
                 return None
             return sum(r[key] for r in path_rows)
         return {
             "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": launches[name],
+            "replaces": REPLACES[name],
+            "launches": launches[name] if n is None else n,
             "max_abs_err": max(r["max_abs_err"] for r in path_rows),
             "shape": shape,
             "ms": total("kernel_ms"), "kernel_ms": total("kernel_ms"),
@@ -2592,7 +2981,8 @@ def main() -> int:
             "eager_ms": total("kernel_eager_ms"),
             "plain_eager_ms": total("plain_eager_ms"),
             "library_eager_ms": total("library_eager_ms"),
-            "card": card, "shapes": rows[name]}
+            "card": card,
+            "shapes": rows[name] if n is None else path_rows}
 
     for path, *_ in PATHS:
         print(f"path {path} round wall ms: "
@@ -2623,8 +3013,22 @@ def main() -> int:
         # one call (one layer) of the Mamba2 serve path's prefill
         entry("ssd_scan", rows["ssd_scan"][:1],
               "one call: Bt=8, S=512, H=80, P=64, G=1, N=128, chunk 256, "
-              "bf16")]}))
-    print(json.dumps({"serve": serve_out, "ssm_serve": ssm_out,
+              "bf16"),
+        # one call (one layer) of the LM round's cross-test, its testers,
+        # clients and eval rows folded into the batch; launches: phase L's
+        # and M's rounds (cross-tests and global evals)
+        entry("flash_attention", rows["flash_attention_fold"],
+              "one folded cross-test call: B={}, S=T=64, Hq=14, Hkv=2, "
+              "D=64, bf16, causal".format(lm["L"]["folded_shape"][0]),
+              n=lm["L"]["launches"]),
+        entry("ssd_scan", rows["ssd_scan_fold"],
+              "one folded cross-test call: Bt={}, S=64, H=80, P=64, G=1, "
+              "N=128, chunk 256, A and D [Bt, H], bf16".format(
+                  lm["M"]["folded_shape"][0]), n=lm["M"]["launches"])]}))
+    for label in lm:
+        print(f"phase {label} round wall ms: "
+              f"{[round(t, 3) for t in lm[label]['wall_ms']]} ({card})")
+    print(json.dumps({"lm": lm, "serve": serve_out, "ssm_serve": ssm_out,
                       "reproducible_path_a": repro,
                       "comparison": comparison, "adversary": adversary,
                       "population": population,

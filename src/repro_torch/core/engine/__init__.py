@@ -10,7 +10,7 @@ from repro_torch.core.engine.program import (
     RoundDraws, RoundProgram, aggregator_defaults, compose_fault_mask,
     flat_update_dim, init_comp_state, participation_mask,
     renormalize_over_subset, resolve_coalition, resolve_compressor,
-    resolve_fault, resolve_strategies)
+    resolve_fault, resolve_strategies, training_route_model)
 from repro_torch.core.engine.population import (
     CohortModels, CohortPlan, PopulationBackend, PopulationTrainer,
     client_noise,
@@ -24,4 +24,5 @@ __all__ = [
     "flat_update_dim", "init_comp_state", "participation_mask",
     "renormalize_over_subset", "resolve_coalition", "resolve_compressor",
     "resolve_device", "resolve_fault", "resolve_strategies",
+    "training_route_model",
 ]

@@ -36,7 +36,8 @@ it drew before they were ported.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, NamedTuple, Optional
+import dataclasses
+from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 import torch
 from torch.func import grad_and_value
@@ -158,6 +159,19 @@ def resolve_compressor(fed: FedConfig, model):
                              dict(dim=flat_update_dim(model)))
 
 
+def training_route_model(model):
+    """The model local training differentiates: an LM's attention and
+    scan through their differentiable twins (``blockwise_attention``,
+    ``ssd_chunked``), the reference's ``attention_xla`` / ``_ssd_xla``;
+    the kernel ops are forward-only and raise under a gradient. cnn/mlp
+    unchanged. Cross-testing, the server's eval and the global accuracy
+    take the kernels (``cross_testing.kernel_route_model``)."""
+    if model.cfg.family in ("cnn", "mlp"):
+        return model
+    return dataclasses.replace(model, attn_impl="blockwise",
+                               ssm_impl="chunked")
+
+
 def init_comp_state(fed: FedConfig, model, device=None):
     """Initial ``[N, D]`` error-feedback buffer; ``None`` when the
     exchange is uncompressed."""
@@ -168,14 +182,21 @@ def init_comp_state(fed: FedConfig, model, device=None):
 
 class RoundProgram:
     """Steps 1-7 of the FedTest round, with every strategy, the optimizer
-    and the shared eval function resolved once at construction."""
+    and the shared eval function resolved once at construction. An LM
+    trains through :func:`training_route_model` and evaluates through the
+    kernel ops; ``batch_builder(bx, by)``, when given, makes the model's
+    training batch (default: images or tokens, with the labels)."""
 
-    def __init__(self, model, fed: FedConfig, train_cfg: TrainConfig):
+    def __init__(self, model, fed: FedConfig, train_cfg: TrainConfig,
+                 batch_builder: Optional[Callable] = None):
         self.model = model
+        self.train_model = training_route_model(model)
+        self.batch_builder = batch_builder
         self.fed = fed
         self.train_cfg = train_cfg
         self.opt = make_optimizer(train_cfg)
-        # one eval fn, shared by cross-testing and the global accuracy
+        # one eval fn, shared by cross-testing, the server's eval and the
+        # global accuracy
         self.eval_fn = make_eval_fn(model)
         self.aggregator, self.attack, self.selector = resolve_strategies(fed)
         # a coalition's model attack composes into step 3 (the malicious
@@ -200,16 +221,24 @@ class RoundProgram:
                            if self.use_compression else None)
 
     # ---------------------------------------------------------- local phase
+    def batchify(self, bx, by) -> Dict[str, torch.Tensor]:
+        """One step's model batch from its rows and labels."""
+        if self.batch_builder is not None:
+            return self.batch_builder(bx, by)
+        if self.model.cfg.family in ("cnn", "mlp"):
+            return {"images": bx, "labels": by}
+        return {"tokens": bx, "labels": by}
+
     def local_train(self, params, bx, by):
         """One client's local phase: ``local_steps`` optimizer steps on
-        ``bx [steps, batch, ...]``. The backend runs it for every client
-        at once under ``torch.func.vmap``."""
+        ``bx [steps, batch, ...]``, differentiating ``train_model``. The
+        backend runs it for every client at once under
+        ``torch.func.vmap``."""
         opt_state = self.opt.init(params)
-        step_grad = grad_and_value(self.model.loss, has_aux=True)
+        step_grad = grad_and_value(self.train_model.loss, has_aux=True)
         losses = []
         for s in range(bx.shape[0]):
-            grads, (loss, _) = step_grad(params, {"images": bx[s],
-                                                  "labels": by[s]})
+            grads, (loss, _) = step_grad(params, self.batchify(bx[s], by[s]))
             params, opt_state = self.opt.update(grads, opt_state, params)
             losses.append(loss)
         return params, torch.stack(losses).mean()

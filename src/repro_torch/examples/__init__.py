@@ -3,6 +3,7 @@
 
   PYTHONPATH=src python -m repro_torch.examples.quickstart [agg] [attack]
   PYTHONPATH=src python -m repro_torch.examples.fedtest_cifar [--full]
+  PYTHONPATH=src python -m repro_torch.examples.federated_llm [--malicious 1]
 
-Both run on the card unless given ``--device cpu``.
+All run on the card unless given ``--device cpu``.
 """

@@ -10,6 +10,14 @@ in its own subpackage:
 
 CUDA sources are in ``csrc/``, built by :mod:`repro_torch.kernels.build`.
 
+The two LM kernels, ``flash_attention`` and ``ssd_scan``, are
+``torch.library`` custom ops with a vmap rule: under the batched
+cross-test's ``torch.func.vmap`` they fold the mapped dimensions into
+their batch and launch once (a batch over the grid's 65,535 rows, once
+a slice of that many). They have no gradient: local training
+differentiates their plain-op twins, ``blockwise_attention`` and
+``ssd_chunked`` (the reference's ``attention_xla`` and ``_ssd_xla``).
+
 Kernels:
 * ``weighted_aggregate`` — the FedTest server's score-weighted N-way
   model reduction, a whole param tree in one launch (CUDA C++,

@@ -9,6 +9,7 @@ source rebuilds and an unchanged one is reused. nvcc's report (``-Xptxas
 -v``: registers, shared memory, spills) is kept beside each library as
 ``<lib>.log``. The hash covers the shared headers (``csrc/*.cuh``) too.
 
+The grid limit the ops share (:func:`batch_slices`) lives here too.
 Nothing here runs at import time, so every module imports on a machine
 without the CUDA toolkit (the CPU tests import them all).
 """
@@ -22,6 +23,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -78,3 +80,16 @@ def build(name: str) -> Path:
 def load_library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
     return ctypes.CDLL(str(build(name)))
+
+
+# a grid's y and z dimensions stop at 65,535 blocks: flash_attention puts
+# the batch on z, ssd_scan on y
+MAX_GRID_BATCH = 65535
+
+
+def batch_slices(n: int) -> List[slice]:
+    """The launches a batch of ``n`` rows takes: consecutive slices of at
+    most :data:`MAX_GRID_BATCH` rows, in order. A batch that vmap folds
+    together (testers x models x eval rows) can pass the grid's limit."""
+    return [slice(i, min(i + MAX_GRID_BATCH, n))
+            for i in range(0, n, MAX_GRID_BATCH)]

@@ -3,7 +3,7 @@
 //
 //     h_t = exp(dt_t A_h) h_{t-1} + dt_t x_t B_t^T      h in R^{P x N}, h_0 = 0
 //     y_t = h_t C_t + D_h x_t
-//     x [Bt, S, H, P], dt [Bt, S, H], B, C [Bt, S, G, N], A, D [H]
+//     x [Bt, S, H, P], dt [Bt, S, H], B, C [Bt, S, G, N], A, D [H] or [Bt, H]
 //     -> y [Bt, S, H, P] in x's dtype, the final state [Bt, H, P, N] in f32
 //
 // head h reads state group h / (H / G).
@@ -138,7 +138,8 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                 const float* __restrict__ A, const T* __restrict__ Bm,
                 const T* __restrict__ Cm, const float* __restrict__ Dv, T* __restrict__ y,
                 float* __restrict__ state_out, int S, int H, int G, int chunk, Strides xs,
-                Strides dts, Strides bs, Strides cs, Strides ys) {
+                Strides dts, Strides bs, Strides cs, Strides ys, long long a_b,
+                long long d_b) {
   constexpr int kPC = P / 16;  // y columns (and state rows) a thread owns
   constexpr int kNC = N / 16;  // state columns a thread owns
   extern __shared__ float smem[];
@@ -155,8 +156,8 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const int g = h / (H / G);
-  const float a = A[h];
-  const float d = Dv[h];
+  const float a = A[b * a_b + h];
+  const float d = Dv[b * d_b + h];
 
   const T* xb = x + b * xs.b + h * xs.h;
   const float* dtb = dt + b * dts.b + h * dts.h;
@@ -366,7 +367,8 @@ int launch(const void* x, const void* dt, const void* A, const void* B, const vo
   ssd_scan_kernel<T, P, N><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(dt), static_cast<const float*>(A),
       static_cast<const T*>(B), static_cast<const T*>(C), static_cast<const float*>(D),
-      static_cast<T*>(y), static_cast<float*>(state), S, H, G, chunk, xs, dts, bs, cs, ys);
+      static_cast<T*>(y), static_cast<float*>(state), S, H, G, chunk, xs, dts, bs, cs, ys,
+      st[15], st[16]);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -436,7 +438,8 @@ ssd_scan_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
                     const float* __restrict__ A, const bf16* __restrict__ Bm,
                     const bf16* __restrict__ Cm, const float* __restrict__ Dv,
                     bf16* __restrict__ y, float* __restrict__ state_out, int S, int H, int G,
-                    int chunk, Strides xs, Strides dts, Strides bs, Strides cs, Strides ys) {
+                    int chunk, Strides xs, Strides dts, Strides bs, Strides cs, Strides ys,
+                    long long a_b, long long d_b) {
   using namespace mma_bf16;
   using Tiles = MmaTiles<P, N, kCBufs>;
   constexpr int kLdN = Tiles::kLdN, kLdP = Tiles::kLdP;
@@ -470,8 +473,8 @@ ssd_scan_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const int grp = h / (H / G);
-  const float a = A[h];
-  const float d = Dv[h];
+  const float a = A[b * a_b + h];
+  const float d = Dv[b * d_b + h];
 
   const bf16* xb = x + b * xs.b + h * xs.h;
   const float* dtb = dt + b * dts.b + h * dts.h;
@@ -813,7 +816,8 @@ int launch_mma(const void* x, const void* dt, const void* A, const void* B, cons
   ssd_scan_mma_kernel<P, N, kCBufs><<<grid, kMmaThreads, smem, stream>>>(
       static_cast<const bf16*>(x), static_cast<const float*>(dt), static_cast<const float*>(A),
       static_cast<const bf16*>(B), static_cast<const bf16*>(C), static_cast<const float*>(D),
-      static_cast<bf16*>(y), static_cast<float*>(state), S, H, G, chunk, xs, dts, bs, cs, ys);
+      static_cast<bf16*>(y), static_cast<float*>(state), S, H, G, chunk, xs, dts, bs, cs, ys,
+      st[15], st[16]);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -860,9 +864,11 @@ bool valid_shape(int Bt, int S, int H, int G, int chunk) {
 
 }  // namespace
 
-// Plain C entry points for ctypes: device pointers; 15 element strides
+// Plain C entry points for ctypes: device pointers; 17 element strides
 // (b, s, head or group of x, dt, B, C, y; the last dimension of x, B, C
-// and y is unit-stride); the CUDA stream as a pointer. The state out is
+// and y is unit-stride; then the batch strides of A and D: 0 where one [H]
+// serves every batch row, H where a vmapped eval folds each client's own
+// into the batch, [Bt, H]); the CUDA stream as a pointer. The state out is
 // contiguous [Bt, H, P, N] f32. The return value is cudaGetLastError()
 // after the launch.
 extern "C" int ssd_scan_f32(const void* x, const void* dt, const void* A, const void* B,

@@ -1,4 +1,5 @@
-from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ops import (
+    blockwise_attention, flash_attention)
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
-__all__ = ["attention_ref", "flash_attention"]
+__all__ = ["attention_ref", "blockwise_attention", "flash_attention"]

@@ -6,6 +6,8 @@ oracle of ``repro/kernels/ssd_scan/ref.py``:
 
 Shapes: x [Bt,S,H,P]; dt [Bt,S,H] (post-softplus); A [H] (negative);
 B, C [Bt,S,G,N] (G state groups, head h reads group h // (H/G)); D [H].
+A and D may also be [Bt, H], one row a batch row (a vmapped eval folds
+each client's own into the batch).
 The recurrence runs in fp32; y comes back in x's dtype, the state in
 fp32.
 """
@@ -42,7 +44,7 @@ def ssd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         upd = dtt[..., None, None] * xt[..., :, None] * Bh[:, t, :, None, :]
         h = decay * h + upd                               # [Bt,H,P,N]
         ys.append(torch.einsum("bhpn,bhn->bhp", h, Ch[:, t])
-                  + D[None, :, None] * xt)
+                  + D[..., None] * xt)
     y = (torch.stack(ys, dim=1) if ys
          else xf.new_zeros((Bt, 0, H, P)))
     return y.to(x.dtype), h
@@ -62,5 +64,5 @@ def ssd_decode_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     decay = torch.exp(dtf * A)[..., None, None]
     state = (decay * state
              + dtf[..., None, None] * xf[..., :, None] * Bh[..., None, :])
-    y = torch.einsum("bhpn,bhn->bhp", state, Ch) + D[None, :, None] * xf
+    y = torch.einsum("bhpn,bhn->bhp", state, Ch) + D[..., None] * xf
     return y.to(x.dtype), state

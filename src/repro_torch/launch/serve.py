@@ -74,13 +74,13 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def load_serving_params(mgr: CheckpointManager, model, arch: str = None,
-                        wait_secs: float = 0.0, device="cpu"):
+                        wait_secs: float = 0.0, *, device):
     """``(global_params, step)`` of the newest checkpoint in ``mgr`` whose
     params load into ``model``, polled for up to ``wait_secs``; the params
-    on ``device`` in the model's dtypes. Only the ``.global_params/``
-    leaves are read, so the rest of the round state (and the run's
-    ``FedConfig``) is not needed; a manifest beside the checkpoints that
-    names another arch is refused."""
+    on ``device`` (required: no default device) in the model's dtypes.
+    Only the ``.global_params/`` leaves are read, so the rest of the round
+    state (and the run's ``FedConfig``) is not needed; a manifest beside
+    the checkpoints that names another arch is refused."""
     deadline = time.time() + wait_secs
     while mgr.latest_step() is None:
         if time.time() >= deadline:

@@ -23,12 +23,20 @@ Runs the FedTest round on the card by default:
   PYTHONPATH=src python -m repro_torch.launch.train --population 4096 \\
       --cohort 32 --testers 8 --testers-from-cohort --rounds 12
 
+  # an LM round (the dense or ssm family) on synthetic topic-skewed
+  # token shards; local training differentiates the kernels' twins,
+  # cross-testing runs flash_attention / ssd_scan
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
+      --dataset lm --users 4 --testers 2 --malicious 1 --local-steps 8 \\
+      --batch 16 --optimizer adamw --lr 2e-3 --rounds 3
+
 ``--device cpu`` runs on the CPU; ``--device cuda`` without a card
 raises. The flags are ``repro.launch.train``'s, with its defaults, less
-those of the parts not ported yet (``--rounds-per-call``: ROADMAP.md
-queue 1 item 8; ``--dataset lm``: item 16), plus ``--device`` and
-``--participation``. ``--population`` runs ``PopulationTrainer`` over
-the dense dataset through ``DensePopulationData``.
+``--rounds-per-call`` (not ported yet: ROADMAP.md queue 1 item 8), plus
+``--device`` and ``--participation``. ``--population`` runs
+``PopulationTrainer`` over the dense dataset through
+``DensePopulationData``; it does not take ``--dataset lm`` yet (ROADMAP.md
+queue 1).
 """
 from __future__ import annotations
 
@@ -38,6 +46,10 @@ import json
 import os
 import signal
 import time
+from typing import Optional
+
+import numpy as np
+import torch
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.config import FedConfig, TrainConfig, reduce_for_smoke
@@ -47,11 +59,54 @@ from repro_torch.configs import (
 from repro_torch.core import CROSSTEST_IMPLS, FederatedTrainer
 from repro_torch.core.engine import PopulationTrainer, resolve_device
 from repro_torch.data import (
-    CIFAR_LIKE, MNIST_LIKE, DensePopulationData,
-    make_federated_image_dataset)
+    CIFAR_LIKE, MNIST_LIKE, DensePopulationData, FederatedDataset,
+    build_client_arrays, make_federated_image_dataset, make_token_stream,
+    split_client_holdout)
 from repro_torch.models import build_model
 from repro_torch.strategies import (
     AGGREGATORS, ATTACKS, COALITIONS, COMPRESSORS, FAULTS, SELECTORS)
+
+def make_lm_federated_dataset(vocab: int, num_users: int, seq_len: int = 64,
+                              seqs_per_user: int = 64, seed: int = 0,
+                              skew: float = 0.7, *, device
+                              ) -> FederatedDataset:
+    """Non-IID LM data, the reference's builder: client i holds ``skew``
+    of its sequences from its own topic and the rest from a uniform topic
+    mix; a quarter of each client's sequences held out for its testers;
+    512 global and 256 server sequences after the clients'. Made in numpy
+    as there, so bitwise the reference's, and moved to ``device`` once."""
+    rng = np.random.default_rng(seed)
+    toks, topics = make_token_stream(vocab, num_users * seqs_per_user * 2,
+                                     seq_len + 1, num_topics=num_users,
+                                     seed=seed)
+    x = toks[:, :-1]
+    y = toks[:, 1:]
+    n = num_users * seqs_per_user
+    by_topic = [list(np.flatnonzero(topics[:n] == t))
+                for t in range(num_users)]
+    pool = list(range(n))
+    rng.shuffle(pool)
+    parts = []
+    used = set()
+    for u in range(num_users):
+        own = [i for i in by_topic[u % num_users] if i not in used]
+        sel = own[:int(seqs_per_user * skew)]
+        used.update(sel)
+        fill = [i for i in pool if i not in used][:seqs_per_user - len(sel)]
+        used.update(fill)
+        parts.append(np.array(sel + fill, dtype=np.int64))
+    xs, ys, counts = build_client_arrays(x[:n], y[:n], parts)
+    train, test = split_client_holdout(xs, ys, counts, frac=0.25,
+                                       device=device)
+
+    def dev(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=device)
+    return FederatedDataset(train=train, test=test,
+                            global_x=dev(x[n:n + 512]),
+                            global_y=dev(y[n:n + 512]),
+                            server_x=dev(x[n + 512:n + 768]),
+                            server_y=dev(y[n + 512:n + 768]))
+
 
 # FedConfig fields the command line leaves unset take these (the flags
 # default to None, so --scenario can tell a flag passed from one not)
@@ -72,7 +127,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--smoke", action="store_true",
                     help="the reduced config (reduce_for_smoke) in f32")
     ap.add_argument("--dataset", default="cifar_like",
-                    choices=["cifar_like", "mnist_like"])
+                    choices=["cifar_like", "mnist_like", "lm"],
+                    help="synthetic images, or (lm) topic-skewed token "
+                         "shards for the dense and ssm archs")
     ap.add_argument("--scenario", default=None, choices=list_scenarios(),
                     help="named FedConfig preset; flags passed explicitly "
                          "override its fields")
@@ -224,26 +281,40 @@ def fed_config(args: argparse.Namespace) -> FedConfig:
     return FedConfig(**{**_FED_CLI_DEFAULTS, **passed})
 
 
-def build(args: argparse.Namespace):
+def build(args: argparse.Namespace, *, num_layers: Optional[int] = None):
     """(trainer, data, model config) for the parsed flags; the data keep
     the server's held-out split (``server_x`` / ``server_y``) that
     ``accuracy_based`` evaluates on. With ``--population`` the trainer is
     a ``PopulationTrainer`` and the data its ``DensePopulationData``
-    view."""
+    view. ``num_layers`` cuts the arch's depth (its widths stay)."""
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.dataset == "mnist_like" and args.arch == "fedtest-cnn":
         cfg = get_config("fedtest-cnn-mnist")
+    if num_layers is not None:
+        cfg = cfg.replace(num_layers=num_layers)
     if args.smoke:
         cfg = reduce_for_smoke(cfg).replace(dtype="float32")
+    lm = cfg.family in ("dense", "ssm")
+    if lm != (args.dataset == "lm"):
+        raise SystemExit(f"--arch {args.arch} ({cfg.family}) and --dataset "
+                         f"{args.dataset} do not go together: the LMs take "
+                         "--dataset lm, the classifiers an image dataset")
+    if lm and args.population is not None:
+        raise SystemExit("--population does not take --dataset lm yet "
+                         "(ROADMAP.md queue 1)")
     fed = fed_config(args)
     tc = TrainConfig(optimizer=args.optimizer, lr=args.lr,
                      schedule="constant", batch_size=args.batch,
                      grad_clip=0.0)
-    spec = CIFAR_LIKE if args.dataset == "cifar_like" else MNIST_LIKE
-    data = make_federated_image_dataset(spec, fed.num_users,
-                                        num_samples=args.samples,
-                                        seed=fed.seed, device=device)
+    if lm:
+        data = make_lm_federated_dataset(cfg.vocab_size, fed.num_users,
+                                         seed=fed.seed, device=device)
+    else:
+        spec = CIFAR_LIKE if args.dataset == "cifar_like" else MNIST_LIKE
+        data = make_federated_image_dataset(spec, fed.num_users,
+                                            num_samples=args.samples,
+                                            seed=fed.seed, device=device)
     if args.population is not None:
         trainer = PopulationTrainer(
             build_model(cfg), fed, tc, device=device,

@@ -5,7 +5,9 @@ Params keep the reference's tree and layouts: ``wq [D, Hq*dh]``, ``wk``,
 ``wv [D, Hkv*dh]``, ``wo [Hq*dh, D]``, optional biases ``bq``, ``bk``,
 ``bv`` and f32 ``q_norm`` / ``k_norm`` scales. The projections are plain
 ``torch.matmul``; the attention itself goes through the kernel ops
-(``flash_attention`` for a sequence, ``decode_attention`` for one token).
+(``flash_attention`` for a sequence, ``decode_attention`` for one token),
+or, for a sequence, through the differentiable ``blockwise_attention``
+that local training takes (``impl``, :data:`ATTENTION_IMPLS`).
 """
 from __future__ import annotations
 
@@ -14,8 +16,14 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels.decode_attention import decode_attention
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (
+    blockwise_attention, flash_attention)
 from repro_torch.models.common import dense_init, rms_norm, rope
+
+# a sequence's attention by name: the kernel op (serve, eval) and its
+# differentiable twin (training), the reference's attn_impl
+ATTENTION_IMPLS = {"kernel": flash_attention,
+                   "blockwise": blockwise_attention}
 
 
 def attention_specs(cfg, dtype) -> Dict:
@@ -69,13 +77,14 @@ def _project_qkv(p, cfg, x: torch.Tensor, positions: torch.Tensor):
 
 def attention_full(p, cfg, x: torch.Tensor, positions: torch.Tensor, *,
                    causal: bool = True, sliding_window: Optional[int] = None,
-                   return_kv: bool = False):
+                   return_kv: bool = False, impl: str = "kernel"):
     """Full-sequence path (training / prefill). x [B,S,D] -> y [B,S,D];
-    with ``return_kv`` also the roped (k, v) [B,S,Hkv,dh] for the cache."""
+    with ``return_kv`` also the roped (k, v) [B,S,Hkv,dh] for the cache.
+    ``impl`` names the attention in :data:`ATTENTION_IMPLS`."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x, positions)
-    o = flash_attention(q, k, v, causal=causal,
-                        sliding_window=sliding_window)
+    o = ATTENTION_IMPLS[impl](q, k, v, causal=causal,
+                              sliding_window=sliding_window)
     y = o.reshape(B, S, -1) @ p["wo"]
     if return_kv:
         return y, (k, v)

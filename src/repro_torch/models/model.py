@@ -10,6 +10,12 @@
 
 Batches are ``{"images": [B,H,W,C], "labels": [B]}`` for cnn/mlp and
 ``{"tokens": [B,S], "labels": [B,S]}`` for the LMs.
+
+An LM's full-sequence attention and scan go by ``attn_impl`` /
+``ssm_impl`` (the reference's fields): ``"kernel"``, the default, the
+kernel ops serve and eval take; ``"blockwise"`` / ``"chunked"``, their
+differentiable twins, which the round's local training takes (the
+kernels are forward-only).
 """
 from __future__ import annotations
 
@@ -24,7 +30,9 @@ from repro_torch.config import ModelConfig
 from repro_torch.models import cnn as cnn_mod
 from repro_torch.models import decoder as dec_mod
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models.attention import ATTENTION_IMPLS
 from repro_torch.models.common import softmax_cross_entropy, token_accuracy
+from repro_torch.models.ssm import SSM_IMPLS
 from repro_torch.utils import flat_names, tree_leaves, tree_map
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -34,6 +42,8 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
+    attn_impl: str = "kernel"              # models.attention.ATTENTION_IMPLS
+    ssm_impl: str = "kernel"               # models.ssm.SSM_IMPLS
     sliding_window: Optional[int] = None   # long-context serving variant
     # the classifier family's weightless module, driven through
     # functional_call (None for the LMs, which are plain functions)
@@ -41,6 +51,13 @@ class Model:
         init=False, repr=False, compare=False)
 
     def __post_init__(self):
+        if self.attn_impl not in ATTENTION_IMPLS:
+            raise ValueError(f"attn_impl must be one of "
+                             f"{sorted(ATTENTION_IMPLS)}, got "
+                             f"{self.attn_impl!r}")
+        if self.ssm_impl not in SSM_IMPLS:
+            raise ValueError(f"ssm_impl must be one of {sorted(SSM_IMPLS)}, "
+                             f"got {self.ssm_impl!r}")
         nets = {"cnn": cnn_mod.CNN, "mlp": mlp_mod.MLP}
         object.__setattr__(self, "net", nets[self.cfg.family](self.cfg)
                            if self.cfg.family in nets else None)
@@ -83,7 +100,8 @@ class Model:
         if self._lm():
             return dec_mod.decoder_forward(
                 params, self.cfg, batch["tokens"],
-                sliding_window=self.sliding_window)[0]
+                sliding_window=self.sliding_window, attn_impl=self.attn_impl,
+                ssm_impl=self.ssm_impl)[0]
         return functional_call(self.net, flat_names(params),
                                (batch["images"],))
 
@@ -106,7 +124,8 @@ class Model:
         self._require_lm("serving")
         return dec_mod.decoder_forward(
             params, self.cfg, batch["tokens"], want_cache=True,
-            cache_len=cache_len, sliding_window=self.sliding_window)
+            cache_len=cache_len, sliding_window=self.sliding_window,
+            attn_impl=self.attn_impl, ssm_impl=self.ssm_impl)
 
     def decode_step(self, params, cache, tokens) -> Tuple[torch.Tensor, Dict]:
         """Logits ``[B, 1, V]`` of one token a sequence; writes the cache

@@ -3,7 +3,8 @@
 
 Block layout follows the Mamba2 paper: fused in-projection producing
 (z, x, B, C, dt), short causal depthwise conv over (x, B, C), softplus dt,
-the SSD scan (the ``ssd_scan`` kernel op for a sequence, the plain
+the SSD scan (the ``ssd_scan`` kernel op for a sequence, or its
+differentiable twin ``ssd_chunked`` that local training takes; the plain
 recurrence ``ssd_decode_ref`` for one token), gated RMSNorm,
 out-projection. Params keep the reference's tree: ``in_proj [D,
 2 d_in + 2 G N + H]``, ``conv_w [W, conv_dim]``, ``conv_b``, ``out_proj
@@ -17,8 +18,12 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.ssd_scan import ssd_decode_ref, ssd_scan
+from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_decode_ref, ssd_scan
 from repro_torch.models.common import dense_init, rms_norm
+
+# a sequence's scan by name: the kernel op (serve, eval) and its
+# differentiable twin (training), the reference's ssm_impl
+SSM_IMPLS = {"kernel": ssd_scan, "chunked": ssd_chunked}
 
 
 def _dims(cfg):
@@ -115,10 +120,13 @@ def _gate_out(p, cfg, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     return y @ p["out_proj"]
 
 
-def ssm_full(p, cfg, x: torch.Tensor, *, return_state: bool = False):
+def ssm_full(p, cfg, x: torch.Tensor, *, return_state: bool = False,
+             impl: str = "kernel"):
     """x [B,S,D] -> y [B,S,D] (+ (conv_state [B,W-1,conv_dim], ssm_state
     [B,H,P,N] f32) for the serve hand-off). The scan's x, B and C are
-    views of the conv output, which the kernel reads in place."""
+    views of the conv output, which the kernel reads in place (under
+    vmap, its fold rule copies them). ``impl`` names the scan in
+    :data:`SSM_IMPLS`."""
     B, S, _ = x.shape
     d_in, H, P, G, N, conv_dim = _dims(cfg)
     W = cfg.ssm_conv_width
@@ -129,9 +137,10 @@ def ssm_full(p, cfg, x: torch.Tensor, *, return_state: bool = False):
     xs, Bm, Cm = _split_conv_out(u, cfg)
     dt = F.softplus(dt_raw.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
-    y, state = ssd_scan(xs.reshape(B, S, H, P), dt, A,
-                        Bm.reshape(B, S, G, N), Cm.reshape(B, S, G, N),
-                        p["D"], chunk=cfg.ssm_chunk)
+    y, state = SSM_IMPLS[impl](xs.reshape(B, S, H, P), dt, A,
+                               Bm.reshape(B, S, G, N),
+                               Cm.reshape(B, S, G, N), p["D"],
+                               chunk=cfg.ssm_chunk)
     out = _gate_out(p, cfg, y.reshape(B, S, d_in), z)
     if return_state:
         # the last W-1 pre-conv rows, zero-padded in front when S < W-1

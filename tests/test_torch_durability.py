@@ -382,9 +382,19 @@ def test_serve_reads_the_newest_checkpoint_and_refuses_another_arch(
     (tmp_path / "ckpt_00000009.npz").write_bytes(b"torn")
     with pytest.warns(RuntimeWarning, match="skipping corrupt"):
         params, step = serve_mod.load_serving_params(
-            CheckpointManager(str(tmp_path)), model)
+            CheckpointManager(str(tmp_path)), model, device="cpu")
     assert step == 4 and all(torch.equal(got, want) for got, want in zip(
         tree_leaves(params), tree_leaves(newer.global_params)))
+
+
+def test_load_serving_params_needs_a_device(tmp_path):
+    """The loader names no default device: a call without one raises
+    before it reads the directory."""
+    model = build_model(reduce_for_smoke(get_config("qwen2-0.5b")).replace(
+        dtype="float32"))
+    with pytest.raises(TypeError, match="device"):
+        serve_mod.load_serving_params(CheckpointManager(str(tmp_path)),
+                                      model)
 
 
 # ------------------------------------------------------ the reference's

@@ -11,6 +11,14 @@ a chunk's decays are differences of a prefix sum of dt A, which loses
 about 1e-4 relative in fp32. bf16 outputs: one bf16 ulp (2**-7 relative)
 plus slack. The CUDA kernel itself runs only on a card: ``chip_smoke.py``
 holds it against the plain version there.
+
+The op under ``torch.func.vmap`` (its fold rule, with each client's own
+A and D as a row a folded batch row) equals a loop of the op bitwise, and
+``ssd_ref`` with ``[Bt, H]`` A and D equals its calls row by row. The
+differentiable twin ``ssd_chunked`` is held to the reference's
+``_ssd_xla`` (the same chunked algorithm, its sums in other orders) at
+the chunked forms' 1e-3, forward and gradient; the op itself refuses a
+gradient.
 """
 import functools
 
@@ -19,15 +27,18 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import ml_dtypes  # noqa: E402
+from torch.func import grad, vmap  # noqa: E402
 
 from repro.kernels.ssd_scan.kernel import ssd_scan_pallas  # noqa: E402
 from repro.kernels.ssd_scan.ops import _ssd_xla  # noqa: E402
 from repro.kernels.ssd_scan.ref import (  # noqa: E402
     ssd_decode_ref as jax_ssd_decode_ref, ssd_ref as jax_ssd_ref)
+from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
-    ssd_decode_ref, ssd_ref, ssd_scan)
+    ssd_chunked, ssd_decode_ref, ssd_ref, ssd_scan)
 
 SEQ_TOL = dict(rtol=1e-5, atol=1e-5)
 CHUNK_TOL = dict(rtol=1e-3, atol=1e-3)
@@ -309,3 +320,115 @@ def test_bf16_operands_need_hi_and_lo_to_hold_the_card_tolerance(split,
     ratio_h = float(((h - hr).abs() / (CHUNK_TOL["atol"]
                                        + CHUNK_TOL["rtol"] * hr.abs())).max())
     assert (max(ratio_y, ratio_h) <= 1.0) == holds, (ratio_y, ratio_h)
+
+
+# --------------------------------------- the training twin, vmap, A/D rows
+@pytest.mark.parametrize("shape,chunk", [
+    ((2, 32, 4, 16, 2, 8), 16), ((1, 30, 4, 8, 1, 4), 8),
+    ((2, 21, 6, 8, 3, 4), 32), ((1, 64, 4, 32, 1, 16), 256)],
+    ids=lambda c: "-".join(map(str, c)) if isinstance(c, tuple) else str(c))
+def test_chunked_twin_matches_ssd_xla(shape, chunk):
+    """Forward (y and the final state), and the gradient of a weighted sum
+    of both with respect to all six inputs (``torch.func.grad`` against
+    ``jax.grad``); S = 30 with chunk 8 takes chunks of 6, S = 21 one of
+    21."""
+    arrs = _inputs(shape, seed=sum(shape) + chunk)
+    rng = np.random.default_rng(chunk)
+    cy = rng.standard_normal(shape[:4]).astype(np.float32)
+    ch = rng.standard_normal((shape[0], shape[2], shape[3], shape[5])
+                             ).astype(np.float32)
+    y, h = ssd_chunked(*_t(arrs), chunk=chunk)
+    yx, hx = _ssd_xla(*_j(arrs), chunk=chunk)
+    _close(y, yx, **CHUNK_TOL)
+    _close(h, hx, **CHUNK_TOL)
+
+    def jloss(*a):
+        y, h = _ssd_xla(*a, chunk=chunk)
+        return jnp.sum(y * cy) + jnp.sum(h * ch)
+
+    def tloss(*a):
+        y, h = ssd_chunked(*a, chunk=chunk)
+        return (y * torch.from_numpy(cy)).sum() + (h * torch.from_numpy(
+            ch)).sum()
+    want = jax.grad(jloss, argnums=tuple(range(6)))(*_j(arrs))
+    got = grad(tloss, argnums=tuple(range(6)))(*_t(arrs))
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        _close(g, w, **CHUNK_TOL)
+
+
+def test_plain_takes_a_and_d_by_row():
+    """``ssd_ref`` with ``[Bt, H]`` A and D (a vmapped eval's folded
+    clients) equals its calls row by row with each row's ``[H]``."""
+    x, dt, A, B, C, D = _t(_inputs((3, 12, 4, 8, 2, 4), seed=9))
+    rng = np.random.default_rng(10)
+    A_rows = -torch.from_numpy(np.exp(rng.standard_normal((3, 4)))
+                               .astype(np.float32))
+    D_rows = torch.from_numpy(rng.standard_normal((3, 4)).astype(np.float32))
+    y, h = ssd_ref(x, dt, A_rows, B, C, D_rows)
+    for b in range(3):
+        yb, hb = ssd_ref(x[b:b + 1], dt[b:b + 1], A_rows[b], B[b:b + 1],
+                         C[b:b + 1], D_rows[b])
+        assert torch.equal(y[b:b + 1], yb) and torch.equal(h[b:b + 1], hb)
+    assert not torch.equal(y, ssd_ref(x, dt, A, B, C, D)[0])
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 2, 10, 4, 8, 2, 4),
+                                   (3, 2, 1, 33, 6, 16, 3, 8)],
+                         ids=lambda s: "-".join(map(str, s)))
+def test_vmap_rule_is_a_loop_of_the_op_bitwise(shape):
+    """Nested vmap as the cross-test nests it: testers outside mapping
+    the activations, models inside mapping them and each model's own A
+    and D; against a Python loop of the op with each client's [H] A and
+    D. Then the serve path's shared [H] A and D under one map, an unmapped
+    dt expanded, and a mapped A with an unmapped x refused."""
+    K, N, Bt, S, H, P, G, Ns = shape
+    rng = np.random.default_rng(sum(shape))
+
+    def rnd(*s):
+        return torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+    x, B, C = rnd(K, N, Bt, S, H, P), rnd(K, N, Bt, S, G, Ns), rnd(
+        K, N, Bt, S, G, Ns)
+    dt = torch.nn.functional.softplus(rnd(K, N, Bt, S, H))
+    A, D = -torch.exp(rnd(N, H)), rnd(N, H)
+
+    def op(x, dt, A, B, C, D):
+        return ssd_scan(x, dt, A, B, C, D, chunk=8)
+
+    def tester(x, dt, B, C):
+        return vmap(op)(x, dt, A, B, C, D)
+    y, h = vmap(tester)(x, dt, B, C)
+    for i in range(K):
+        for j in range(N):
+            yw, hw = op(x[i, j], dt[i, j], A[j], B[i, j], C[i, j], D[j])
+            assert torch.equal(y[i, j], yw) and torch.equal(h[i, j], hw)
+    y, h = vmap(op, in_dims=(0, None, None, 0, 0, None))(
+        x[0], dt[0, 0], A[0], B[0], C[0], D[0])
+    for j in range(N):
+        yw, hw = op(x[0, j], dt[0, 0], A[0], B[0, j], C[0, j], D[0])
+        assert torch.equal(y[j], yw) and torch.equal(h[j], hw)
+    with pytest.raises(ValueError, match="maps x"):
+        vmap(op, in_dims=(None, None, 0, None, None, None))(
+            x[0, 0], dt[0, 0], A, B[0, 0], C[0, 0], D[0])
+
+
+def test_the_op_refuses_a_gradient():
+    x, dt, A, B, C, D = _t(_inputs((1, 8, 4, 16, 2, 8), seed=4))
+    with pytest.raises(RuntimeError, match="no gradient"):
+        grad(lambda x: ssd_scan(x, dt, A, B, C, D, chunk=4)[0].sum())(x)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        vmap(grad(lambda a: ssd_scan(x, dt, a, B, C, D, chunk=4)[0].sum()))(
+            A[None])
+
+
+def test_launches_are_split_at_the_grid_limit(monkeypatch):
+    """The CPU route walks the kernel's launch slices: with the limit
+    cut to 2, a batch of 5 with [Bt, H] A and D (three slices, each with
+    its rows of A and D) equals the plain version unsplit."""
+    x, dt, A, B, C, D = _t(_inputs((5, 9, 4, 8, 2, 4), seed=12))
+    A_rows = A[None].repeat(5, 1) * torch.arange(1, 6)[:, None]
+    D_rows = D[None].repeat(5, 1) - torch.arange(5)[:, None]
+    want = ssd_ref(x, dt, A_rows, B, C, D_rows)
+    monkeypatch.setattr(build, "MAX_GRID_BATCH", 2)
+    got = ssd_scan(x, dt, A_rows, B, C, D_rows, chunk=4)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
