@@ -2581,10 +2581,8 @@ def phase_serve(torch, card):
             step1["logits"] = logits[:, 0].float().clone()
 
     kernel_ops = ops()
-    # a sequence's attention goes through the model's table of routes
-    originals = (attn_mod.ATTENTION_IMPLS["kernel"],
-                 attn_mod.decode_attention)
-    attn_mod.ATTENTION_IMPLS["kernel"] = recorder("flash", originals[0])
+    originals = attn_mod.flash_attention, attn_mod.decode_attention
+    attn_mod.flash_attention = recorder("flash", originals[0])
     attn_mod.decode_attention = recorder("decode", originals[1])
     try:
         warm = serve_mod.serve(model, params, tokens, args.gen,
@@ -2599,8 +2597,7 @@ def phase_serve(torch, card):
         counts["decode_attention merge"] = (
             kernel_ops["decode_attention"].merge_launches)
     finally:
-        (attn_mod.ATTENTION_IMPLS["kernel"],
-         attn_mod.decode_attention) = originals
+        attn_mod.flash_attention, attn_mod.decode_attention = originals
     steps = args.gen - 1
     want = {name: 0 for name in counts}
     want.update({"flash_attention": cfg.num_layers,
@@ -2793,8 +2790,8 @@ def phase_ssm_serve(torch, card):
         if i == 1:
             step1["logits"] = logits[:, 0].float().clone()
 
-    originals = ssm_mod.SSM_IMPLS["kernel"]
-    ssm_mod.SSM_IMPLS["kernel"] = recorder
+    originals = ssm_mod.ssd_scan
+    ssm_mod.ssd_scan = recorder
     try:
         warm = serve_mod.serve(model, params, tokens, args.gen,
                                args.temperature, gen)
@@ -2807,7 +2804,7 @@ def phase_ssm_serve(torch, card):
         counts = {name: op.launches for name, op in kernel_ops.items()}
         merges = kernel_ops["decode_attention"].merge_launches
     finally:
-        ssm_mod.SSM_IMPLS["kernel"] = originals
+        ssm_mod.ssd_scan = originals
     steps = args.gen - 1
     want = {name: 0 for name in counts}
     want["ssd_scan"] = cfg.num_layers

@@ -5,7 +5,7 @@ from repro_torch.core.aggregation import (
     accuracy_based_weights, aggregate_models, fedavg_weights)
 from repro_torch.core.cross_testing import (
     CROSSTEST_IMPLS, cross_test_accuracies, cross_test_batched,
-    cross_test_reference, kernel_route_model, make_eval_fn)
+    cross_test_reference, make_eval_fn)
 from repro_torch.core.engine import FederatedTrainer, RoundState
 from repro_torch.core.scoring import (
     ScoreState, init_scores, score_weights, update_scores)
@@ -15,6 +15,6 @@ __all__ = [
     "CROSSTEST_IMPLS", "FederatedTrainer", "RoundState", "ScoreState",
     "accuracy_based_weights", "aggregate_models", "cross_test_accuracies",
     "cross_test_batched", "cross_test_reference", "fedavg_weights",
-    "init_scores", "kernel_route_model", "make_eval_fn", "score_weights",
-    "select_testers", "pick_testers", "update_scores",
+    "init_scores", "make_eval_fn", "score_weights", "select_testers",
+    "pick_testers", "update_scores",
 ]

@@ -4,9 +4,10 @@
 Each selected tester evaluates every client's model on its own held-out
 data: the ``[K, N]`` accuracy matrix, a classifier's accuracy or an LM's
 token accuracy over the labels that are not -1 (:func:`make_eval_fn`).
-An LM's eval goes through the kernel ops (:func:`kernel_route_model`):
-under the batched cross-test's nested vmap their fold rules launch
-``flash_attention`` / ``ssd_scan`` once a layer for all K x N models.
+An LM's eval goes through the kernel ops (a model built without
+``differentiable``, as the round keeps it): under the batched
+cross-test's nested vmap their fold rules launch ``flash_attention`` /
+``ssd_scan`` once a layer for all K x N models.
 
 * :func:`cross_test_batched` — what the round runs: ``torch.func.vmap``
   over the stacked client params (through ``functional_call`` in the
@@ -33,7 +34,6 @@ draws what an unbroken one draws (DESIGN.md §10).
 """
 from __future__ import annotations
 
-import dataclasses
 from typing import Callable, Tuple
 
 import torch
@@ -47,23 +47,10 @@ EVAL_BATCH_STREAM = 11
 CROSSTEST_IMPLS = ("batched", "reference")
 
 
-def kernel_route_model(model):
-    """The model handle whose LM forward runs the kernel ops
-    (``flash_attention``, ``ssd_scan``): the K x N eval must reach the
-    kernels, whichever twin the handle was built with. cnn/mlp pass
-    through unchanged."""
-    if model.cfg.family in ("cnn", "mlp") or (
-            (model.attn_impl, model.ssm_impl) == ("kernel", "kernel")):
-        return model
-    return dataclasses.replace(model, attn_impl="kernel", ssm_impl="kernel")
-
-
 def make_eval_fn(model) -> Callable:
     """Returns eval_fn(params, bx, by) -> accuracy in [0, 1] (fp32): a
     classifier's over its images, an LM's over the tokens whose label is
-    not -1 (``correct / max(valid, 1)``), through
-    :func:`kernel_route_model`."""
-    model = kernel_route_model(model)
+    not -1 (``correct / max(valid, 1)``)."""
     if model.cfg.family in ("cnn", "mlp"):
         def eval_fn(params, bx, by):
             logits = model.forward_train(params, {"images": bx})

@@ -108,12 +108,10 @@ class FederatedTrainer:
     # 0 keeps the fixed eval prefix (the first eval_batch test rows, every
     # round); r > 0 redraws each tester's eval rows every r rounds
     eval_resample_every: int = 0
-    batch_builder: Optional[Callable] = None   # (bx, by) -> model batch
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
-        self.program = RoundProgram(self.model, self.fed, self.train,
-                                    batch_builder=self.batch_builder)
+        self.program = RoundProgram(self.model, self.fed, self.train)
         self.backend = self._make_backend(
             self.crosstest_impl or self.fed.crosstest_impl)
         self.opt = self.program.opt

@@ -37,7 +37,7 @@ it drew before they were ported.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, NamedTuple, Optional
+from typing import Any, Dict, List, NamedTuple, Optional
 
 import torch
 from torch.func import grad_and_value
@@ -165,11 +165,10 @@ def training_route_model(model):
     ``ssd_chunked``), the reference's ``attention_xla`` / ``_ssd_xla``;
     the kernel ops are forward-only and raise under a gradient. cnn/mlp
     unchanged. Cross-testing, the server's eval and the global accuracy
-    take the kernels (``cross_testing.kernel_route_model``)."""
+    take the caller's model, whose LM forward runs the kernels."""
     if model.cfg.family in ("cnn", "mlp"):
         return model
-    return dataclasses.replace(model, attn_impl="blockwise",
-                               ssm_impl="chunked")
+    return dataclasses.replace(model, differentiable=True)
 
 
 def init_comp_state(fed: FedConfig, model, device=None):
@@ -184,14 +183,11 @@ class RoundProgram:
     """Steps 1-7 of the FedTest round, with every strategy, the optimizer
     and the shared eval function resolved once at construction. An LM
     trains through :func:`training_route_model` and evaluates through the
-    kernel ops; ``batch_builder(bx, by)``, when given, makes the model's
-    training batch (default: images or tokens, with the labels)."""
+    kernel ops (``model`` as given)."""
 
-    def __init__(self, model, fed: FedConfig, train_cfg: TrainConfig,
-                 batch_builder: Optional[Callable] = None):
+    def __init__(self, model, fed: FedConfig, train_cfg: TrainConfig):
         self.model = model
         self.train_model = training_route_model(model)
-        self.batch_builder = batch_builder
         self.fed = fed
         self.train_cfg = train_cfg
         self.opt = make_optimizer(train_cfg)
@@ -223,8 +219,6 @@ class RoundProgram:
     # ---------------------------------------------------------- local phase
     def batchify(self, bx, by) -> Dict[str, torch.Tensor]:
         """One step's model batch from its rows and labels."""
-        if self.batch_builder is not None:
-            return self.batch_builder(bx, by)
         if self.model.cfg.family in ("cnn", "mlp"):
             return {"images": bx, "labels": by}
         return {"tokens": bx, "labels": by}

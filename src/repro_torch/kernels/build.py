@@ -9,7 +9,8 @@ source rebuilds and an unchanged one is reused. nvcc's report (``-Xptxas
 -v``: registers, shared memory, spills) is kept beside each library as
 ``<lib>.log``. The hash covers the shared headers (``csrc/*.cuh``) too.
 
-The grid limit the ops share (:func:`batch_slices`) lives here too.
+The grid limit the ops share (:func:`batch_slices`) and the blocking of
+their plain-op twins (:func:`divisor_block`) live here too.
 Nothing here runs at import time, so every module imports on a machine
 without the CUDA toolkit (the CPU tests import them all).
 """
@@ -93,3 +94,11 @@ def batch_slices(n: int) -> List[slice]:
     together (testers x models x eval rows) can pass the grid's limit."""
     return [slice(i, min(i + MAX_GRID_BATCH, n))
             for i in range(0, n, MAX_GRID_BATCH)]
+
+
+def divisor_block(n: int, target: int) -> int:
+    """Largest divisor of n that is <= target (keeps block loops exact)."""
+    b = min(target, n)
+    while n % b:
+        b -= 1
+    return b

@@ -23,7 +23,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.build import batch_slices, load_library
+from repro_torch.kernels.build import (
+    batch_slices, divisor_block, load_library)
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 _ENTRY = {torch.float32: "flash_attention_f32",
@@ -168,14 +169,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 flash_attention.launches = 0
 
 
-def _divisor_block(n: int, target: int) -> int:
-    """Largest divisor of n that is <= target (keeps block loops exact)."""
-    b = min(target, n)
-    while n % b:
-        b -= 1
-    return b
-
-
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True,
                         sliding_window: Optional[int] = None,
@@ -194,8 +187,8 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rep = Hq // Hkv
     if scale is None:
         scale = D ** -0.5
-    block_q = _divisor_block(S, block_q)
-    block_k = _divisor_block(T, block_k)
+    block_q = divisor_block(S, block_q)
+    block_k = divisor_block(T, block_k)
     nq, nk = S // block_q, T // block_k
     # [n_blocks, B, Hkv, rep|-, block, D]
     qb = q.reshape(B, nq, block_q, Hkv, rep, D).permute(1, 0, 3, 4, 2, 5)

@@ -24,7 +24,8 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels.build import batch_slices, load_library
+from repro_torch.kernels.build import (
+    batch_slices, divisor_block, load_library)
 from repro_torch.kernels.ssd_scan.ref import ssd_ref
 
 _ENTRY = {torch.float32: "ssd_scan_f32", torch.bfloat16: "ssd_scan_bf16"}
@@ -211,14 +212,6 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 ssd_scan.launches = 0
 
 
-def _divisor_block(n: int, target: int) -> int:
-    """Largest divisor of n that is <= target (keeps chunk loops exact)."""
-    b = min(target, n)
-    while n % b:
-        b -= 1
-    return b
-
-
 def _per_batch(t: torch.Tensor) -> torch.Tensor:
     """A or D as ``[Bt or 1, 1, H]``, broadcasting over a chunk's rows."""
     return t[:, None] if t.dim() == 2 else t[None, None]
@@ -239,7 +232,7 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     Bt, S, H, P = x.shape
     G, N = B.shape[2], B.shape[3]
     rep = H // G
-    chunk = _divisor_block(S, chunk)
+    chunk = divisor_block(S, chunk)
     nc = S // chunk
     xf = x.float().reshape(Bt, nc, chunk, H, P)
     dtf = dt.float().reshape(Bt, nc, chunk, H)

@@ -7,7 +7,7 @@ Params keep the reference's tree and layouts: ``wq [D, Hq*dh]``, ``wk``,
 ``torch.matmul``; the attention itself goes through the kernel ops
 (``flash_attention`` for a sequence, ``decode_attention`` for one token),
 or, for a sequence, through the differentiable ``blockwise_attention``
-that local training takes (``impl``, :data:`ATTENTION_IMPLS`).
+that local training takes (``differentiable``).
 """
 from __future__ import annotations
 
@@ -19,11 +19,6 @@ from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import (
     blockwise_attention, flash_attention)
 from repro_torch.models.common import dense_init, rms_norm, rope
-
-# a sequence's attention by name: the kernel op (serve, eval) and its
-# differentiable twin (training), the reference's attn_impl
-ATTENTION_IMPLS = {"kernel": flash_attention,
-                   "blockwise": blockwise_attention}
 
 
 def attention_specs(cfg, dtype) -> Dict:
@@ -77,14 +72,15 @@ def _project_qkv(p, cfg, x: torch.Tensor, positions: torch.Tensor):
 
 def attention_full(p, cfg, x: torch.Tensor, positions: torch.Tensor, *,
                    causal: bool = True, sliding_window: Optional[int] = None,
-                   return_kv: bool = False, impl: str = "kernel"):
+                   return_kv: bool = False, differentiable: bool = False):
     """Full-sequence path (training / prefill). x [B,S,D] -> y [B,S,D];
     with ``return_kv`` also the roped (k, v) [B,S,Hkv,dh] for the cache.
-    ``impl`` names the attention in :data:`ATTENTION_IMPLS`."""
+    The attention is ``flash_attention`` or, with ``differentiable``,
+    ``blockwise_attention``."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x, positions)
-    o = ATTENTION_IMPLS[impl](q, k, v, causal=causal,
-                              sliding_window=sliding_window)
+    attend = blockwise_attention if differentiable else flash_attention
+    o = attend(q, k, v, causal=causal, sliding_window=sliding_window)
     y = o.reshape(B, S, -1) @ p["wo"]
     if return_kv:
         return y, (k, v)

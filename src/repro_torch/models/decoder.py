@@ -92,10 +92,9 @@ def layer_params(p, layer: int):
 
 
 def slot_apply_full(p, cfg, x, positions, *, sliding_window,
-                    want_cache: bool, attn_impl: str = "kernel",
-                    ssm_impl: str = "kernel"):
-    """Full-sequence layer, its attention or scan by ``attn_impl`` /
-    ``ssm_impl``. Returns (x, cache_slice)."""
+                    want_cache: bool, differentiable: bool = False):
+    """Full-sequence layer, its attention or scan the kernel op or, with
+    ``differentiable``, its twin. Returns (x, cache_slice)."""
     h = rms_norm(p["norm1"], x, cfg.norm_eps)
     cache = {}
     if not cfg.is_attention_free:
@@ -103,18 +102,19 @@ def slot_apply_full(p, cfg, x, positions, *, sliding_window,
             y, (k, v) = attention_full(p["attn"], cfg, h, positions,
                                        causal=True,
                                        sliding_window=sliding_window,
-                                       return_kv=True, impl=attn_impl)
+                                       return_kv=True,
+                                       differentiable=differentiable)
             cache = {"k": k, "v": v}
         else:
             y = attention_full(p["attn"], cfg, h, positions, causal=True,
                                sliding_window=sliding_window,
-                               impl=attn_impl)
+                               differentiable=differentiable)
     elif want_cache:
         y, (conv_s, ssm_s) = ssm_full(p["mamba"], cfg, h, return_state=True,
-                                      impl=ssm_impl)
+                                      differentiable=differentiable)
         cache = {"conv": conv_s, "ssm": ssm_s}
     else:
-        y = ssm_full(p["mamba"], cfg, h, impl=ssm_impl)
+        y = ssm_full(p["mamba"], cfg, h, differentiable=differentiable)
     x = x + y
     if not cfg.is_attention_free:
         x = x + swiglu(p["ffn"], rms_norm(p["norm2"], x, cfg.norm_eps))
@@ -153,14 +153,13 @@ def _embed_inputs(p, tokens):
 
 def decoder_forward(p, cfg, tokens, *, want_cache: bool = False,
                     cache_len: int = 0, sliding_window: Optional[int] = None,
-                    attn_impl: str = "kernel", ssm_impl: str = "kernel"
+                    differentiable: bool = False
                     ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Full-sequence forward (train / prefill). tokens [B,S] -> (logits
     [B,S,V], cache or None). ``cache_len`` pads the KV cache up to a
     serving capacity >= S; an attention-free stack ignores it, as the
-    reference does. ``attn_impl`` / ``ssm_impl`` name each layer's
-    attention or scan (``models.attention.ATTENTION_IMPLS``,
-    ``models.ssm.SSM_IMPLS``)."""
+    reference does. Each layer's attention or scan is the kernel op or,
+    with ``differentiable``, its differentiable twin."""
     x = _embed_inputs(p, tokens)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
@@ -172,8 +171,8 @@ def decoder_forward(p, cfg, tokens, *, want_cache: bool = False,
     for layer in range(cfg.num_layers):
         x, c = slot_apply_full(layer_params(p, layer), cfg, x, positions,
                                sliding_window=sliding_window,
-                               want_cache=want_cache, attn_impl=attn_impl,
-                               ssm_impl=ssm_impl)
+                               want_cache=want_cache,
+                               differentiable=differentiable)
         if want_cache:
             # k, v fill their first S rows; conv, ssm the whole slice
             for name, val in c.items():

@@ -11,11 +11,11 @@
 Batches are ``{"images": [B,H,W,C], "labels": [B]}`` for cnn/mlp and
 ``{"tokens": [B,S], "labels": [B,S]}`` for the LMs.
 
-An LM's full-sequence attention and scan go by ``attn_impl`` /
-``ssm_impl`` (the reference's fields): ``"kernel"``, the default, the
-kernel ops serve and eval take; ``"blockwise"`` / ``"chunked"``, their
-differentiable twins, which the round's local training takes (the
-kernels are forward-only).
+An LM's full-sequence attention and scan run the kernel ops
+(``flash_attention``, ``ssd_scan``: serve and eval), or, with
+``differentiable``, their differentiable twins (``blockwise_attention``,
+``ssd_chunked``), which the round's local training takes (the kernels are
+forward-only). cnn/mlp ignore it.
 """
 from __future__ import annotations
 
@@ -30,9 +30,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.models import cnn as cnn_mod
 from repro_torch.models import decoder as dec_mod
 from repro_torch.models import mlp as mlp_mod
-from repro_torch.models.attention import ATTENTION_IMPLS
 from repro_torch.models.common import softmax_cross_entropy, token_accuracy
-from repro_torch.models.ssm import SSM_IMPLS
 from repro_torch.utils import flat_names, tree_leaves, tree_map
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -42,8 +40,7 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
-    attn_impl: str = "kernel"              # models.attention.ATTENTION_IMPLS
-    ssm_impl: str = "kernel"               # models.ssm.SSM_IMPLS
+    differentiable: bool = False           # LM: the twins, not the kernels
     sliding_window: Optional[int] = None   # long-context serving variant
     # the classifier family's weightless module, driven through
     # functional_call (None for the LMs, which are plain functions)
@@ -51,13 +48,6 @@ class Model:
         init=False, repr=False, compare=False)
 
     def __post_init__(self):
-        if self.attn_impl not in ATTENTION_IMPLS:
-            raise ValueError(f"attn_impl must be one of "
-                             f"{sorted(ATTENTION_IMPLS)}, got "
-                             f"{self.attn_impl!r}")
-        if self.ssm_impl not in SSM_IMPLS:
-            raise ValueError(f"ssm_impl must be one of {sorted(SSM_IMPLS)}, "
-                             f"got {self.ssm_impl!r}")
         nets = {"cnn": cnn_mod.CNN, "mlp": mlp_mod.MLP}
         object.__setattr__(self, "net", nets[self.cfg.family](self.cfg)
                            if self.cfg.family in nets else None)
@@ -100,8 +90,8 @@ class Model:
         if self._lm():
             return dec_mod.decoder_forward(
                 params, self.cfg, batch["tokens"],
-                sliding_window=self.sliding_window, attn_impl=self.attn_impl,
-                ssm_impl=self.ssm_impl)[0]
+                sliding_window=self.sliding_window,
+                differentiable=self.differentiable)[0]
         return functional_call(self.net, flat_names(params),
                                (batch["images"],))
 
@@ -125,7 +115,7 @@ class Model:
         return dec_mod.decoder_forward(
             params, self.cfg, batch["tokens"], want_cache=True,
             cache_len=cache_len, sliding_window=self.sliding_window,
-            attn_impl=self.attn_impl, ssm_impl=self.ssm_impl)
+            differentiable=self.differentiable)
 
     def decode_step(self, params, cache, tokens) -> Tuple[torch.Tensor, Dict]:
         """Logits ``[B, 1, V]`` of one token a sequence; writes the cache

@@ -21,10 +21,6 @@ import torch.nn.functional as F
 from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_decode_ref, ssd_scan
 from repro_torch.models.common import dense_init, rms_norm
 
-# a sequence's scan by name: the kernel op (serve, eval) and its
-# differentiable twin (training), the reference's ssm_impl
-SSM_IMPLS = {"kernel": ssd_scan, "chunked": ssd_chunked}
-
 
 def _dims(cfg):
     d_in = cfg.d_inner
@@ -121,12 +117,12 @@ def _gate_out(p, cfg, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
 
 
 def ssm_full(p, cfg, x: torch.Tensor, *, return_state: bool = False,
-             impl: str = "kernel"):
+             differentiable: bool = False):
     """x [B,S,D] -> y [B,S,D] (+ (conv_state [B,W-1,conv_dim], ssm_state
     [B,H,P,N] f32) for the serve hand-off). The scan's x, B and C are
     views of the conv output, which the kernel reads in place (under
-    vmap, its fold rule copies them). ``impl`` names the scan in
-    :data:`SSM_IMPLS`."""
+    vmap, its fold rule copies them). The scan is ``ssd_scan`` or, with
+    ``differentiable``, ``ssd_chunked``."""
     B, S, _ = x.shape
     d_in, H, P, G, N, conv_dim = _dims(cfg)
     W = cfg.ssm_conv_width
@@ -137,10 +133,9 @@ def ssm_full(p, cfg, x: torch.Tensor, *, return_state: bool = False,
     xs, Bm, Cm = _split_conv_out(u, cfg)
     dt = F.softplus(dt_raw.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
-    y, state = SSM_IMPLS[impl](xs.reshape(B, S, H, P), dt, A,
-                               Bm.reshape(B, S, G, N),
-                               Cm.reshape(B, S, G, N), p["D"],
-                               chunk=cfg.ssm_chunk)
+    scan = ssd_chunked if differentiable else ssd_scan
+    y, state = scan(xs.reshape(B, S, H, P), dt, A, Bm.reshape(B, S, G, N),
+                    Cm.reshape(B, S, G, N), p["D"], chunk=cfg.ssm_chunk)
     out = _gate_out(p, cfg, y.reshape(B, S, d_in), z)
     if return_state:
         # the last W-1 pre-conv rows, zero-padded in front when S < W-1
