@@ -148,6 +148,26 @@ toolkit (``nvcc``), and exits non-zero on the first phase that fails.
    run and on the same weights in f32). Host-clock and
    CUDA-graph device times as for qwen2, and the device time of one
    prefill and one decode step by kernel (``torch.profiler``).
+6. The moe and hybrid families, after every phase above, each through
+   the same serve code path with the same batch, prompt and generation
+   in bf16 (the prefill's MoE by capacity, decode dropless):
+   ``granite-moe-1b-a400m`` (24 layers, 32 experts top-8, D = 64) and
+   ``qwen3-moe-30b-a3b`` (48 layers, 128 experts top-8, D = 128,
+   qk-norm; 61.1 GB of weights) at full width and depth, their
+   ``param_count()`` the reference's; then one period of
+   ``jamba-1.5-large-398b``'s layout (8 layers: attention at slot 4, MoE
+   on the odd slots, 16 experts top-2) at a quarter of its d_model, d_ff
+   and heads, which a ``reduced`` line explains. Launches:
+   ``flash_attention`` once an attention layer and ``ssd_scan`` once a
+   mamba layer a prefill, ``decode_attention`` and its merge once an
+   attention layer a decode step, no other kernel; each kernel's last
+   call against its plain version; teacher forcing on the model rebuilt
+   with a dropless prefill, in bf16 and, where it fits, on the weights
+   upcast to f32; host and device times, the idle share and the
+   allocator peak (qwen3-moe's decode step also by kernel). Last, N: the
+   LM round of phase L on ``granite-moe-1b-a400m`` with 12 of its 24
+   layers (a ``reduced`` line gives the memory reckoning), held as L is,
+   and the global model's ``moe_aux``.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -261,9 +281,9 @@ LM_ARGS = ["--device", "cuda", "--dataset", "lm", "--users", "4",
            str(LM_ROUNDS)]
 M_LAYERS = 8
 LM_PHASES = (("L", ["--arch", "qwen2-0.5b"] + LM_ARGS, "flash_attention",
-              None),
+              {}),
              ("M", ["--arch", "mamba2-2.7b"] + LM_ARGS, "ssd_scan",
-              M_LAYERS))
+              {"num_layers": M_LAYERS}))
 # the durability phase: path E unbroken for DURABLE_ROUNDS rounds, against
 # DURABLE_SPLIT rounds, a checkpoint, a new trainer restoring it and the
 # rest; then the CLI killed by SIGTERM after its first checkpoint and
@@ -321,6 +341,35 @@ SSD_TOL = {"float32": dict(rtol=1e-3, atol=1e-3),
 SSM_TF_TOL, SSM_TF_MEAN_TOL = 1e-2, 1e-3
 SSM_TF_BF16_TOL, SSM_TF_BF16_MEAN_TOL = 1.0, 0.15
 
+# the moe and hybrid families (slice 12), after every earlier phase: serve
+# at the serve phases' batch, prompt and generation, bf16, weights from
+# the seed. granite-moe-1b-a400m and qwen3-moe-30b-a3b at full width and
+# depth (their param counts the reference's); Jamba's period stack as one
+# period of jamba-1.5-large-398b's layout (8 layers, attention at slot 4,
+# MoE on the odd slots, 16 experts top-2, head_dim 128, ssm_head_dim 64,
+# ssm_state 16) at a quarter of its d_model, d_ff and heads
+MOE_SERVE_ARGS = ["--device", "cuda", "--batch", "8", "--prompt-len", "512",
+                  "--gen", "32", "--temperature", "0", "--seed", "0"]
+JAMBA_PERIOD = dict(num_layers=8, d_model=2048, d_ff=6144, num_heads=16,
+                    num_kv_heads=2)
+# (label, arch, config overrides, the reference's count_params_analytic at
+# full width; None for the cut Jamba period)
+MOE_SERVES = (
+    ("granite serve", "granite-moe-1b-a400m", {}, 1_334_628_352),
+    ("qwen3-moe serve", "qwen3-moe-30b-a3b", {}, 30_532_122_624),
+    ("jamba period serve", "jamba-1.5-large-398b", JAMBA_PERIOD, None))
+# teacher forcing of a MoE model (its prefill dropless, as decode is): the
+# bf16 bounds of the dense serve phase would fail a step whose router
+# picks another expert than the full forward's for one token in one layer,
+# which bf16 rounding at other places may do (a pick near a tie moves the
+# output by the gap of two small gates); these leave that and still fail
+# a wrong expert bank or hand-off, which moves the logits by their std.
+# Jamba's bf16 run takes the Mamba2 phase's bounds; every model whose f32
+# copy fits is checked again in f32 at the Mamba2 f32 bounds
+MOE_TF_TOL, MOE_TF_MEAN_TOL = 0.5, 0.05
+# the LM round on granite-moe-1b-a400m: phase L's flags, 12 of 24 layers
+N_LAYERS = 12
+
 # published peaks by card (NVIDIA data sheets, dense): HBM bytes/s, fp32
 # FLOP/s outside the tensor cores, bf16 FLOP/s on the tensor cores
 PEAKS = {"H100 PCIe": (2.0e12, 51e12, 756e12),
@@ -372,6 +421,38 @@ def reset_counts(kernel_ops) -> None:
     for op in kernel_ops.values():
         op.launches = 0
     kernel_ops["decode_attention"].merge_launches = 0
+
+
+def free_memory(torch) -> None:
+    """Empty the allocator's cache, cuBLAS's workspaces first: cuBLAS
+    keeps a 32 MiB workspace for each stream a product ran on, cut from
+    the allocator's segments, and each pins its whole segment (before
+    phase N, 28 of them pinned 6.6 GiB; PERF.md, PR 22)."""
+    gc.collect()
+    torch.cuda.synchronize()
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is None:
+        print("this torch cannot free cuBLAS's workspaces")
+    else:
+        clear()
+    torch.cuda.empty_cache()
+
+
+def held_memory(torch, label, top=6) -> None:
+    """Print the allocator's segments that keep a live block
+    (``empty_cache`` frees only whole free segments): their count and
+    size, and the live blocks of the largest."""
+    segs = sorted((s for s in torch.cuda.memory_snapshot()
+                   if s["allocated_size"]), key=lambda s: -s["total_size"])
+    largest = "; ".join(
+        f"{s['total_size'] / 2**20:.0f} MiB holds " + str(
+            [b["size"] for b in s["blocks"]
+             if b["state"] == "active_allocated"])
+        for s in segs[:top])
+    print(f"{label}: {len(segs)} segments keep live blocks, "
+          f"{sum(s['total_size'] for s in segs) / 2**30:.3f} GiB reserved "
+          f"for {sum(s['allocated_size'] for s in segs) / 2**30:.3f} GiB "
+          f"live; largest: {largest or 'none'}")
 
 
 def _events(torch, run, reps: int) -> float:
@@ -1688,9 +1769,16 @@ def lm_fold_check(torch, label, op_name, captured, testers, clients, rows):
     return err
 
 
-def phase_lm(torch, card, label, argv, op_name, num_layers=None):
+# the caching allocator's counters a round of phase_lm prints: a retry
+# frees every cached block and synchronises the card before it allocates
+ALLOC_KEYS = ("num_alloc_retries", "num_device_alloc", "num_device_free")
+
+
+def phase_lm(torch, card, label, argv, op_name, overrides=None,
+             reduced_why=None):
     """The LM federated round through the train launcher's code path
-    (``build(parse_args(argv))``, ``num_layers`` cutting the depth):
+    (``build(parse_args(argv), **overrides)``, the overrides cutting the
+    depth):
     ``LM_ROUNDS`` rounds, each followed by the global accuracy. Every
     kernel's count is set to 0 just before the rounds; read around each
     step: local training launches nothing, a cross-test launches
@@ -1699,7 +1787,8 @@ def phase_lm(torch, card, label, argv, op_name, num_layers=None):
     ``weighted_aggregate`` once a table (2 a round: the bf16 leaves and
     the f32 ones); no other kernel runs. The last cross-test's first
     folded launch is captured and checked (:func:`lm_fold_check`).
-    Returns the numbers printed."""
+    ``reduced_why`` replaces the ``reduced`` line's reckoning. Returns
+    the numbers printed."""
     import repro_torch.kernels.flash_attention.ops as flash_ops
     import repro_torch.kernels.ssd_scan.ops as ssd_ops
     from repro_torch.configs import get_config
@@ -1708,13 +1797,11 @@ def phase_lm(torch, card, label, argv, op_name, num_layers=None):
     from repro_torch.models import build_model
     from repro_torch.utils import tree_leaves
 
-    gc.collect()
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
+    free_memory(torch)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     args = parse_args(argv)
-    trainer, data, cfg = build(args, num_layers=num_layers)
+    trainer, data, cfg = build(args, **(overrides or {}))
     state = trainer.init()
     torch.cuda.synchronize()
     fed, model = trainer.fed, trainer.model
@@ -1724,15 +1811,16 @@ def phase_lm(torch, card, label, argv, op_name, num_layers=None):
           and cfg.vocab_size == full.vocab_size,
           f"phase {label}: {cfg.name} at its published widths "
           f"({n_params} params)")
-    if num_layers is not None:
+    if overrides:
         full_params = build_model(full).param_count()
+        why = reduced_why or (
+            f"{fed.num_users} clients at 2 + 2 + 8 bytes a param (bf16 "
+            f"weights and gradients, AdamW's two f32 moments) take "
+            f"{full_params * fed.num_users * 12 / 1e9:.0f} GB at full "
+            f"depth, over the card's 80 GB")
         print(f"reduced: phase {label} runs {cfg.name} with {cfg.num_layers} "
               f"of its {full.num_layers} layers ({n_params:,} of "
-              f"{full_params:,} params, widths unchanged): {fed.num_users} "
-              f"clients at 2 + 2 + 8 bytes a param (bf16 weights and "
-              f"gradients, AdamW's two f32 moments) take "
-              f"{full_params * fed.num_users * 12 / 1e9:.0f} GB at full "
-              f"depth, over the card's 80 GB")
+              f"{full_params:,} params, widths unchanged): {why}")
     print(f"phase {label}: {cfg.name} ({n_params:,} params, {cfg.num_layers}"
           f" layers, d_model {cfg.d_model}, vocab {cfg.vocab_size}, "
           f"{cfg.dtype}), {fed.num_users} users, {fed.num_testers} testers, "
@@ -1802,10 +1890,13 @@ def phase_lm(torch, card, label, argv, op_name, num_layers=None):
     try:
         for _ in range(LM_ROUNDS):
             step_ms.clear()
+            before = torch.cuda.memory_stats()
             t = time.perf_counter()
             state, metrics = trainer.run_round(state, data)
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t) * 1e3)
+            after = torch.cuda.memory_stats()
+            churn = [after.get(k, 0) - before.get(k, 0) for k in ALLOC_KEYS]
             acc = global_eval(state, data)
             rest = walls[-1] - sum(v for k, v in step_ms.items()
                                    if k != "global_eval")
@@ -1837,7 +1928,10 @@ def phase_lm(torch, card, label, argv, op_name, num_layers=None):
                   + f", rest {rest:.2f})  local_loss {values[0]:.4f}  "
                   f"malicious_weight {values[1]:.5f}  global token acc "
                   f"{acc:.4f}  testers {testers[-1]}  weights "
-                  f"[{' '.join(f'{v:.4f}' for v in w.tolist())}]")
+                  f"[{' '.join(f'{v:.4f}' for v in w.tolist())}]  "
+                  f"allocator: retries {churn[0]}, cudaMalloc {churn[1]}, "
+                  f"cudaFree {churn[2]}, reserved "
+                  f"{after['reserved_bytes.all.current'] / 2**30:.3f} GiB")
     finally:
         module._launch = launch
     counts = {n: op.launches for n, op in kernel_ops.items()}
@@ -1860,10 +1954,26 @@ def phase_lm(torch, card, label, argv, op_name, num_layers=None):
                         fed.num_users, rows_per)
     folded = tuple(captured[0][0][0].shape)
     del captured
-    return {"wall_ms": walls, "malicious_weight": rows,
-            "launches": counts[op_name], "peak_bytes": peak,
-            "params": n_params, "layers": cfg.num_layers,
-            "folded_shape": folded, "fold_max_abs_err": err}
+    out = {"wall_ms": walls, "malicious_weight": rows,
+           "launches": counts[op_name], "peak_bytes": peak,
+           "params": n_params, "layers": cfg.num_layers,
+           "folded_shape": folded, "fold_max_abs_err": err}
+    if cfg.has_moe:
+        # the global model's loss on 16 global sequences, with the MoE
+        # load-balance loss it adds (the capacity route, as in training)
+        with torch.no_grad():
+            loss, m = model.loss(state.global_params,
+                                 {"tokens": data.global_x[:16],
+                                  "labels": data.global_y[:16]})
+        out.update(loss=float(loss), nll=float(m["nll"]),
+                   moe_aux=float(m["moe_aux"]))
+        check(all(math.isfinite(out[k]) for k in ("loss", "nll", "moe_aux")),
+              f"phase {label}: finite loss and moe_aux")
+        print(f"phase {label}: the global model's loss {out['loss']:.5f} = "
+              f"nll {out['nll']:.5f} + {cfg.router_aux_coef} x moe_aux "
+              f"{out['moe_aux']:.5f} (summed over {cfg.num_layers} MoE "
+              f"layers; 1.0 a layer is balanced)")
+    return out
 
 
 def _ids(ids, show=12):
@@ -2869,7 +2979,283 @@ def phase_ssm_serve(torch, card):
     return counts, numbers
 
 
+def phase_moe_serve(torch, card, label, arch, overrides, reference_params):
+    """A moe or hybrid LM in bf16 through the serve launcher's code path
+    (``build(args, **overrides)``, then ``serve``), as ``phase_serve``
+    drives qwen2-0.5b: one warm-up pass, then the measured pass with every
+    kernel count set to 0 just before it, read after the prefill and
+    again after the decode steps. The prefill routes the MoE by capacity,
+    decode dropless. Launches: ``flash_attention`` once an attention
+    layer a prefill, ``ssd_scan`` once a mamba layer a prefill,
+    ``decode_attention`` and its merge once an attention layer a decode
+    step, no other kernel. Each kernel's last call is held against its
+    plain version on its own inputs; decode step 1 of the model rebuilt
+    with a dropless prefill against its full forward (teacher forcing),
+    in bf16 and, where the model's f32 copy fits, in f32. Prints host and
+    device (CUDA graph) times, the idle share and the allocator peak.
+    Returns the numbers printed."""
+    import dataclasses as dc
+    import repro_torch.models.attention as attn_mod
+    import repro_torch.models.ssm as ssm_mod
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import decode_attention_ref
+    from repro_torch.kernels.flash_attention import attention_ref
+    from repro_torch.kernels.ssd_scan import ssd_ref
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import build_model
+    from repro_torch.utils import tree_leaves, tree_map
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    args = serve_mod.parse_args(["--arch", arch] + MOE_SERVE_ARGS)
+    model, params, tokens, gen = serve_mod.build(args, **overrides)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    cfg = model.cfg
+    n_params = model.param_count(params)
+    check(n_params == cfg.param_count(),
+          f"{label}: {n_params} params, the analytic count "
+          f"{cfg.param_count()}")
+    if reference_params is not None:
+        check(n_params == reference_params,
+              f"{label}: {cfg.name} has {n_params} params, the reference "
+              f"counts {reference_params}")
+        print(f"{label}: param_count() {cfg.param_count():,} (the "
+              f"reference's count_params_analytic: {reference_params:,}), "
+              f"active {cfg.active_param_count():,}")
+    else:
+        full = get_config(arch)
+        period = full.replace(num_layers=overrides["num_layers"])
+        print(f"reduced: {label} runs one period of {full.name}'s layout "
+              f"({cfg.num_layers} layers: attention at slot "
+              f"{cfg.attn_offset}, MoE on the odd slots, {cfg.num_experts} "
+              f"experts top-{cfg.num_experts_per_tok}) with its head_dim "
+              f"{cfg.head_dim}, ssm_head_dim {cfg.ssm_head_dim} and "
+              f"ssm_state {cfg.ssm_state}, at a quarter of its d_model, d_ff "
+              f"and heads ({cfg.d_model}, {cfg.d_ff}, {cfg.num_heads}/"
+              f"{cfg.num_kv_heads}): {n_params:,} params. One period at its "
+              f"published widths is {period.param_count():,} params, "
+              f"{period.param_count() * 2 / 1e9:.1f} GB in bf16, over the "
+              f"card's 80 GB; the whole model {full.param_count():,}")
+    slots = params["layers"]
+    routers = [sl["moe"]["router"] for sl in slots.values() if "moe" in sl]
+    banks = [sl["moe"][n] for sl in slots.values() if "moe" in sl
+             for n in ("w_gate", "w_up", "w_down")]
+    check(routers and all(r.dtype == torch.float32 for r in routers)
+          and all(b.dtype == torch.bfloat16 for b in banks)
+          and params["embed"].dtype == torch.bfloat16,
+          f"{label}: f32 routers, bf16 expert banks and embedding")
+    attn_layers = sum(cfg.uses_attention(i) for i in range(cfg.num_layers))
+    mamba_layers = cfg.num_layers - attn_layers
+    B, S = tokens.shape
+    print(f"{label}: {cfg.name} ({n_params:,} params, {cfg.num_layers} "
+          f"layers: {attn_layers} attention, {mamba_layers} mamba, "
+          f"{sum(cfg.uses_moe(i) for i in range(cfg.num_layers))} MoE of "
+          f"{cfg.num_experts} experts top-{cfg.num_experts_per_tok}; "
+          f"d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads "
+          f"of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"{cfg.dtype}), batch {B}, prompt {S}, gen {args.gen}; set-up "
+          f"{t_build:.2f} s, {torch.cuda.memory_allocated() / 2**30:.3f} "
+          f"GiB allocated")
+
+    seen = {}
+
+    def recorder(name, fn):
+        def run(*a, **kw):
+            out = fn(*a, **kw)
+            seen[name] = (a, kw, out)
+            return out
+        return run
+
+    kernel_ops = ops()
+    finite, step1, prefill_counts = [], {}, {}
+
+    def on_step(i, logits):
+        finite.append(torch.isfinite(logits).all())
+        if i == 0:
+            prefill_counts.update(
+                {name: op.launches for name, op in kernel_ops.items()})
+            prefill_counts["decode_attention merge"] = (
+                kernel_ops["decode_attention"].merge_launches)
+        if i == 1:
+            step1["logits"] = logits[:, 0].float().clone()
+
+    originals = (attn_mod.flash_attention, attn_mod.decode_attention,
+                 ssm_mod.ssd_scan)
+    attn_mod.flash_attention = recorder("flash", originals[0])
+    attn_mod.decode_attention = recorder("decode", originals[1])
+    ssm_mod.ssd_scan = recorder("ssd", originals[2])
+    try:
+        warm = serve_mod.serve(model, params, tokens, args.gen,
+                               args.temperature, gen)
+        del warm
+        finite.clear()
+        torch.cuda.synchronize()
+        reset_counts(kernel_ops)
+        res = serve_mod.serve(model, params, tokens, args.gen,
+                              args.temperature, gen, on_step=on_step)
+        counts = {name: op.launches for name, op in kernel_ops.items()}
+        counts["decode_attention merge"] = (
+            kernel_ops["decode_attention"].merge_launches)
+    finally:
+        (attn_mod.flash_attention, attn_mod.decode_attention,
+         ssm_mod.ssd_scan) = originals
+    steps = args.gen - 1
+    want_prefill = {name: 0 for name in counts}
+    want_prefill.update({"flash_attention": attn_layers,
+                         "ssd_scan": mamba_layers})
+    want = dict(want_prefill, **{"decode_attention": steps * attn_layers,
+                                 "decode_attention merge":
+                                     steps * attn_layers})
+    check(prefill_counts == want_prefill and counts == want,
+          f"{label} launches: prefill {prefill_counts}, whole pass "
+          f"{counts}; want {want_prefill}, {want}")
+    print(f"{label} launches: prefill {prefill_counts}; whole pass {counts} "
+          f"(flash: 1 prefill x {attn_layers} attention layers; ssd_scan: 1 "
+          f"prefill x {mamba_layers} mamba layers; decode: {steps} steps x "
+          f"{attn_layers} attention layers)")
+    check(len(finite) == args.gen and all(bool(f) for f in finite),
+          f"{label}: finite logits at the prefill and every decode step")
+    gen_tokens = res["tokens"]
+    check(gen_tokens.shape == (B, args.gen)
+          and bool(((gen_tokens >= 0) & (gen_tokens < cfg.vocab_size))
+                   .all()), f"tokens {tuple(gen_tokens.shape)} in range")
+
+    # each kernel's last call against its plain version on its own inputs
+    worst = {}
+    (q, k, v), kw, got = seen["flash"]
+    want_out = attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want_out.float(),
+                               **ATTN_TOL["bfloat16"])
+    worst["flash"] = float((got.float() - want_out.float()).abs().max())
+    shapes = {"flash q": tuple(q.shape)}
+    (q, kc, vc, lengths), kw, (out, lse) = seen["decode"]
+    want_o, want_l = decode_attention_ref(q, kc, vc, lengths, **kw)
+    torch.testing.assert_close(out.float(), want_o.float(),
+                               **ATTN_TOL["bfloat16"])
+    torch.testing.assert_close(lse, want_l, **ATTN_TOL["float32"])
+    worst["decode out"] = float((out.float() - want_o.float()).abs().max())
+    worst["decode lse"] = float((lse - want_l).abs().max())
+    check(int(lengths.min()) == int(lengths.max()) == S + steps,
+          f"{label}: the last decode step attends {S + steps} keys")
+    shapes["decode cache"] = tuple(kc.shape)
+    if mamba_layers:
+        (x, dt, A, Bm, Cm, D), kw, (y, st) = seen["ssd"]
+        check(tuple(x.shape) == (B, S, cfg.ssm_heads, cfg.ssm_head_dim)
+              and tuple(Bm.shape[2:]) == (cfg.ssm_ngroups, cfg.ssm_state),
+              f"{label}: the last scan's x {tuple(x.shape)}, B "
+              f"{tuple(Bm.shape)}")
+        _hold_ssd(torch, (y, st), ssd_ref(x, dt, A, Bm, Cm, D),
+                  torch.bfloat16, worst)
+        shapes["ssd_scan"] = tuple(x.shape) + (cfg.ssm_state,)
+    print(f"{label}: the last layer's last prefill and decode kernel calls "
+          f"== plain versions on their own inputs (shapes {shapes}; max "
+          f"|err| {worst})")
+    seen.clear()
+
+    # teacher forcing, on the model rebuilt with a dropless prefill
+    dropless = dc.replace(model, moe_dropless=True)
+    bf16_tol = ((SSM_TF_BF16_TOL, SSM_TF_BF16_MEAN_TOL) if mamba_layers
+                else (MOE_TF_TOL, MOE_TF_MEAN_TOL))
+
+    def step1_of(m, p):
+        _, cache = m.prefill(p, {"tokens": tokens}, cache_len=S + 2)
+        lg, _ = m.decode_step(p, cache, gen_tokens[:, :1])
+        return lg[:, 0].float()
+
+    tf = {"bf16": serve_teacher_forcing(
+        torch, f"{label} (bf16, dropless prefill)", dropless, params,
+        tokens, gen_tokens, step1_of(dropless, params), *bf16_tol)}
+    peak_serve = torch.cuda.max_memory_allocated()
+    if 4 * n_params < 24 * 2**30:
+        model32 = build_model(cfg.replace(dtype="float32"),
+                              moe_dropless=True)
+        params32 = tree_map(lambda t: t.float(), params)
+        tf["f32"] = serve_teacher_forcing(
+            torch, f"{label} (f32 weights, dropless prefill)", model32,
+            params32, tokens, gen_tokens, step1_of(model32, params32),
+            SSM_TF_TOL, SSM_TF_MEAN_TOL)
+        del params32
+    numbers = serve_numbers(torch, label, model, params, tokens, res,
+                            args.gen, card)
+    numbers.update(params=n_params, teacher_forcing=tf,
+                   launches=counts, peak_bytes=peak_serve,
+                   build_s=t_build, max_abs_err=worst)
+    weights = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    print(f"{label}: allocator peak {peak_serve / 2**30:.3f} GiB over the "
+          f"serve passes and the bf16 teacher forcing "
+          f"({weights / 2**30:.3f} GiB of weights; {card})")
+    if reference_params is not None and cfg.num_experts >= 64:
+        cache, last = res["cache"], gen_tokens[:, -1:]
+        numbers["decode_step_by_kernel"] = device_breakdown(
+            torch, f"{label} decode step", lambda: model.decode_step(
+                params, cache, last))
+    del res, params
+    return numbers
+
+
+def adamw_round_bytes(cfg, users: int) -> int:
+    """Bytes the LM round's local phase holds at AdamW's step, about (every
+    leaf counted at 2 bytes where it is bf16): each client's bf16 weights,
+    gradients and new weights (6 bytes a param), its old and new f32
+    moments (16), and two f32 temporaries of its largest leaf (the step's
+    update and the f32 copy of the weights); beside them the global bf16
+    weights."""
+    from repro_torch.models import build_model
+    from repro_torch.utils import tree_leaves
+
+    n = cfg.param_count()
+    largest = max(math.prod(s) for s in
+                  tree_leaves(build_model(cfg).param_shapes()))
+    return users * (22 * n + 8 * largest) + 2 * n
+
+
+def phase_moe_round(torch, card):
+    """The LM round on granite-moe-1b-a400m (phase N): phase L's flags
+    through the train launcher with ``N_LAYERS`` of its 24 layers, checked
+    as ``phase_lm`` checks L (training launches no kernel, a cross-test
+    and the global eval launch ``flash_attention`` once a layer, folded,
+    ``weighted_aggregate`` twice a round, the folded launch equal to its
+    blocks bitwise), and the global model's ``moe_aux`` printed. What
+    this process still holds and the card's free memory are printed
+    first: the round's peak leaves about 12 GiB of the card."""
+    from repro_torch.configs import get_config
+
+    free_memory(torch)
+    held_memory(torch, "phase N")
+    free, total = torch.cuda.mem_get_info()
+    print(f"phase N: this process holds "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated, "
+          f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB reserved; the "
+          f"card has {free / 2**30:.3f} of {total / 2**30:.3f} GiB free "
+          f"({card})")
+    arch = "granite-moe-1b-a400m"
+    argv = ["--arch", arch] + LM_ARGS
+    users = int(LM_ARGS[LM_ARGS.index("--users") + 1])
+    full = get_config(arch)
+    cut = full.replace(num_layers=N_LAYERS)
+    why = (f"{users} clients at AdamW's step hold about "
+           f"{adamw_round_bytes(full, users) / 2**30:.1f} GiB at full depth "
+           f"(bf16 weights, gradients and new weights, the old and the new "
+           f"f32 moments: 22 bytes a param; two f32 temporaries of the "
+           f"largest leaf; the global weights), over the card's 80 GB; "
+           f"{N_LAYERS} layers hold about "
+           f"{adamw_round_bytes(cut, users) / 2**30:.1f} GiB (the allocator "
+           f"peak below adds the activations)")
+    return phase_lm(torch, card, "N", argv, "flash_attention",
+                    {"num_layers": N_LAYERS}, reduced_why=why)
+
+
 def main() -> int:
+    # every phase on the allocator's expandable segments: with fixed
+    # segments the LM rounds' AdamW steps fragmented the cache up to the
+    # card's 80 GB, retrying allocations in a slow round, and phase L ran
+    # out of memory at 63.9 GiB allocated (on PR 21's tree as well;
+    # PERF.md, PR 22). Set before torch starts its allocator.
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -2923,8 +3309,8 @@ def main() -> int:
         elif per_round:
             adversary[path] = per_round
     # the LM round, after path G: qwen2-0.5b (L), then Mamba2 (M)
-    lm = {label: phase_lm(torch, card, label, argv, op_name, layers)
-          for label, argv, op_name, layers in LM_PHASES}
+    lm = {label: phase_lm(torch, card, label, argv, op_name, overrides)
+          for label, argv, op_name, overrides in LM_PHASES}
     rows.update(phase_fold_times(torch, peaks, lm))
     population["ci"] = phase_population_ci(torch, card)
     launches["weighted_aggregate"] += population["ci"]["launches"]
@@ -2958,6 +3344,12 @@ def main() -> int:
         phase_serve_checkpoint(torch, card, scratch)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
+    # the moe and hybrid families, last: granite and qwen3-moe served at
+    # full width and depth, Jamba's period, then the LM round on granite
+    moe = {label: phase_moe_serve(torch, card, label, arch, overrides,
+                                  n_ref)
+           for label, arch, overrides, n_ref in MOE_SERVES}
+    moe["N"] = phase_moe_round(torch, card)
 
     def entry(name, path_rows, shape, n=None):
         def total(key):    # None where no PyTorch call computes the same
@@ -3025,7 +3417,10 @@ def main() -> int:
     for label in lm:
         print(f"phase {label} round wall ms: "
               f"{[round(t, 3) for t in lm[label]['wall_ms']]} ({card})")
-    print(json.dumps({"lm": lm, "serve": serve_out, "ssm_serve": ssm_out,
+    print(f"phase N round wall ms: "
+          f"{[round(t, 3) for t in moe['N']['wall_ms']]} ({card})")
+    print(json.dumps({"lm": lm, "moe": moe, "serve": serve_out,
+                      "ssm_serve": ssm_out,
                       "reproducible_path_a": repro,
                       "comparison": comparison, "adversary": adversary,
                       "population": population,

@@ -1,4 +1,5 @@
 from repro_torch.config.base import (
-    FedConfig, ModelConfig, TrainConfig, reduce_for_smoke)
+    LM_FAMILIES, FedConfig, ModelConfig, TrainConfig, reduce_for_smoke)
 
-__all__ = ["FedConfig", "ModelConfig", "TrainConfig", "reduce_for_smoke"]
+__all__ = ["LM_FAMILIES", "FedConfig", "ModelConfig", "TrainConfig",
+           "reduce_for_smoke"]

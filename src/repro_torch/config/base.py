@@ -1,9 +1,10 @@
 """Config dataclasses of the port (counterpart of ``repro/config/base.py``).
 
 ``ModelConfig`` carries the fields of the families the port runs: the
-paper's classifiers ``cnn`` and ``mlp``, the ``dense`` decoder-only LM
-and the attention-free Mamba2 ``ssm`` stack. The other LM families are
-refused with the ``ROADMAP.md`` item that ports them. ``FedConfig`` keeps
+paper's classifiers ``cnn`` and ``mlp``, the decoder-only LMs ``dense``
+and ``moe``, the attention-free Mamba2 ``ssm`` stack and the Jamba-style
+``hybrid`` interleave. The other LM families are refused with the
+``ROADMAP.md`` item that ports them. ``FedConfig`` keeps
 every field of the reference's, with its names, defaults and checks
 (``server_test_fraction`` is read by nothing, in the reference too, and
 comes over inert). ``cohort`` > 0 is the population tier's slot capacity
@@ -21,14 +22,15 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
+# the decoder-LM families the port runs (served, and in the LM round)
+LM_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+
 # LM families the reference runs and the port does not yet, each with the
 # ROADMAP.md item that ports it
 _FAMILIES_NOT_PORTED = {
-    "moe": "queue 1 item 16 (models/moe.py)",
-    "hybrid": "queue 1 item 16 (models/moe.py and the decoder's stack of "
-              "attention/mamba periods)",
-    "encdec": "queue 1 item 16 (models/encdec.py, cross-attention)",
-    "vlm": "queue 1 item 16 (models/frontend_stub.py)",
+    "encdec": "queue 1 item 16, the next slice (models/encdec.py, "
+              "cross-attention)",
+    "vlm": "queue 1 item 16, the next slice (models/frontend_stub.py)",
 }
 
 
@@ -39,7 +41,11 @@ class ModelConfig:
 
     * ``dense`` — decoder-only transformer (GQA, optional qk-norm and
       qkv-bias, RoPE, SwiGLU, RMSNorm).
+    * ``moe`` — decoder-only with a top-k mixture-of-experts FFN on the
+      layers where ``layer_idx % moe_every == moe_offset``.
     * ``ssm`` — attention-free Mamba2 (SSD) stack.
+    * ``hybrid`` — Jamba-style Mamba/attention interleave (attention
+      where ``layer_idx % attn_every == attn_offset``) with periodic MoE.
     * ``cnn`` — 3x3 conv + relu + 2x2 max-pool per entry of
       ``cnn_channels``, then two dense layers (Sec. III).
     * ``mlp`` — the MNIST fully-connected classifier.
@@ -62,6 +68,13 @@ class ModelConfig:
     sliding_window: Optional[int] = None  # None = full causal attention
     max_position: int = 131_072
 
+    # --- mixture of experts -------------------------------------------------
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    moe_every: int = 1          # a layer uses MoE FFN iff layer_idx % moe_every == moe_offset
+    moe_offset: int = 0
+    router_aux_coef: float = 0.01
+
     # --- state-space (Mamba2 / SSD) ------------------------------------------
     ssm_state: int = 0
     ssm_head_dim: int = 64
@@ -69,6 +82,10 @@ class ModelConfig:
     ssm_conv_width: int = 4
     ssm_chunk: int = 256
     ssm_ngroups: int = 1
+
+    # --- hybrid interleave (Jamba) -------------------------------------------
+    attn_every: int = 0         # attention layer iff layer_idx % attn_every == attn_offset
+    attn_offset: int = 0
 
     # --- cnn / mlp (the paper's classifiers) --------------------------------
     image_size: int = 0
@@ -89,8 +106,8 @@ class ModelConfig:
             raise ValueError(
                 f"family {self.family!r} is not ported yet (ROADMAP.md "
                 f"{_FAMILIES_NOT_PORTED[self.family]}); the port runs "
-                "'dense', 'ssm', 'cnn' and 'mlp'")
-        _require(self.family in ("dense", "ssm", "cnn", "mlp"),
+                "'dense', 'moe', 'ssm', 'hybrid', 'cnn' and 'mlp'")
+        _require(self.family in LM_FAMILIES + ("cnn", "mlp"),
                  f"unknown family {self.family!r}")
         if self.family == "ssm":
             _require(self.ssm_state > 0, f"{self.name}: ssm needs state size")
@@ -99,7 +116,7 @@ class ModelConfig:
                      f"{self.name}: ssm needs num_layers, d_model and "
                      "vocab_size")
             return
-        if self.family == "dense":
+        if self.family in ("dense", "moe", "hybrid"):
             _require(self.num_heads > 0 and self.num_kv_heads > 0,
                      f"{self.name}: attention archs need heads")
             _require(self.num_heads % self.num_kv_heads == 0,
@@ -108,8 +125,15 @@ class ModelConfig:
             _require(self.num_layers > 0 and self.d_model > 0
                      and self.head_dim > 0 and self.d_ff > 0
                      and self.vocab_size > 0,
-                     f"{self.name}: dense needs num_layers, d_model, "
-                     "head_dim, d_ff and vocab_size")
+                     f"{self.name}: {self.family} needs num_layers, "
+                     "d_model, head_dim, d_ff and vocab_size")
+            if self.family == "moe":
+                _require(self.num_experts > 0
+                         and self.num_experts_per_tok > 0,
+                         f"{self.name}: moe needs experts")
+            if self.family == "hybrid":
+                _require(self.attn_every > 0,
+                         f"{self.name}: hybrid needs attn_every")
             return
         _require(self.num_classes > 0 and self.image_size > 0,
                  f"{self.name}: needs num_classes and image_size")
@@ -128,6 +152,10 @@ class ModelConfig:
         return self.family == "ssm"
 
     @property
+    def has_moe(self) -> bool:
+        return self.num_experts > 0
+
+    @property
     def d_inner(self) -> int:
         """Mamba2 inner width."""
         return self.ssm_expand * self.d_model
@@ -137,23 +165,39 @@ class ModelConfig:
         return self.d_inner // self.ssm_head_dim if self.ssm_state else 0
 
     def uses_attention(self, layer_idx: int) -> bool:
-        """Every layer of the dense family attends; no ssm layer does."""
-        return self.family == "dense"
+        if self.family == "ssm":
+            return False
+        if self.family == "hybrid":
+            return layer_idx % self.attn_every == self.attn_offset
+        return True
 
     def uses_moe(self, layer_idx: int) -> bool:
-        """No family the port runs has a mixture-of-experts FFN."""
-        return False
+        if not self.has_moe:
+            return False
+        return layer_idx % self.moe_every == self.moe_offset
 
     def replace(self, **kw: Any) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+    def param_count(self) -> int:
+        """Analytic parameter count, from the param tree's shapes."""
+        from repro_torch.models.params import count_params_analytic
+        return count_params_analytic(self)
+
+    def active_param_count(self) -> int:
+        """As :meth:`param_count`, each expert bank counted at
+        ``num_experts_per_tok`` of its ``num_experts`` experts."""
+        from repro_torch.models.params import count_params_analytic
+        return count_params_analytic(self, active_only=True)
 
 
 def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:
     """Reduced variant of the same family for CPU smoke tests (the
     reference's ``reduce_for_smoke`` for the families the port runs):
     at most 2 layers, d_model <= 256, vocab <= 512, at most 4 query
-    heads of width 32, d_ff <= 512; an SSM state <= 16 in heads of 32,
-    chunk 32."""
+    heads of width 32, d_ff <= 512, at most 4 experts (top-2); an SSM
+    state <= 16 in heads of 32, chunk 32; a hybrid stack keeps one
+    attention layer of its two (``attn_every`` 2, offset 1)."""
     kw: dict = dict(
         name=cfg.name + "-smoke",
         num_layers=min(cfg.num_layers, 2),
@@ -169,9 +213,15 @@ def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:
         kw.update(num_heads=heads, num_kv_heads=kv, head_dim=32)
     if cfg.d_ff:
         kw.update(d_ff=min(cfg.d_ff, 512))
+    if cfg.num_experts:
+        kw.update(num_experts=min(cfg.num_experts, 4),
+                  num_experts_per_tok=min(cfg.num_experts_per_tok, 2))
     if cfg.ssm_state:
         kw.update(ssm_state=min(cfg.ssm_state, 16), ssm_head_dim=32,
                   ssm_chunk=32)
+    if cfg.family == "hybrid":
+        # keep one attention layer in the 2-layer smoke stack
+        kw.update(attn_every=2, attn_offset=1, moe_every=cfg.moe_every)
     if cfg.family == "cnn":
         kw.update(cnn_channels=tuple(min(c, 16) for c in cfg.cnn_channels),
                   cnn_hidden=min(cfg.cnn_hidden, 64))

@@ -1,4 +1,4 @@
-"""Model configs (the cnn/mlp, dense and ssm subset of ``repro.configs``)
+"""Model configs (``repro.configs`` less the encdec and vlm families)
 and the named federated scenarios.
 
 Each model module defines ``config() -> ModelConfig`` with the values of

@@ -1,5 +1,5 @@
 """Arch-id -> ModelConfig registry: the paper's three classifiers and the
-LMs the port serves (dense and Mamba2)."""
+LMs the port serves (dense, moe, Mamba2 and the Jamba hybrid)."""
 from __future__ import annotations
 
 import importlib
@@ -14,15 +14,20 @@ ARCH_IDS: Dict[str, str] = {
     "fedtest-mlp-mnist": "fedtest_mlp_mnist",
     "qwen2-0.5b": "qwen2_0p5b",
     "qwen3-1.7b": "qwen3_1p7b",
+    "qwen2-72b": "qwen2_72b",
+    "qwen1.5-110b": "qwen1p5_110b",
+    "granite-moe-1b-a400m": "granite_moe_1b_a400m",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "mamba2-2.7b": "mamba2_2p7b",
+    "jamba-1.5-large-398b": "jamba_1p5_large_398b",
 }
 
 
 def get_config(arch_id: str) -> ModelConfig:
     if arch_id not in ARCH_IDS:
         raise KeyError(f"unknown arch {arch_id!r}; the port has "
-                       f"{sorted(ARCH_IDS)} (the other LM configs: "
-                       "ROADMAP.md queue 1 item 16)")
+                       f"{sorted(ARCH_IDS)} (whisper-base and "
+                       "pixtral-12b: ROADMAP.md queue 1 item 16)")
     mod = importlib.import_module(f"repro_torch.configs.{ARCH_IDS[arch_id]}")
     return mod.config()
 

@@ -28,8 +28,10 @@ def params_from_reference(tree_of_numpy: Dict[str, Any], device, *,
     """Nested dict of numpy arrays (the JAX package's params) -> nested
     dict of tensors on ``device``, each leaf in its dtype in
     ``model.param_dtypes()``: the model's dtype, and f32 for the LMs'
-    RMSNorm scales and the mamba block's ``dt_bias``, ``A_log`` and ``D``,
-    which the reference keeps in f32 in a bf16 model.
+    RMSNorm scales, the MoE router and the mamba block's ``dt_bias``,
+    ``A_log`` and ``D``, which the reference keeps in f32 in a bf16
+    model. The decoder's tree is the reference's, period slots and all
+    (``layers/slot_0 .. slot_{period-1}``).
     Refuses a missing or extra leaf and a shape mismatch against
     ``model.param_shapes()``. A bf16 leaf arrives as an ``ml_dtypes``
     bfloat16 array and goes through f32, which holds it exactly."""
@@ -101,8 +103,8 @@ def state_from_reference_checkpoint(path: str, trainer) -> RoundState:
     agree with ``trainer``'s on ``arch``, ``fed``, ``use_trust`` and the
     ``train`` fields both packages have; ``ValueError`` names what
     differs. Not compared: ``model``, since the reference's
-    ``ModelConfig`` has fields the port lacks (the moe, hybrid, encdec
-    and vlm families, ROADMAP.md queue 1 item 16) and the port's has the
+    ``ModelConfig`` has fields the port lacks (the encdec and vlm
+    families, ROADMAP.md queue 1 item 16) and the port's has the
     classifiers' own; ``train.remat`` and ``train.seed``, which the
     port's ``TrainConfig`` lacks; ``family`` and ``manifest_version``."""
     man = os.path.join(os.path.dirname(os.path.abspath(path)), MANIFEST_NAME)

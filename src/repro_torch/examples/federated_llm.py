@@ -12,6 +12,12 @@ kernel ops).
   PYTHONPATH=src python -m repro_torch.examples.federated_llm
   PYTHONPATH=src python -m repro_torch.examples.federated_llm \\
       --arch mamba2-2.7b --malicious 1 --device cpu
+  PYTHONPATH=src python -m repro_torch.examples.federated_llm \\
+      --arch granite-moe-1b-a400m --malicious 1 --device cpu
+
+``--arch`` takes any LM of the port's registry (dense, moe, ssm,
+hybrid); a MoE model trains and cross-tests on the capacity route and
+serves its continuation dropless.
 
 It runs on the card unless given ``--device cpu``, and raises without one.
 """

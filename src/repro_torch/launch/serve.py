@@ -1,19 +1,23 @@
 """Batched serving entry point of the port: prefill a prompt batch, then
-decode token by token (the dense and ssm side of ``repro.launch.serve``).
+decode token by token (the decoder-LM side of ``repro.launch.serve``).
 
-Serves a dense or Mamba2 LM at full width on the card by default, with
-weights drawn from ``--seed``:
+Serves a dense, moe, Mamba2 or hybrid LM at full width on the card by
+default, with weights drawn from ``--seed``:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
       --batch 8 --prompt-len 512 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \\
       --batch 8 --prompt-len 512 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch granite-moe-1b-a400m --batch 8 --prompt-len 512 --gen 32
 
-For a dense LM, prefill runs each layer's attention through the
-``flash_attention`` kernel, decode through ``decode_attention``; for
-Mamba2, prefill runs each layer's scan through the ``ssd_scan`` kernel
-and decode steps the recurrence in plain torch. ``--device cpu --smoke``
-runs the reduced config in f32 on the CPU (the kernels' plain versions);
+Prefill runs each attention layer through the ``flash_attention``
+kernel, decode through ``decode_attention``; prefill runs each mamba
+layer's scan through the ``ssd_scan`` kernel and decode steps the
+recurrence in plain torch. A MoE layer routes the prefill by capacity
+(groups of 512 tokens) and decode dropless, as the reference's server
+does. ``--device cpu --smoke`` runs the reduced config in f32 on the CPU
+(the kernels' plain versions);
 ``--device cuda`` without a card raises. Prompt tokens and sampling come
 from a ``torch.Generator``, so the tokens differ from the reference's
 JAX draws.
@@ -37,7 +41,7 @@ import torch
 
 from repro_torch.checkpoint import (
     CheckpointManager, params_tree, read_leaves)
-from repro_torch.config import reduce_for_smoke
+from repro_torch.config import LM_FAMILIES, reduce_for_smoke
 from repro_torch.configs import get_config, list_configs
 from repro_torch.convert import params_from_reference
 from repro_torch.core.engine import resolve_device
@@ -97,16 +101,19 @@ def load_serving_params(mgr: CheckpointManager, model, arch: str = None,
         params_tree(read_leaves(path)), device, model=model))
 
 
-def build(args: argparse.Namespace):
+def build(args: argparse.Namespace, **overrides):
     """(model, params, prompt tokens [B, S] int32, generator) for the
     parsed flags, on the run's device. With ``--ckpt-dir`` the params
     are the newest checkpoint's and the prompt is drawn from ``--seed``
-    as the first draw."""
+    as the first draw. ``overrides`` replace fields of the arch's config
+    (a cut of its depth or widths) before ``--smoke``."""
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
+    if overrides:
+        cfg = cfg.replace(**overrides)
     if args.smoke:
         cfg = reduce_for_smoke(cfg).replace(dtype="float32")
-    if cfg.family not in ("dense", "ssm"):
+    if cfg.family not in LM_FAMILIES:
         raise SystemExit(f"{cfg.name} ({cfg.family}) has no serving path")
     model = build_model(cfg)
     gen = torch.Generator(device=device).manual_seed(args.seed)

@@ -23,9 +23,9 @@ Runs the FedTest round on the card by default:
   PYTHONPATH=src python -m repro_torch.launch.train --population 4096 \\
       --cohort 32 --testers 8 --testers-from-cohort --rounds 12
 
-  # an LM round (the dense or ssm family) on synthetic topic-skewed
-  # token shards; local training differentiates the kernels' twins,
-  # cross-testing runs flash_attention / ssd_scan
+  # an LM round (the dense, moe, ssm or hybrid family) on synthetic
+  # topic-skewed token shards; local training differentiates the
+  # kernels' twins, cross-testing runs flash_attention / ssd_scan
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
       --dataset lm --users 4 --testers 2 --malicious 1 --local-steps 8 \\
       --batch 16 --optimizer adamw --lr 2e-3 --rounds 3
@@ -46,13 +46,13 @@ import json
 import os
 import signal
 import time
-from typing import Optional
 
 import numpy as np
 import torch
 
 from repro_torch.checkpoint import CheckpointManager
-from repro_torch.config import FedConfig, TrainConfig, reduce_for_smoke
+from repro_torch.config import (
+    LM_FAMILIES, FedConfig, TrainConfig, reduce_for_smoke)
 from repro_torch.configs import (
     get_config, get_scenario, list_configs, list_scenarios,
     scenario_for_population)
@@ -281,21 +281,22 @@ def fed_config(args: argparse.Namespace) -> FedConfig:
     return FedConfig(**{**_FED_CLI_DEFAULTS, **passed})
 
 
-def build(args: argparse.Namespace, *, num_layers: Optional[int] = None):
+def build(args: argparse.Namespace, **overrides):
     """(trainer, data, model config) for the parsed flags; the data keep
     the server's held-out split (``server_x`` / ``server_y``) that
     ``accuracy_based`` evaluates on. With ``--population`` the trainer is
     a ``PopulationTrainer`` and the data its ``DensePopulationData``
-    view. ``num_layers`` cuts the arch's depth (its widths stay)."""
+    view. ``overrides`` replace fields of the arch's config (a cut of its
+    depth) before ``--smoke``, as ``launch.serve.build``'s do."""
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.dataset == "mnist_like" and args.arch == "fedtest-cnn":
         cfg = get_config("fedtest-cnn-mnist")
-    if num_layers is not None:
-        cfg = cfg.replace(num_layers=num_layers)
+    if overrides:
+        cfg = cfg.replace(**overrides)
     if args.smoke:
         cfg = reduce_for_smoke(cfg).replace(dtype="float32")
-    lm = cfg.family in ("dense", "ssm")
+    lm = cfg.family in LM_FAMILIES
     if lm != (args.dataset == "lm"):
         raise SystemExit(f"--arch {args.arch} ({cfg.family}) and --dataset "
                          f"{args.dataset} do not go together: the LMs take "

@@ -1,5 +1,5 @@
-"""The paper's classifiers and the decoder LMs (dense and Mamba2 ssm) in
-PyTorch (the cnn/mlp/dense/ssm side of ``repro.models``).
+"""The paper's classifiers and the decoder LMs (dense, moe, Mamba2 ssm
+and the Jamba hybrid) in PyTorch (``repro.models`` less encdec and vlm).
 
 Params are plain nested dicts of tensors in the reference's names,
 layouts and dtypes (conv weights HWIO, dense weights ``[in, out]``,

@@ -1,17 +1,27 @@
-"""Decoder-only LM stack, the dense and ssm families (the port's side of
-``repro/models/decoder.py``).
+"""Decoder-only LM stack, the dense, moe, ssm and hybrid families (the
+port's side of ``repro/models/decoder.py``).
 
-The reference stacks each layer's params along a leading axis and drives
-the stack with ``lax.scan``; here the same stacked tree (``layers/slot_0/
-{norm1,attn,norm2,ffn}`` for dense, ``layers/slot_0/{norm1,mamba}`` for
-ssm, leaves ``[L, ...]``) is walked by a Python loop over that axis. The
-cache keeps the reference's layout: ``{"layers": {"slot_0": {"k", "v":
-[L, B, cap, Hkv, dh]}}, "length": [B] int32}`` for dense, ``{"conv": [L,
-B, W-1, conv_dim]`` in the model's dtype, ``"ssm": [L, B, H, P, N]`` f32}
-for ssm. A decode step writes into the cache tensors in place (its KV
-row; for ssm, each layer's conv and ssm states, computed anew by
-``ssm_decode`` and copied back) and returns the same tensors with
-``length + 1``; the reference returns a new cache.
+The reference stacks the layers' params along a leading axis and drives
+the stack with ``lax.scan``; the hybrid (Jamba) family scans over
+*periods* of layers (:func:`_period`: attention where ``layer_idx %
+attn_every == attn_offset``, MoE where ``layer_idx % moe_every ==
+moe_offset``), each period an unrolled run of slots whose params are
+stacked across periods. The port keeps that tree, ``layers/slot_0 ..
+slot_{period-1}``, each leaf ``[num_layers // period, ...]``, and walks it
+with a Python loop: period p, slot s is layer ``p * period + s``. A slot
+is ``{norm1, attn | mamba}`` and, outside the ssm family, ``{norm2, moe |
+ffn}``; dense, moe and ssm are one slot. The full-sequence forward
+returns the MoE load-balance loss summed over the layers.
+
+The cache keeps the reference's layout, slot by slot: ``{"layers":
+{"slot_s": {"k", "v": [P, B, cap, Hkv, dh]}}, "length": [B] int32}`` for
+an attention slot, ``{"conv": [P, B, W-1, conv_dim]`` in the model's
+dtype, ``"ssm": [P, B, H, P_head, N]`` f32} for a mamba slot. A decode
+step writes into the cache tensors in place (its KV row; each mamba
+layer's conv and ssm states, computed anew by ``ssm_decode`` and copied
+back) and returns the same tensors with ``length + 1``; the reference
+returns a new cache. Prefill routes the MoE by capacity unless asked for
+``moe_dropless``; decode is always dropless, as in the reference.
 """
 from __future__ import annotations
 
@@ -23,61 +33,108 @@ from repro_torch.models.attention import (
     attention_decode, attention_full, attention_init, attention_specs)
 from repro_torch.models.common import embed_init, rms_norm
 from repro_torch.models.mlp import swiglu, swiglu_init, swiglu_shapes
+from repro_torch.models.moe import moe_apply, moe_init, moe_specs
 from repro_torch.models.ssm import (
     _dims, ssm_decode, ssm_full, ssm_init, ssm_specs)
 from repro_torch.utils import tree_map
 
 
+def _period(cfg) -> int:
+    """Layers a period: 1 for the homogeneous stacks, ``attn_every`` (or
+    its common multiple with ``moe_every``) for hybrid."""
+    if cfg.family == "hybrid":
+        p = cfg.attn_every
+        if cfg.has_moe:
+            p = max(p, cfg.moe_every) if p % cfg.moe_every == 0 else \
+                p * cfg.moe_every
+        return p
+    return 1
+
+
+def _periods(cfg) -> Tuple[int, int]:
+    """(layers a period, periods)."""
+    period = _period(cfg)
+    if cfg.num_layers % period:
+        raise ValueError(f"{cfg.name}: {cfg.num_layers} layers are not a "
+                         f"whole number of periods of {period}")
+    return period, cfg.num_layers // period
+
+
+def slot_specs(cfg, layer_idx: int, dtype) -> Dict[str, Any]:
+    """Leaf shapes and dtypes of layer ``layer_idx``: ``{name: (shape,
+    dtype)}``. RMSNorm scales, the router and the mamba block's
+    ``dt_bias``, ``A_log``, ``D`` are f32."""
+    D = cfg.d_model
+    norm = {"scale": ((D,), torch.float32)}
+    p: Dict[str, Any] = {"norm1": norm}
+    if cfg.uses_attention(layer_idx):
+        p["attn"] = attention_specs(cfg, dtype)
+    else:
+        p["mamba"] = ssm_specs(cfg, dtype)
+    if cfg.family != "ssm":
+        p["norm2"] = norm
+        if cfg.uses_moe(layer_idx):
+            p["moe"] = moe_specs(cfg, dtype)
+        else:
+            p["ffn"] = {k: (s, dtype)
+                        for k, s in swiglu_shapes(D, cfg.d_ff).items()}
+    return p
+
+
 def decoder_specs(cfg, dtype) -> Dict[str, Any]:
     """The reference's param tree as ``{name: (shape, dtype)}`` leaves:
-    layer leaves carry the leading ``[L]`` axis; RMSNorm scales (and the
-    mamba block's ``dt_bias``, ``A_log``, ``D``) are f32."""
-    L, D = cfg.num_layers, cfg.d_model
+    slot leaves carry the leading ``[periods]`` axis."""
+    period, n_periods = _periods(cfg)
+    D = cfg.d_model
 
     def stacked(spec):
         if isinstance(spec, dict):
             return {k: stacked(s) for k, s in spec.items()}
-        return ((L,) + spec[0], spec[1])
+        return ((n_periods,) + spec[0], spec[1])
 
-    if cfg.is_attention_free:
-        slot = {"norm1": {"scale": ((D,), torch.float32)},
-                "mamba": ssm_specs(cfg, dtype)}
-    else:
-        slot = {"norm1": {"scale": ((D,), torch.float32)},
-                "attn": attention_specs(cfg, dtype),
-                "norm2": {"scale": ((D,), torch.float32)},
-                "ffn": {k: (s, dtype)
-                        for k, s in swiglu_shapes(D, cfg.d_ff).items()}}
-    p: Dict[str, Any] = {"embed": ((cfg.vocab_size, D), dtype),
-                         "layers": {"slot_0": stacked(slot)},
-                         "final_norm": {"scale": ((D,), torch.float32)}}
+    p: Dict[str, Any] = {
+        "embed": ((cfg.vocab_size, D), dtype),
+        "layers": {f"slot_{s}": stacked(slot_specs(cfg, s, dtype))
+                   for s in range(period)},
+        "final_norm": {"scale": ((D,), torch.float32)}}
     if not cfg.tie_embeddings:
         p["lm_head"] = ((D, cfg.vocab_size), dtype)
     return p
 
 
-def slot_init(gen: torch.Generator, cfg, dtype, lead=()) -> Dict[str, Any]:
-    """One layer's params (``lead`` prepends stacked axes): RMSNorm
-    scales one in f32, attention and SwiGLU weights fan-in truncated
-    normal, biases zero; an ssm layer is ``{norm1, mamba}``."""
+def slot_init(gen: torch.Generator, cfg, layer_idx: int, dtype, lead=()
+              ) -> Dict[str, Any]:
+    """Layer ``layer_idx``'s params (``lead`` prepends stacked axes):
+    RMSNorm scales one in f32, the attention or mamba block, then the MoE
+    or SwiGLU FFN, each drawn by its own init."""
     def norm():
         return {"scale": torch.ones(lead + (cfg.d_model,),
                                     dtype=torch.float32, device=gen.device)}
-    if cfg.is_attention_free:
-        return {"norm1": norm(), "mamba": ssm_init(gen, cfg, dtype, lead)}
-    return {"norm1": norm(), "attn": attention_init(gen, cfg, dtype, lead),
-            "norm2": norm(),
-            "ffn": swiglu_init(gen, cfg.d_model, cfg.d_ff, dtype, lead)}
+    p: Dict[str, Any] = {"norm1": norm()}
+    if cfg.uses_attention(layer_idx):
+        p["attn"] = attention_init(gen, cfg, dtype, lead)
+    else:
+        p["mamba"] = ssm_init(gen, cfg, dtype, lead)
+    if cfg.family != "ssm":
+        p["norm2"] = norm()
+        if cfg.uses_moe(layer_idx):
+            p["moe"] = moe_init(gen, cfg, dtype, lead)
+        else:
+            p["ffn"] = swiglu_init(gen, cfg.d_model, cfg.d_ff, dtype, lead)
+    return p
 
 
 def init_decoder(cfg, gen: torch.Generator, dtype) -> Dict[str, Any]:
-    """Fresh params on ``gen``'s device: the layers drawn stacked
-    ``[L, ...]`` in one :func:`slot_init`, embeddings N(0, 0.02^2)."""
+    """Fresh params on ``gen``'s device: the embedding N(0, 0.02^2), each
+    slot's layers drawn stacked ``[periods, ...]`` in one
+    :func:`slot_init`, then the LM head when untied."""
+    period, n_periods = _periods(cfg)
     D = cfg.d_model
     p: Dict[str, Any] = {
         "embed": embed_init(gen, (cfg.vocab_size, D), dtype),
-        "layers": {"slot_0": slot_init(gen, cfg, dtype,
-                                       lead=(cfg.num_layers,))},
+        "layers": {f"slot_{s}": slot_init(gen, cfg, s, dtype,
+                                          lead=(n_periods,))
+                   for s in range(period)},
         "final_norm": {"scale": torch.ones((D,), dtype=torch.float32,
                                            device=gen.device)},
     }
@@ -86,18 +143,31 @@ def init_decoder(cfg, gen: torch.Generator, dtype) -> Dict[str, Any]:
     return p
 
 
-def layer_params(p, layer: int):
-    """Layer ``layer``'s slice of the stacked ``layers.slot_0`` params."""
-    return tree_map(lambda a: a[layer], p["layers"]["slot_0"])
+def layer_params(p, period: int, slot: int = 0):
+    """Period ``period``'s slice of ``layers.slot_{slot}``."""
+    return tree_map(lambda a: a[period], p["layers"][f"slot_{slot}"])
+
+
+def _ffn(p, cfg, x, *, moe_dropless: bool, moe_group_size: int):
+    """The second half of a non-ssm layer: x + (MoE or SwiGLU) of its
+    RMSNorm. Returns (x, aux)."""
+    h = rms_norm(p["norm2"], x, cfg.norm_eps)
+    if "moe" in p:
+        y, aux = moe_apply(p["moe"], cfg, h, dropless=moe_dropless,
+                           group_size=moe_group_size)
+        return x + y, aux
+    return x + swiglu(p["ffn"], h), None
 
 
 def slot_apply_full(p, cfg, x, positions, *, sliding_window,
-                    want_cache: bool, differentiable: bool = False):
+                    want_cache: bool, differentiable: bool = False,
+                    moe_dropless: bool = False, moe_group_size: int = 0):
     """Full-sequence layer, its attention or scan the kernel op or, with
-    ``differentiable``, its twin. Returns (x, cache_slice)."""
+    ``differentiable``, its twin. Returns (x, cache_slice, aux): aux the
+    MoE's load-balance loss, None for a layer without one."""
     h = rms_norm(p["norm1"], x, cfg.norm_eps)
     cache = {}
-    if not cfg.is_attention_free:
+    if "attn" in p:
         if want_cache:
             y, (k, v) = attention_full(p["attn"], cfg, h, positions,
                                        causal=True,
@@ -116,16 +186,19 @@ def slot_apply_full(p, cfg, x, positions, *, sliding_window,
     else:
         y = ssm_full(p["mamba"], cfg, h, differentiable=differentiable)
     x = x + y
-    if not cfg.is_attention_free:
-        x = x + swiglu(p["ffn"], rms_norm(p["norm2"], x, cfg.norm_eps))
-    return x, cache
+    aux = None
+    if "norm2" in p:
+        x, aux = _ffn(p, cfg, x, moe_dropless=moe_dropless,
+                      moe_group_size=moe_group_size)
+    return x, cache, aux
 
 
 def slot_apply_decode(p, cfg, x, positions, cache, *, sliding_window):
-    """Single-token layer step. Returns (x, cache_slice): the KV slices
-    written in place, or the new conv and ssm states."""
+    """Single-token layer step, its MoE dropless. Returns (x,
+    cache_slice): the KV slices written in place, or the new conv and ssm
+    states."""
     h = rms_norm(p["norm1"], x, cfg.norm_eps)
-    if not cfg.is_attention_free:
+    if "attn" in p:
         y, (k, v) = attention_decode(p["attn"], cfg, h, positions,
                                      cache["k"], cache["v"], positions + 1,
                                      sliding_window=sliding_window)
@@ -135,8 +208,8 @@ def slot_apply_decode(p, cfg, x, positions, cache, *, sliding_window):
                                         cache["ssm"])
         new_cache = {"conv": conv_s, "ssm": ssm_s}
     x = x + y
-    if not cfg.is_attention_free:
-        x = x + swiglu(p["ffn"], rms_norm(p["norm2"], x, cfg.norm_eps))
+    if "norm2" in p:
+        x, _ = _ffn(p, cfg, x, moe_dropless=True, moe_group_size=0)
     return x, new_cache
 
 
@@ -153,31 +226,41 @@ def _embed_inputs(p, tokens):
 
 def decoder_forward(p, cfg, tokens, *, want_cache: bool = False,
                     cache_len: int = 0, sliding_window: Optional[int] = None,
-                    differentiable: bool = False
-                    ) -> Tuple[torch.Tensor, Optional[Dict]]:
+                    differentiable: bool = False, moe_dropless: bool = False,
+                    moe_group_size: int = 0
+                    ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Dict]]:
     """Full-sequence forward (train / prefill). tokens [B,S] -> (logits
-    [B,S,V], cache or None). ``cache_len`` pads the KV cache up to a
-    serving capacity >= S; an attention-free stack ignores it, as the
+    [B,S,V], the MoE aux loss summed over the layers (an f32 scalar, 0
+    without MoE), cache or None). ``cache_len`` pads the KV cache up to a
+    serving capacity >= S; a stack without attention ignores it, as the
     reference does. Each layer's attention or scan is the kernel op or,
-    with ``differentiable``, its differentiable twin."""
+    with ``differentiable``, its differentiable twin; the MoE routes by
+    capacity over groups of ``moe_group_size`` or, with
+    ``moe_dropless``, dropless."""
     x = _embed_inputs(p, tokens)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
+    period, n_periods = _periods(cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     cache = None
     if want_cache:
         cache = make_empty_cache(cfg, B, max(cache_len, S), x.dtype,
                                  length=S, device=x.device)
-        layers = cache["layers"]["slot_0"]
-    for layer in range(cfg.num_layers):
-        x, c = slot_apply_full(layer_params(p, layer), cfg, x, positions,
-                               sliding_window=sliding_window,
-                               want_cache=want_cache,
-                               differentiable=differentiable)
-        if want_cache:
-            # k, v fill their first S rows; conv, ssm the whole slice
-            for name, val in c.items():
-                layers[name][layer, :, :val.shape[1]] = val
-    return _logits(p, cfg, x), cache
+    for i in range(n_periods):
+        for s in range(period):
+            x, c, a = slot_apply_full(
+                layer_params(p, i, s), cfg, x, positions,
+                sliding_window=sliding_window, want_cache=want_cache,
+                differentiable=differentiable, moe_dropless=moe_dropless,
+                moe_group_size=moe_group_size)
+            if a is not None:
+                aux = aux + a
+            if want_cache:
+                # k, v fill their first S rows; conv, ssm the whole slice
+                slot = cache["layers"][f"slot_{s}"]
+                for name, val in c.items():
+                    slot[name][i, :, :val.shape[1]] = val
+    return _logits(p, cfg, x), aux, cache
 
 
 def decoder_decode_step(p, cfg, cache, tokens, *,
@@ -185,39 +268,48 @@ def decoder_decode_step(p, cfg, cache, tokens, *,
                         ) -> Tuple[torch.Tensor, Dict]:
     """One-token decode. tokens [B,1]; cache from :func:`decoder_forward`
     or :func:`make_empty_cache`, written in place (the KV row at
-    ``length``, or each layer's new conv and ssm states copied back into
-    its slice). Returns (logits
-    [B,1,V], the cache with ``length + 1``)."""
+    ``length``, or each mamba layer's new conv and ssm states copied back
+    into its slice). Returns (logits [B,1,V], the cache with ``length +
+    1``)."""
     positions = cache["length"]                      # [B], next position
     x = _embed_inputs(p, tokens)
-    layers = cache["layers"]["slot_0"]
-    for layer in range(cfg.num_layers):
-        x, new = slot_apply_decode(
-            layer_params(p, layer), cfg, x, positions,
-            {name: t[layer] for name, t in layers.items()},
-            sliding_window=sliding_window)
-        if cfg.is_attention_free:
-            for name, val in new.items():
-                layers[name][layer].copy_(val)
+    period, n_periods = _periods(cfg)
+    for i in range(n_periods):
+        for s in range(period):
+            slot = cache["layers"][f"slot_{s}"]
+            x, new = slot_apply_decode(
+                layer_params(p, i, s), cfg, x, positions,
+                {name: t[i] for name, t in slot.items()},
+                sliding_window=sliding_window)
+            if "ssm" in new:
+                for name, val in new.items():
+                    slot[name][i].copy_(val)
     return _logits(p, cfg, x), {"layers": cache["layers"],
                                 "length": cache["length"] + 1}
 
 
 def make_empty_cache(cfg, batch: int, capacity: int, dtype,
                      length: Optional[int] = None, device=None) -> Dict:
-    """Zeroed cache of ``capacity`` rows a sequence (the ssm states take
-    no capacity), ``length`` (default 0) rows marked filled."""
-    L = cfg.num_layers
-    if cfg.is_attention_free:
-        _, H, P, _, N, conv_dim = _dims(cfg)
-        slot = {"conv": torch.zeros((L, batch, cfg.ssm_conv_width - 1,
-                                     conv_dim), dtype=dtype, device=device),
-                "ssm": torch.zeros((L, batch, H, P, N), dtype=torch.float32,
-                                   device=device)}
-    else:
-        shape = (L, batch, capacity, cfg.num_kv_heads, cfg.head_dim)
-        slot = {"k": torch.zeros(shape, dtype=dtype, device=device),
+    """Zeroed cache of ``capacity`` rows a sequence for each attention
+    slot (a mamba slot's states take no capacity), ``length`` (default
+    0) rows marked filled."""
+    period, n_periods = _periods(cfg)
+    layers = {}
+    for s in range(period):
+        if cfg.uses_attention(s):
+            shape = (n_periods, batch, capacity, cfg.num_kv_heads,
+                     cfg.head_dim)
+            layers[f"slot_{s}"] = {
+                "k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
-    return {"layers": {"slot_0": slot},
+        else:
+            _, H, P, _, N, conv_dim = _dims(cfg)
+            layers[f"slot_{s}"] = {
+                "conv": torch.zeros((n_periods, batch,
+                                     cfg.ssm_conv_width - 1, conv_dim),
+                                    dtype=dtype, device=device),
+                "ssm": torch.zeros((n_periods, batch, H, P, N),
+                                   dtype=torch.float32, device=device)}
+    return {"layers": layers,
             "length": torch.full((batch,), length or 0, dtype=torch.int32,
                                  device=device)}

@@ -1,12 +1,12 @@
-"""Family-independent model facade (the cnn/mlp/dense/ssm side of
+"""Family-independent model facade (the cnn/mlp and decoder-LM side of
 ``repro/models/model.py``).
 
     m = build_model(cfg)
     params = m.init(gen)                       # on gen's device
     logits = m.forward_train(params, batch)
     loss, metrics = m.loss(params, batch)
-    logits, cache = m.prefill(params, batch, cache_len=...)   # dense, ssm
-    logits, cache = m.decode_step(params, cache, tokens)      # dense, ssm
+    logits, cache = m.prefill(params, batch, cache_len=...)   # the LMs
+    logits, cache = m.decode_step(params, cache, tokens)      # the LMs
 
 Batches are ``{"images": [B,H,W,C], "labels": [B]}`` for cnn/mlp and
 ``{"tokens": [B,S], "labels": [B,S]}`` for the LMs.
@@ -15,18 +15,22 @@ An LM's full-sequence attention and scan run the kernel ops
 (``flash_attention``, ``ssd_scan``: serve and eval), or, with
 ``differentiable``, their differentiable twins (``blockwise_attention``,
 ``ssd_chunked``), which the round's local training takes (the kernels are
-forward-only). cnn/mlp ignore it.
+forward-only). cnn/mlp ignore it. A MoE layer (the ``moe`` and
+``hybrid`` families) routes by capacity over groups of
+``moe_group_size`` tokens (0: 512), or dropless with ``moe_dropless``;
+decode is always dropless. An LM's loss is ``nll + router_aux_coef *
+moe_aux``, the MoE load-balance loss summed over the layers (0 without
+MoE).
 """
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch.func import functional_call
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import LM_FAMILIES, ModelConfig
 from repro_torch.models import cnn as cnn_mod
 from repro_torch.models import decoder as dec_mod
 from repro_torch.models import mlp as mlp_mod
@@ -42,6 +46,8 @@ class Model:
     cfg: ModelConfig
     differentiable: bool = False           # LM: the twins, not the kernels
     sliding_window: Optional[int] = None   # long-context serving variant
+    moe_dropless: bool = False             # exact per-token routing
+    moe_group_size: int = 0                # 0 = the MoE's default (512)
     # the classifier family's weightless module, driven through
     # functional_call (None for the LMs, which are plain functions)
     net: Optional[torch.nn.Module] = dataclasses.field(
@@ -57,7 +63,7 @@ class Model:
         return _DTYPES[self.cfg.dtype]
 
     def _lm(self) -> bool:
-        return self.cfg.family in ("dense", "ssm")
+        return self.cfg.family in LM_FAMILIES
 
     def param_shapes(self) -> Dict[str, Any]:
         """Nested dict of leaf shapes, in the reference's tree."""
@@ -70,8 +76,8 @@ class Model:
 
     def param_dtypes(self) -> Dict[str, Any]:
         """Nested dict of leaf dtypes: the model's dtype, except the LMs'
-        RMSNorm scales and the mamba block's ``dt_bias``, ``A_log`` and
-        ``D``, which stay f32 as the reference keeps them."""
+        RMSNorm scales, the MoE router and the mamba block's ``dt_bias``,
+        ``A_log`` and ``D``, which stay f32 as the reference keeps them."""
         if self._lm():
             return tree_map(lambda s: s[1],
                             dec_mod.decoder_specs(self.cfg, self.dtype))
@@ -85,22 +91,36 @@ class Model:
             return cnn_mod.init_cnn(self.cfg, gen, self.dtype)
         return mlp_mod.init_mlp(self.cfg, gen, self.dtype)
 
+    def _decoder_forward(self, params, tokens, **kw):
+        return dec_mod.decoder_forward(
+            params, self.cfg, tokens, sliding_window=self.sliding_window,
+            differentiable=self.differentiable,
+            moe_dropless=self.moe_dropless,
+            moe_group_size=self.moe_group_size, **kw)
+
     def forward_train(self, params, batch) -> torch.Tensor:
         """Logits: ``[B, num_classes]`` (cnn/mlp) or ``[B, S, V]`` (LM)."""
         if self._lm():
-            return dec_mod.decoder_forward(
-                params, self.cfg, batch["tokens"],
-                sliding_window=self.sliding_window,
-                differentiable=self.differentiable)[0]
+            return self._decoder_forward(params, batch["tokens"])[0]
         return functional_call(self.net, flat_names(params),
                                (batch["images"],))
 
     def loss(self, params, batch
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        logits = self.forward_train(params, batch)
+        """A classifier's NLL; an LM's ``nll + router_aux_coef *
+        moe_aux``, with ``moe_aux`` among its metrics."""
+        lm = self._lm()
+        if lm:
+            logits, aux, _ = self._decoder_forward(params, batch["tokens"])
+        else:
+            logits = self.forward_train(params, batch)
         nll = softmax_cross_entropy(logits, batch["labels"])
-        acc = token_accuracy(logits, batch["labels"])
-        return nll, {"nll": nll, "accuracy": acc}
+        metrics = {"nll": nll,
+                   "accuracy": token_accuracy(logits, batch["labels"])}
+        if not lm:
+            return nll, metrics
+        metrics["moe_aux"] = aux
+        return nll + self.cfg.router_aux_coef * aux, metrics
 
     def _require_lm(self, what: str) -> None:
         if not self._lm():
@@ -108,14 +128,14 @@ class Model:
 
     def prefill(self, params, batch, *, cache_len: int = 0
                 ) -> Tuple[torch.Tensor, Dict]:
-        """Logits ``[B, S, V]`` of the prompt and its cache: the KV cache
-        padded to ``cache_len`` rows, or an attention-free stack's conv and
-        ssm states (``cache_len`` unused, as in the reference)."""
+        """Logits ``[B, S, V]`` of the prompt and its cache: each
+        attention slot's KV cache padded to ``cache_len`` rows, each mamba
+        slot's conv and ssm states (an attention-free stack leaves
+        ``cache_len`` unused, as in the reference)."""
         self._require_lm("serving")
-        return dec_mod.decoder_forward(
-            params, self.cfg, batch["tokens"], want_cache=True,
-            cache_len=cache_len, sliding_window=self.sliding_window,
-            differentiable=self.differentiable)
+        logits, _, cache = self._decoder_forward(
+            params, batch["tokens"], want_cache=True, cache_len=cache_len)
+        return logits, cache
 
     def decode_step(self, params, cache, tokens) -> Tuple[torch.Tensor, Dict]:
         """Logits ``[B, 1, V]`` of one token a sequence; writes the cache
@@ -134,7 +154,7 @@ class Model:
 
     def param_count(self, params=None) -> int:
         if params is None:
-            return sum(math.prod(s) for s in tree_leaves(self.param_shapes()))
+            return self.cfg.param_count()
         return sum(x.numel() for x in tree_leaves(params))
 
 

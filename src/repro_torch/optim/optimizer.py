@@ -96,10 +96,15 @@ def make_optimizer(cfg) -> Optimizer:
             bc2 = 1 - torch.pow(b2, step.float())
 
             def upd(p, m_, v_):
-                u = (m_ / bc1) / (torch.sqrt(v_ / bc2) + eps)
+                # the reference's arithmetic, op for op, in place on
+                # fresh temporaries: a leaf's step holds two f32 copies
+                # of it, not four (4 clients' stacked expert banks are
+                # 3 GiB each in f32)
+                u = (m_ / bc1).div_((v_ / bc2).sqrt_().add_(eps))
                 if wd:
-                    u = u + wd * p.float()
-                return (p.float() - lr * u).to(p.dtype)
+                    u.add_(p.to(torch.float32, copy=True).mul_(wd))
+                return (p.to(torch.float32, copy=True).sub_(u.mul_(lr))
+                        .to(p.dtype))
 
             new = tree_map(upd, params, m, v)
             return new, {"step": step, "m": m, "v": v}

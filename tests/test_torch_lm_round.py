@@ -67,6 +67,10 @@ RTOL, ATOL = 1e-4, 1e-5
 VOCAB, SEQ, PER_USER = 97, 32, 48
 N, K, STEPS, BATCH, EVAL = 4, 2, 2, 8, 16
 ARCHS = {"dense": "qwen2-0.5b", "ssm": "mamba2-2.7b"}
+# every LM family's arch, for the helpers (the moe and hybrid rounds are
+# held in tests/test_torch_moe_round.py)
+FAMILY_ARCHS = {**ARCHS, "moe": "granite-moe-1b-a400m",
+                "hybrid": "jamba-1.5-large-398b"}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -83,7 +87,7 @@ def _t(a, dtype=None):
 
 def _cfgs(family):
     """Both packages' reduced configs (2 layers) in f32 at vocabulary 97."""
-    arch = ARCHS[family]
+    arch = FAMILY_ARCHS[family]
     kw = dict(dtype="float32", vocab_size=VOCAB)
     return (jreduce(jget_config(arch)).replace(**kw),
             reduce_for_smoke(get_config(arch)).replace(**kw))
@@ -137,10 +141,11 @@ def _near_ties(jmodel, models, batches, margin=1e-4):
     return out
 
 
-def _assert_counts(got_acc, want_acc, ties, tokens, tie_dense=()):
+def _assert_counts(got_acc, want_acc, ties, tokens, tie_dense=(),
+                   max_ties=1):
     """The [K, N] correct-token counts equal, but where a near tie may
     flip one; every tie found is printed. Outside the ``tie_dense``
-    client columns at most one token may be a near tie."""
+    client columns at most ``max_ties`` tokens may be near ties."""
     want = np.rint(np.asarray(want_acc) * tokens).astype(np.int64)
     got = np.rint(np.asarray(got_acc) * tokens).astype(np.int64)
     assert want.shape == got.shape
@@ -149,7 +154,7 @@ def _assert_counts(got_acc, want_acc, ties, tokens, tie_dense=()):
               f"{ties.tolist()}; counts {got.tolist()} (port), "
               f"{want.tolist()} (reference)")
     others = [c for c in range(ties.shape[1]) if c not in tie_dense]
-    assert ties[:, others].sum() <= 1, ties
+    assert ties[:, others].sum() <= max_ties, ties
     assert (np.abs(got - want) <= ties).all(), (got, want, ties)
 
 
@@ -159,6 +164,12 @@ def test_lm_eval_matrix_matches_reference(family):
     """Three models drawn by the reference, converted, cross-tested by two
     testers on 16 rows each (some labels -1): the port's kernel-routed
     matrix against the reference's."""
+    _eval_matrix(family)
+
+
+def _eval_matrix(family, max_ties=1):
+    """The body of :func:`test_lm_eval_matrix_matches_reference`, each
+    tester's counts held by :func:`_assert_counts` with ``max_ties``."""
     jcfg, tcfg = _cfgs(family)
     jmodel, tmodel = jbuild_model(jcfg), build_model(tcfg)
     n = 3
@@ -183,7 +194,7 @@ def test_lm_eval_matrix_matches_reference(family):
     valid = (ty != -1).sum(axis=(1, 2))            # [K] tokens a tester
     for k in range(K):
         _assert_counts(got.numpy()[k:k + 1], np.asarray(want)[k:k + 1],
-                       ties[k:k + 1], int(valid[k]))
+                       ties[k:k + 1], int(valid[k]), max_ties=max_ties)
 
 
 def _stacked_view(model, n):
