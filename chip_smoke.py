@@ -168,6 +168,24 @@ toolkit (``nvcc``), and exits non-zero on the first phase that fails.
    LM round of phase L on ``granite-moe-1b-a400m`` with 12 of its 24
    layers (a ``reduced`` line gives the memory reckoning), held as L is,
    and the global model's ``moe_aux``.
+7. The encdec and vlm families, last, through the same serve code path
+   in bf16 at full width and depth, weights from the seed, 32 greedy
+   tokens: W, ``whisper-base`` (70,915,584 params) over batch 8 x 1,500
+   stub frames and a 384-token prompt: ``flash_attention`` 18 launches a
+   prefill (6 encoder, non-causal; 6 causal self-attention; 6
+   cross-attention against the 1,500 encoder rows) and 6 a decode step
+   (cross-attention, one query), ``decode_attention`` and its merge 6 a
+   step; V, ``pixtral-12b`` (12,273,996,800 params, 24.5 GB) over 1,024
+   stub patches before a 512-token prompt: ``flash_attention`` 40 a
+   prefill (D = 128, group 4), ``decode_attention`` and its merge 40 a
+   step over a 1,569-row cache; no other kernel. The last call of each
+   flash shape and the last decode call against the plain versions;
+   teacher forcing in bf16 and on the weights upcast to f32 (V's at
+   P + S, on 2 of its 8 sequences); host and device times, the idle
+   share, the decode step's byte bound, the prefill's and a decode
+   step's device time by kernel and the allocator peak. Their kernel shapes are checked and timed in
+   phases 2 and 3 (groups 8 / 8 and 32 / 8; S = 384 and S = 1 against T
+   = 1,500 non-causal; a decode cache of 1,569 rows at D = 128).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -369,6 +387,24 @@ MOE_SERVES = (
 MOE_TF_TOL, MOE_TF_MEAN_TOL = 0.5, 0.05
 # the LM round on granite-moe-1b-a400m: phase L's flags, 12 of 24 layers
 N_LAYERS = 12
+# the encdec and vlm families (slice 13), after every earlier phase, in
+# bf16 with weights from the seed, each at full width and depth: W,
+# whisper-base over 1,500 stub frames, a 384-token prompt and 32 greedy
+# tokens (384 + 32 + 1 rows stay inside its 448-row position table); V,
+# pixtral-12b over 1,024 stub patches before a 512-token prompt, 32 greedy
+# tokens, a cache of PIXTRAL_CACHE rows. (label, CLI arguments, the
+# reference's count_params_analytic)
+FRONTEND_ARGS = ["--device", "cuda", "--batch", "8", "--gen", "32",
+                 "--temperature", "0", "--seed", "0"]
+FRONTEND_SERVES = (
+    ("W", ["--arch", "whisper-base", "--prompt-len", "384"] + FRONTEND_ARGS,
+     70_915_584),
+    ("V", ["--arch", "pixtral-12b", "--prompt-len", "512"] + FRONTEND_ARGS,
+     12_273_996_800))
+PIXTRAL_CACHE = 1024 + 512 + 32 + 1
+# pixtral's f32 teacher forcing runs on this many of the 8 sequences: its
+# f32 weights (49.1 GB) replace the bf16 ones, leaf by leaf
+V_F32_ROWS = 2
 
 # published peaks by card (NVIDIA data sheets, dense): HBM bytes/s, fp32
 # FLOP/s outside the tensor cores, bf16 FLOP/s on the tensor cores
@@ -878,17 +914,24 @@ def _hold(torch, got, want, dtype, worst, key="out"):
                                              .abs().max()))
 
 
-# query heads over KV heads: groups 1, 2, 7 (qwen2-0.5b's) and 8
-ATTN_HEADS = ((4, 4), (4, 2), (14, 2), (8, 1))
+# query heads over KV heads: groups 1, 2, 7 (qwen2-0.5b's) and 8, then
+# whisper-base's 8 / 8 and pixtral-12b's 32 / 8 (group 4)
+ATTN_HEADS = ((4, 4), (4, 2), (14, 2), (8, 1), (8, 8), (32, 8))
+# whisper's cross-attention: the prompt's queries (384) and one decode
+# step's (1) against its 1,500 encoder rows, non-causal at q_offset 0
+CROSS_CASES = ((384, 1500), (1, 1500))
 
 
 def check_flash_attention(torch):
     """The flash kernel against its plain version in f32 and bf16: groups
-    1, 2, 7, 8; head_dim 32, 64, 128; causal and not; window None, 8,
-    100 and 200 (across key-tile edges); S = T = 64 (whole tiles), S = T
-    = 77 (ragged), S=40 inside T=131 at q_offset 91 (ragged, S < T), S =
-    T = 300 (five key tiles, ragged: the bf16 kernel's ring wraps) and
-    S=1 inside T=1000 at q_offset 999 (one query over 16 key tiles)."""
+    1, 2, 4, 7, 8 (``ATTN_HEADS``); head_dim 32, 64, 128; causal and not;
+    window None, 8, 100 and 200 (across key-tile edges); S = T = 64
+    (whole tiles), S = T = 77 (ragged), S=40 inside T=131 at q_offset 91
+    (ragged, S < T), S = T = 300 (five key tiles, ragged: the bf16
+    kernel's ring wraps) and S=1 inside T=1000 at q_offset 999 (one query
+    over 16 key tiles); then whisper's cross-attention shapes
+    (``CROSS_CASES``: S = 384 and S = 1 against T = 1,500 memory rows, a
+    ragged last key tile), non-causal at q_offset 0."""
     from repro_torch.kernels.flash_attention import (
         attention_ref, flash_attention)
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -913,6 +956,15 @@ def check_flash_attention(torch):
                                   and got.shape == q.shape,
                                   f"output {got.dtype} {tuple(got.shape)}")
                             _hold(torch, got, want, dtype, worst)
+                # whisper's cross-attention: S queries against T memory rows
+                for S, T in CROSS_CASES:
+                    q, k, v = _attn_inputs(torch, gen, (2, S, Hq, D),
+                                           (2, T, Hkv, D), dtype)
+                    got = flash_attention(q, k, v, causal=False)
+                    want = attention_ref(q, k, v, causal=False)
+                    torch.cuda.synchronize()
+                    calls += 1
+                    _hold(torch, got, want, dtype, worst, key="cross")
     # a batch past the grid's 65,535 rows: two launches
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v = _attn_inputs(torch, gen, (65_540, 3, 2, 32),
@@ -948,12 +1000,15 @@ def check_flash_attention(torch):
 
 def check_decode_attention(torch):
     """The split-K decode kernel and its merge against the plain version,
-    out and lse, in f32 and bf16: groups 1, 2, 7, 8; head_dim 32, 64,
-    128; window None, 8, 100 on caches of 64 keys (one split), 545 and
-    1000 with lengths 1, 2 (shorter than a tile), 63 and the whole cache;
-    window None and 300 on a cache of 4099 keys with lengths 1, 64, 2049
-    and 4099 (splits of several tiles: the bf16 kernel's ring wraps, and
-    the last tile is ragged)."""
+    out and lse, in f32 and bf16: groups 1, 2, 4, 7, 8 (``ATTN_HEADS``);
+    head_dim 32, 64, 128; window None, 8, 100 on caches of 64 keys (one
+    split), 545 and 1000 with lengths 1, 2 (shorter than a tile), 63 and
+    the whole cache; window None and 300 on a cache of 4099 keys with
+    lengths 1, 64, 2049 and 4099 (splits of several tiles: the bf16
+    kernel's ring wraps, and the last tile is ragged); window None on
+    pixtral's serve cache of 1,569 rows (1,024 patches, a 512-token
+    prompt, 32 tokens and a spare) with lengths 1, 1,025, 1,536 and
+    1,568 (lengths past the patches, the prompt, the last step)."""
     from repro_torch.kernels.decode_attention import (
         decode_attention, decode_attention_ref)
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -962,6 +1017,8 @@ def check_decode_attention(torch):
     merges = decode_attention.merge_launches
     caches = [(T, [1, 2, 63, T], (None, 8, 100)) for T in (64, 545, 1000)]
     caches.append((4099, [1, 64, 2049, 4099], (None, 300)))
+    caches.append((PIXTRAL_CACHE, [1, 1025, 1536, PIXTRAL_CACHE - 1],
+                   (None,)))
     for dtype in (torch.float32, torch.bfloat16):
         for Hq, Hkv in ATTN_HEADS:
             for D in (32, 64, 128):
@@ -1369,6 +1426,91 @@ def phase_attention_times(torch, peaks):
             # the lengths
             2 * 2 * keys * Hkv * D + 2 * 2 * q.numel() + 4 * B * Hq + 4 * B,
             4 * D * Hq * keys, (hbm, bf16_peak), iters=iters))
+    for name, found in rows.items():
+        for r in found:
+            print(f"{name} {r['shape']}: device {r['kernel_ms']:.5f} ms "
+                  f"(eager {r['kernel_eager_ms']:.5f}), plain "
+                  f"{r['plain_ms']:.5f}, sdpa {r['library_ms']:.5f}, bound "
+                  f"{r['bound_ms']:.5f} ({r['bound_by']}), max |err| "
+                  f"{r['max_abs_err']:.3g}")
+    return rows
+
+
+def flash_row(torch, gen, peaks, B, S, T, Hq, Hkv, D, causal, iters=None):
+    """One bf16 ``flash_attention`` timing row at q [B,S,Hq,D] against k, v
+    [B,T,Hkv,D] (q_offset 0), beside its plain version, SDPA and its
+    bound: q, k, v read once and the output written once over HBM's
+    rate, against 4 * D flops a (query head, attended key) pair at the
+    tensor cores' bf16 rate (a causal call attends S (S + 1) / 2 pairs a
+    head, S = T)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (
+        attention_ref, flash_attention)
+
+    def make():
+        return _attn_inputs(torch, gen, (B, S, Hq, D), (B, T, Hkv, D),
+                            torch.bfloat16)
+    q, k, v = make()
+    err = float((flash_attention(q, k, v, causal=causal).float()
+                 - attention_ref(q, k, v, causal=causal).float())
+                .abs().max())
+    pairs = S * (S + 1) // 2 if causal else S * T
+    return timing_row(torch, "flash_attention", (B, S, T, Hq, Hkv, D), {
+        "kernel": lambda q, k, v: flash_attention(q, k, v, causal=causal),
+        "plain": lambda q, k, v: attention_ref(q, k, v, causal=causal),
+        "library": lambda q, k, v: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=causal, enable_gqa=True)},
+        make, err, 2 * (2 * q.numel() + k.numel() + v.numel()),
+        4 * D * Hq * B * pairs, (peaks[0], peaks[2]), iters=iters)
+
+
+def phase_frontend_times(torch, peaks):
+    """The attention kernels at the shapes phases W and V give them, in
+    bf16, beside their plain versions, SDPA and their bounds (as
+    ``phase_attention_times``): whisper's encoder (B=8, S=T=1,500, 8 / 8
+    heads of 64, non-causal), its prefill's cross-attention (384 queries
+    against the 1,500 encoder rows) and a decode step's (1 query);
+    pixtral's prefill (S=T=1,536: 1,024 patches and 512 tokens, 32 / 8
+    heads of 128, causal; the plain version's f32 scores are 2.4 GB a
+    call, so it takes 3 calls a graph) and its decode step (a 1,569-row
+    cache, lengths 1,537..1,567). Returns rows by kernel and phase."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, decode_attention_ref)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    rows = {"flash_attention W": [
+        flash_row(torch, gen, peaks, 8, S, 1500, 8, 8, 64, False)
+        for S in (1500, 384, 1)]}
+    rows["flash_attention V"] = [flash_row(
+        torch, gen, peaks, 8, 1536, 1536, 32, 8, 128, True,
+        iters={"kernel": 50, "library": 50, "plain": 3})]
+    B, T, Hq, Hkv, D = 8, PIXTRAL_CACHE, 32, 8, 128
+
+    def make():
+        return _attn_inputs(torch, gen, (B, Hq, D), (B, T, Hkv, D),
+                            torch.bfloat16)
+    q, k, v = make()
+    lengths = (1537 + torch.arange(B) * 30 // 7).to(device="cuda",
+                                                    dtype=torch.int32)
+    got, _ = decode_attention(q, k, v, lengths)
+    err = float((got.float() - decode_attention_ref(q, k, v, lengths)[0]
+                 .float()).abs().max())
+    keys = int(lengths.sum())
+    mask = (torch.arange(T, device="cuda")[None, :]
+            < lengths[:, None])[:, None, None, :]
+    rows["decode_attention V"] = [timing_row(
+        torch, "decode_attention", (B, T, Hq, Hkv, D), {
+            "kernel": lambda q, k, v: decode_attention(q, k, v, lengths),
+            "plain": lambda q, k, v: decode_attention_ref(q, k, v, lengths),
+            "library": lambda q, k, v: F.scaled_dot_product_attention(
+                q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=mask, enable_gqa=True)},
+        make, err,
+        2 * 2 * keys * Hkv * D + 2 * 2 * q.numel() + 4 * B * Hq + 4 * B,
+        4 * D * Hq * keys, (peaks[0], peaks[2]))]
     for name, found in rows.items():
         for r in found:
             print(f"{name} {r['shape']}: device {r['kernel_ms']:.5f} ms "
@@ -2600,7 +2742,8 @@ def phase_serve_checkpoint(torch, card, scratch):
     args = serve_mod.parse_args(["--device", "cuda", "--smoke", "--batch",
                                  "4", "--prompt-len", "64", "--gen", "8",
                                  "--ckpt-dir", ckpt])
-    model, params, tokens, gen = serve_mod.build(args)
+    model, params, batch, gen = serve_mod.build(args)
+    tokens = batch["tokens"]
     check(all(torch.equal(a, b) for a, b in zip(
         tree_leaves(params), tree_leaves(saved.global_params))),
         "the served params are the checkpoint's")
@@ -2611,9 +2754,9 @@ def phase_serve_checkpoint(torch, card, scratch):
             logits[(name, i)] = out.clone()
         return on_step
 
-    got = serve_mod.serve(model, params, tokens, args.gen, 0.0, gen,
+    got = serve_mod.serve(model, params, batch, args.gen, 0.0, gen,
                           on_step=keep("checkpoint"))
-    want = serve_mod.serve(model, saved.global_params, tokens, args.gen,
+    want = serve_mod.serve(model, saved.global_params, batch, args.gen,
                            0.0, gen, on_step=keep("direct"))
     check(torch.equal(got["tokens"], want["tokens"])
           and all(torch.equal(logits[("checkpoint", i)],
@@ -2657,7 +2800,8 @@ def phase_serve(torch, card):
 
     t0 = time.perf_counter()
     args = serve_mod.parse_args(SERVE_ARGS)
-    model, params, tokens, gen = serve_mod.build(args)
+    model, params, batch, gen = serve_mod.build(args)
+    tokens = batch["tokens"]
     torch.cuda.synchronize()
     cfg = model.cfg
     n_params = model.param_count(params)
@@ -2695,13 +2839,13 @@ def phase_serve(torch, card):
     attn_mod.flash_attention = recorder("flash", originals[0])
     attn_mod.decode_attention = recorder("decode", originals[1])
     try:
-        warm = serve_mod.serve(model, params, tokens, args.gen,
+        warm = serve_mod.serve(model, params, batch, args.gen,
                                args.temperature, gen)
         del warm
         finite.clear()
         torch.cuda.synchronize()
         reset_counts(kernel_ops)
-        res = serve_mod.serve(model, params, tokens, args.gen,
+        res = serve_mod.serve(model, params, batch, args.gen,
                               args.temperature, gen, on_step=on_step)
         counts = {name: op.launches for name, op in kernel_ops.items()}
         counts["decode_attention merge"] = (
@@ -2743,23 +2887,26 @@ def phase_serve(torch, card):
           f"calls == plain versions on their own inputs (max |err| "
           f"{worst})")
 
-    serve_teacher_forcing(torch, "serve", model, params, tokens,
+    serve_teacher_forcing(torch, "serve", model, params, batch,
                           gen_tokens, step1["logits"], SERVE_TF_TOL,
                           SERVE_TF_MEAN_TOL)
-    numbers = serve_numbers(torch, "serve", model, params, tokens, res,
+    numbers = serve_numbers(torch, "serve", model, params, batch, res,
                             args.gen, card)
     return counts, numbers
 
 
-def serve_teacher_forcing(torch, label, model, params, tokens, gen_tokens,
+def serve_teacher_forcing(torch, label, model, params, batch, gen_tokens,
                           step1_logits, tol, mean_tol):
-    """Decode step 1 (the first generated token, at position S) against a
-    full forward over the prompt and that token: the largest and the mean
-    |diff| must stay within ``tol`` and ``mean_tol`` of the logits' std.
-    Returns the numbers."""
+    """Decode step 1 (the first generated token, at position S; a vlm's
+    at P + S, after its P patches) against a full forward over the prompt
+    batch and that token: the largest and the mean |diff| must stay
+    within ``tol`` and ``mean_tol`` of the logits' std. Returns the
+    numbers."""
+    tokens = batch["tokens"]
     S = tokens.shape[1]
-    full = model.forward_train(params, {"tokens": torch.cat(
-        [tokens, gen_tokens[:, :1]], dim=1)})[:, S].float()
+    off = model.cfg.num_patches if model.cfg.family == "vlm" else 0
+    full = model.forward_train(params, dict(batch, tokens=torch.cat(
+        [tokens, gen_tokens[:, :1]], dim=1)))[:, off + S].float()
     diff = (full - step1_logits).abs()
     scale = float(full.std())
     tf = {"max": float(diff.max()), "mean": float(diff.mean()),
@@ -2775,18 +2922,19 @@ def serve_teacher_forcing(torch, label, model, params, tokens, gen_tokens,
     return tf
 
 
-def serve_numbers(torch, label, model, params, tokens, res, gen_len, card):
+def serve_numbers(torch, label, model, params, batch, res, gen_len, card):
     """The serve metrics of one ``serve`` run, beside the device's own time
     for one prefill and one decode step: each captured in a CUDA graph and
     replayed, so no host work sits between its kernels; against the host
     clock, the rest is the device idling while Python dispatches."""
-    B, S = tokens.shape
+    from repro_torch.launch.serve import cache_capacity
+    B, S = batch["tokens"].shape
     steps = gen_len - 1
-    cap = S + gen_len + 1
+    cap = cache_capacity(model, S, gen_len)
     cache, last = res["cache"], res["tokens"][:, -1:]
     device = {
         "prefill_device_ms": graph_ms(torch, lambda: model.prefill(
-            params, {"tokens": tokens}, cache_len=cap), 1),
+            params, batch, cache_len=cap), 1),
         "decode_step_device_ms": graph_ms(torch, lambda: model.decode_step(
             params, cache, last), 1, replays=20)}
 
@@ -2859,7 +3007,8 @@ def phase_ssm_serve(torch, card):
 
     t0 = time.perf_counter()
     args = serve_mod.parse_args(SSM_SERVE_ARGS)
-    model, params, tokens, gen = serve_mod.build(args)
+    model, params, batch, gen = serve_mod.build(args)
+    tokens = batch["tokens"]
     torch.cuda.synchronize()
     cfg = model.cfg
     n_params = model.param_count(params)
@@ -2903,13 +3052,13 @@ def phase_ssm_serve(torch, card):
     originals = ssm_mod.ssd_scan
     ssm_mod.ssd_scan = recorder
     try:
-        warm = serve_mod.serve(model, params, tokens, args.gen,
+        warm = serve_mod.serve(model, params, batch, args.gen,
                                args.temperature, gen)
         del warm
         finite.clear()
         torch.cuda.synchronize()
         reset_counts(kernel_ops)
-        res = serve_mod.serve(model, params, tokens, args.gen,
+        res = serve_mod.serve(model, params, batch, args.gen,
                               args.temperature, gen, on_step=on_step)
         counts = {name: op.launches for name, op in kernel_ops.items()}
         merges = kernel_ops["decode_attention"].merge_launches
@@ -2954,7 +3103,7 @@ def phase_ssm_serve(torch, card):
     # the prefill's state. Checked on the served bf16 run, and tighter on
     # the same weights in f32 (the kernel's f32 route)
     tf_bf16 = serve_teacher_forcing(
-        torch, "ssm serve (bf16)", model, params, tokens, gen_tokens,
+        torch, "ssm serve (bf16)", model, params, batch, gen_tokens,
         step1["logits"], SSM_TF_BF16_TOL, SSM_TF_BF16_MEAN_TOL)
     model32 = build_model(cfg.replace(dtype="float32"))
     params32 = tree_map(lambda t: t.float(), params)
@@ -2962,10 +3111,10 @@ def phase_ssm_serve(torch, card):
     step1_32, _ = model32.decode_step(params32, cache32, gen_tokens[:, :1])
     del cache32
     tf_f32 = serve_teacher_forcing(
-        torch, "ssm serve (f32 weights)", model32, params32, tokens,
+        torch, "ssm serve (f32 weights)", model32, params32, batch,
         gen_tokens, step1_32[:, 0].float(), SSM_TF_TOL, SSM_TF_MEAN_TOL)
     del params32
-    numbers = serve_numbers(torch, "ssm serve", model, params, tokens, res,
+    numbers = serve_numbers(torch, "ssm serve", model, params, batch, res,
                             args.gen, card)
     cache, last = res["cache"], gen_tokens[:, -1:]
     numbers.update(
@@ -3011,7 +3160,8 @@ def phase_moe_serve(torch, card, label, arch, overrides, reference_params):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     args = serve_mod.parse_args(["--arch", arch] + MOE_SERVE_ARGS)
-    model, params, tokens, gen = serve_mod.build(args, **overrides)
+    model, params, batch, gen = serve_mod.build(args, **overrides)
+    tokens = batch["tokens"]
     torch.cuda.synchronize()
     t_build = time.perf_counter() - t0
     cfg = model.cfg
@@ -3089,13 +3239,13 @@ def phase_moe_serve(torch, card, label, arch, overrides, reference_params):
     attn_mod.decode_attention = recorder("decode", originals[1])
     ssm_mod.ssd_scan = recorder("ssd", originals[2])
     try:
-        warm = serve_mod.serve(model, params, tokens, args.gen,
+        warm = serve_mod.serve(model, params, batch, args.gen,
                                args.temperature, gen)
         del warm
         finite.clear()
         torch.cuda.synchronize()
         reset_counts(kernel_ops)
-        res = serve_mod.serve(model, params, tokens, args.gen,
+        res = serve_mod.serve(model, params, batch, args.gen,
                               args.temperature, gen, on_step=on_step)
         counts = {name: op.launches for name, op in kernel_ops.items()}
         counts["decode_attention merge"] = (
@@ -3168,7 +3318,7 @@ def phase_moe_serve(torch, card, label, arch, overrides, reference_params):
 
     tf = {"bf16": serve_teacher_forcing(
         torch, f"{label} (bf16, dropless prefill)", dropless, params,
-        tokens, gen_tokens, step1_of(dropless, params), *bf16_tol)}
+        batch, gen_tokens, step1_of(dropless, params), *bf16_tol)}
     peak_serve = torch.cuda.max_memory_allocated()
     if 4 * n_params < 24 * 2**30:
         model32 = build_model(cfg.replace(dtype="float32"),
@@ -3176,10 +3326,10 @@ def phase_moe_serve(torch, card, label, arch, overrides, reference_params):
         params32 = tree_map(lambda t: t.float(), params)
         tf["f32"] = serve_teacher_forcing(
             torch, f"{label} (f32 weights, dropless prefill)", model32,
-            params32, tokens, gen_tokens, step1_of(model32, params32),
+            params32, batch, gen_tokens, step1_of(model32, params32),
             SSM_TF_TOL, SSM_TF_MEAN_TOL)
         del params32
-    numbers = serve_numbers(torch, label, model, params, tokens, res,
+    numbers = serve_numbers(torch, label, model, params, batch, res,
                             args.gen, card)
     numbers.update(params=n_params, teacher_forcing=tf,
                    launches=counts, peak_bytes=peak_serve,
@@ -3194,6 +3344,282 @@ def phase_moe_serve(torch, card, label, arch, overrides, reference_params):
             torch, f"{label} decode step", lambda: model.decode_step(
                 params, cache, last))
     del res, params
+    return numbers
+
+
+def upcast_in_place(tree) -> None:
+    """Replace each tensor leaf of a nested dict by its f32 copy, leaf by
+    leaf, so that the old leaf is freed before the next is copied."""
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            upcast_in_place(val)
+        else:
+            tree[key] = val.float()
+
+
+def decode_step_bytes(params, cache, cfg, length: int) -> int:
+    """The bytes one decode step must read: every weight the step uses
+    (not the encoder, ``dec_pos``, ``patch_proj``, the cross-attention's
+    K/V projections, or an untied embedding table, of which it gathers a
+    row a sequence) and the cache rows it attends: the self-attention
+    keys and values up to ``length`` and, for an encdec, the whole cross
+    K/V."""
+    from repro_torch.utils import tree_leaves
+    skip = {"encoder", "enc_final_norm", "dec_pos", "patch_proj"}
+    if not cfg.tie_embeddings:
+        skip.add("embed")
+    total = 0
+    for name, sub in params.items():
+        if name not in skip:
+            total += sum(t.numel() * t.element_size()
+                         for t in tree_leaves(sub))
+    if cfg.family == "encdec":
+        total -= sum(params["decoder"]["cross_attn"][n].numel()
+                     * params["decoder"]["cross_attn"][n].element_size()
+                     for n in ("wk", "wv", "bk", "bv")
+                     if n in params["decoder"]["cross_attn"])
+    kv = cache["self"] if cfg.family == "encdec" else cache["layers"]
+    for t in tree_leaves(kv):
+        total += t[:, :, :length].numel() * t.element_size()
+    if cfg.family == "encdec":
+        total += sum(t.numel() * t.element_size()
+                     for t in tree_leaves(cache["cross"]))
+    return total
+
+
+def phase_frontend_serve(torch, card, peaks, label, argv, reference_params):
+    """whisper-base (W) or pixtral-12b (V) at full width and depth in bf16
+    through the serve launcher's code path (``build``, then ``serve``),
+    as ``phase_serve`` drives qwen2-0.5b: one warm-up pass, then the
+    measured pass with every kernel count set to 0 just before it, read
+    after the prefill and again after the decode steps. Launches: W,
+    ``flash_attention`` once an encoder layer and twice a decoder layer
+    (self, cross) a prefill and once a decoder layer (cross) a decode
+    step, ``decode_attention`` and its merge once a decoder layer a step;
+    V, ``flash_attention`` once a layer a prefill, ``decode_attention``
+    and its merge once a layer a step; no other kernel. The last call of
+    each flash shape and the last decode call are held against the plain
+    versions on their own inputs; decode step 1 against a full forward
+    (teacher forcing, at P + S for V) in bf16 and on the weights upcast
+    to f32 (V's on ``V_F32_ROWS`` sequences, its f32 weights replacing
+    the bf16 ones). Prints host and device (CUDA graph) times, the idle
+    share, the decode step's byte bound, the prefill's and a decode
+    step's device time by kernel and the allocator peak. Returns the
+    numbers printed."""
+    import repro_torch.models.attention as attn_mod
+    from repro_torch.kernels.decode_attention import decode_attention_ref
+    from repro_torch.kernels.flash_attention import attention_ref
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import build_model
+    from repro_torch.models.frontend_stub import stub_shape
+    from repro_torch.utils import tree_leaves
+
+    free_memory(torch)
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    args = serve_mod.parse_args(argv)
+    model, params, batch, gen = serve_mod.build(args)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t_phase
+    cfg = model.cfg
+    encdec = cfg.family == "encdec"
+    n_params = model.param_count(params)
+    check(n_params == cfg.param_count() == reference_params,
+          f"{label}: {cfg.name} has {n_params} params, the analytic count "
+          f"{cfg.param_count()}, the reference's {reference_params}")
+    stub = "frames" if encdec else "patches"
+    norm = params["dec_final_norm" if encdec else "final_norm"]
+    check(params["embed"].dtype == torch.bfloat16
+          and all(t.dtype == torch.float32 for t in norm.values())
+          and batch[stub].dtype == torch.bfloat16
+          and tuple(batch[stub].shape) == stub_shape(cfg, args.batch),
+          f"{label}: bf16 weights and {stub}, f32 norms")
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    off = 0 if encdec else cfg.num_patches
+    L = cfg.num_layers
+    print(f"{label}: {cfg.name} ({n_params:,} params, "
+          + (f"{cfg.encoder_layers} encoder layers over {cfg.encoder_seq} "
+             f"stub frames, " if encdec else
+             f"{cfg.num_patches} stub patches before the text, ")
+          + f"{L} decoder layers, d_model {cfg.d_model}, {cfg.num_heads}/"
+          f"{cfg.num_kv_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab_size}, {cfg.dtype}), batch {B}, prompt {S}, "
+          f"gen {args.gen}, position table "
+          f"{params['dec_pos'].shape[0] if encdec else 'none (RoPE)'}; "
+          f"set-up {t_build:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated")
+
+    seen, by_shape = {}, collections.Counter()
+
+    def flash_recorder(fn):
+        def run(q, k, v, **kw):
+            out = fn(q, k, v, **kw)
+            key = (tuple(q.shape), tuple(k.shape), kw.get("causal", True))
+            seen[key] = ((q, k, v), kw, out)
+            by_shape[key] += 1
+            return out
+        return run
+
+    def decode_recorder(fn):
+        def run(*a, **kw):
+            out = fn(*a, **kw)
+            seen["decode"] = (a, kw, out)
+            return out
+        return run
+
+    kernel_ops = ops()
+    finite, step1, prefill_counts = [], {}, {}
+
+    def on_step(i, logits):
+        finite.append(torch.isfinite(logits).all())
+        if i == 0:
+            prefill_counts.update(
+                {name: op.launches for name, op in kernel_ops.items()})
+            prefill_counts["decode_attention merge"] = (
+                kernel_ops["decode_attention"].merge_launches)
+        if i == 1:
+            step1["logits"] = logits[:, 0].float().clone()
+
+    originals = attn_mod.flash_attention, attn_mod.decode_attention
+    attn_mod.flash_attention = flash_recorder(originals[0])
+    attn_mod.decode_attention = decode_recorder(originals[1])
+    try:
+        warm = serve_mod.serve(model, params, batch, args.gen,
+                               args.temperature, gen)
+        del warm
+        finite.clear()
+        seen.clear()
+        by_shape.clear()
+        torch.cuda.synchronize()
+        reset_counts(kernel_ops)
+        res = serve_mod.serve(model, params, batch, args.gen,
+                              args.temperature, gen, on_step=on_step)
+        counts = {name: op.launches for name, op in kernel_ops.items()}
+        counts["decode_attention merge"] = (
+            kernel_ops["decode_attention"].merge_launches)
+    finally:
+        attn_mod.flash_attention, attn_mod.decode_attention = originals
+    steps = args.gen - 1
+    want_prefill = {name: 0 for name in counts}
+    want_prefill["flash_attention"] = (cfg.encoder_layers + 2 * L if encdec
+                                       else L)
+    want = dict(want_prefill, **{
+        "flash_attention": want_prefill["flash_attention"]
+        + (steps * L if encdec else 0),
+        "decode_attention": steps * L, "decode_attention merge": steps * L})
+    check(prefill_counts == want_prefill and counts == want,
+          f"{label} launches: prefill {prefill_counts}, whole pass "
+          f"{counts}; want {want_prefill}, {want}")
+    # the flash calls by shape: q, k and causal
+    T_enc, Hq, Hkv, dh = cfg.encoder_seq, cfg.num_heads, cfg.num_kv_heads, \
+        cfg.head_dim
+    want_shapes = ({((B, T_enc, Hq, dh), (B, T_enc, Hkv, dh), False):
+                    cfg.encoder_layers,
+                    ((B, S, Hq, dh), (B, S, Hkv, dh), True): L,
+                    ((B, S, Hq, dh), (B, T_enc, Hkv, dh), False): L,
+                    ((B, 1, Hq, dh), (B, T_enc, Hkv, dh), False): steps * L}
+                   if encdec else
+                   {((B, off + S, Hq, dh), (B, off + S, Hkv, dh), True): L})
+    check(dict(by_shape) == want_shapes,
+          f"{label}: flash calls by shape {dict(by_shape)}, want "
+          f"{want_shapes}")
+    print(f"{label} launches: prefill {prefill_counts}; whole pass {counts}; "
+          f"flash calls by (q, k, causal): {dict(by_shape)}")
+    check(len(finite) == args.gen and all(bool(f) for f in finite),
+          f"{label}: finite logits at the prefill and every decode step")
+    gen_tokens = res["tokens"]
+    check(gen_tokens.shape == (B, args.gen)
+          and bool(((gen_tokens >= 0) & (gen_tokens < cfg.vocab_size))
+                   .all()), f"tokens {tuple(gen_tokens.shape)} in range")
+
+    # the last call of each flash shape and the last decode call against
+    # the plain versions on their own inputs
+    worst = {}
+    for key in want_shapes:
+        (q, k, v), kw, got = seen.pop(key)
+        want_out = attention_ref(q, k, v, **kw)
+        torch.testing.assert_close(got.float(), want_out.float(),
+                                   **ATTN_TOL["bfloat16"])
+        worst[f"flash q{list(key[0])} k{list(key[1])}"] = float(
+            (got.float() - want_out.float()).abs().max())
+        del q, k, v, got, want_out
+    (q, kc, vc, lengths), kw, (out, lse) = seen.pop("decode")
+    want_o, want_l = decode_attention_ref(q, kc, vc, lengths, **kw)
+    torch.testing.assert_close(out.float(), want_o.float(),
+                               **ATTN_TOL["bfloat16"])
+    torch.testing.assert_close(lse, want_l, **ATTN_TOL["float32"])
+    worst["decode out"] = float((out.float() - want_o.float()).abs().max())
+    worst["decode lse"] = float((lse - want_l).abs().max())
+    check(int(lengths.min()) == int(lengths.max()) == off + S + steps
+          and kc.shape[1] == serve_mod.cache_capacity(model, S, args.gen),
+          f"{label}: the last decode step attends {off + S + steps} keys "
+          f"of a {kc.shape[1]}-row cache")
+    print(f"{label}: the last flash call of each shape and the last decode "
+          f"call == plain versions on their own inputs (decode cache "
+          f"{tuple(kc.shape)}; max |err| {worst})")
+    del q, kc, vc, lengths, out, lse, want_o, want_l
+
+    def step1_of(m, p, b, rows):
+        _, cache = m.prefill(p, b, cache_len=off + S + 2)
+        lg, _ = m.decode_step(p, cache, gen_tokens[:rows, :1])
+        return lg[:, 0].float()
+
+    tf = {"bf16": serve_teacher_forcing(
+        torch, f"{label} (bf16)", model, params, batch, gen_tokens,
+        step1["logits"], SERVE_TF_TOL, SERVE_TF_MEAN_TOL)}
+    numbers = serve_numbers(torch, label, model, params, batch, res,
+                            args.gen, card)
+    step_bytes = decode_step_bytes(params, res["cache"], cfg,
+                                   off + S + steps)
+    bound_ms = step_bytes / peaks[0] * 1e3
+    print(f"{label}: a decode step reads at least {step_bytes / 1e9:.3f} GB "
+          f"(weights it uses and the cache rows it attends): bound "
+          f"{bound_ms:.3f} ms at {peaks[0] / 1e12:.2f} TB/s, against "
+          f"{numbers['decode_step_device_ms']:.3f} ms on the device alone "
+          f"({card})")
+    cache, last = res["cache"], gen_tokens[:, -1:]
+    numbers["prefill_by_kernel"] = device_breakdown(
+        torch, f"{label} prefill", lambda: model.prefill(
+            params, batch, cache_len=serve_mod.cache_capacity(
+                model, S, args.gen)))
+    numbers["decode_step_by_kernel"] = device_breakdown(
+        torch, f"{label} decode step", lambda: model.decode_step(
+            params, cache, last))
+    peak_serve = torch.cuda.max_memory_allocated()
+    weights = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    print(f"{label}: allocator peak {peak_serve / 2**30:.3f} GiB over the "
+          f"serve passes, the kernel checks, the bf16 teacher forcing and "
+          f"the CUDA graphs ({weights / 2**30:.3f} GiB of weights; {card})")
+    del res, cache, last
+
+    # f32: the same weights upcast, in place; V on its first V_F32_ROWS
+    # sequences
+    rows = B if encdec else V_F32_ROWS
+    torch.cuda.reset_peak_memory_stats()
+    upcast_in_place(params)
+    model32 = build_model(cfg.replace(dtype="float32"),
+                          max_target_positions=model.max_target_positions)
+    batch32 = {k: (t.float() if t.is_floating_point() else t)[:rows]
+               for k, t in batch.items()}
+    tf["f32"] = serve_teacher_forcing(
+        torch, f"{label} (f32 weights, {rows} sequences)", model32, params,
+        batch32, gen_tokens[:rows], step1_of(model32, params, batch32, rows),
+        SSM_TF_TOL, SSM_TF_MEAN_TOL)
+    peak_f32 = torch.cuda.max_memory_allocated()
+    del params, batch32
+    numbers.update(params=n_params, launches=counts,
+                   prefill_launches=prefill_counts,
+                   flash_calls_by_shape={str(k): n
+                                         for k, n in by_shape.items()},
+                   teacher_forcing=tf, peak_bytes=peak_serve,
+                   peak_f32_bytes=peak_f32, weight_bytes=weights,
+                   decode_step_bytes=step_bytes,
+                   decode_step_bound_ms=bound_ms, build_s=t_build,
+                   max_abs_err=worst,
+                   phase_s=time.perf_counter() - t_phase)
+    print(f"{label}: f32 teacher forcing peak {peak_f32 / 2**30:.3f} GiB; "
+          f"phase {numbers['phase_s']:.1f} s ({card})")
     return numbers
 
 
@@ -3249,6 +3675,27 @@ def phase_moe_round(torch, card):
                     {"num_layers": N_LAYERS}, reduced_why=why)
 
 
+def frontend_rows(rows):
+    """(phase, timing row, what it times, the flash key ``(q shape, k
+    shape, causal)`` whose calls it stands for) of phases W and V's flash
+    rows."""
+    enc, cross, step = rows["flash_attention W"]
+    (pix,) = rows["flash_attention V"]
+    w_enc = ((8, 1500, 8, 64), (8, 1500, 8, 64), False)
+    return (
+        ("W", enc, "whisper-base's encoder, one call: B=8, S=T=1500, "
+         "Hq=Hkv=8, D=64, bf16, non-causal", w_enc),
+        ("W", cross, "whisper-base's prefill cross-attention, one call: B=8, "
+         "S=384 against T=1500, Hq=Hkv=8, D=64, bf16, non-causal",
+         ((8, 384, 8, 64), (8, 1500, 8, 64), False)),
+        ("W", step, "whisper-base's decode-step cross-attention, one call: "
+         "B=8, S=1 against T=1500, Hq=Hkv=8, D=64, bf16, non-causal",
+         ((8, 1, 8, 64), (8, 1500, 8, 64), False)),
+        ("V", pix, "pixtral-12b's prefill, one call: B=8, S=T=1536 (1024 "
+         "patches + 512 tokens), Hq=32, Hkv=8, D=128, bf16, causal",
+         ((8, 1536, 32, 128), (8, 1536, 8, 128), True)))
+
+
 def main() -> int:
     # every phase on the allocator's expandable segments: with fixed
     # segments the LM rounds' AdamW steps fragmented the cache up to the
@@ -3293,6 +3740,7 @@ def main() -> int:
     padded_dim = COMPRESSORS.build("int8", {}, dict(dim=dim)).padded_dim
     rows = phase_times(torch, peaks[:2], shapes, dim, padded_dim)
     rows.update(phase_attention_times(torch, peaks))
+    rows.update(phase_frontend_times(torch, peaks))
     rows.update(phase_ssd_times(torch, peaks))
 
     launches, walls, adversary, population = {}, {}, {}, {}
@@ -3350,6 +3798,14 @@ def main() -> int:
                                   n_ref)
            for label, arch, overrides, n_ref in MOE_SERVES}
     moe["N"] = phase_moe_round(torch, card)
+    # the encdec and vlm families, last: whisper-base (W) and pixtral-12b
+    # (V) served at full width and depth
+    t_frontend = time.perf_counter()
+    frontend = {label: phase_frontend_serve(torch, card, peaks, label, argv,
+                                            n_ref)
+                for label, argv, n_ref in FRONTEND_SERVES}
+    print(f"phases W and V took {time.perf_counter() - t_frontend:.1f} s, "
+          f"the build of each model included ({card})")
 
     def entry(name, path_rows, shape, n=None):
         def total(key):    # None where no PyTorch call computes the same
@@ -3413,13 +3869,24 @@ def main() -> int:
         entry("ssd_scan", rows["ssd_scan_fold"],
               "one folded cross-test call: Bt={}, S=64, H=80, P=64, G=1, "
               "N=128, chunk 256, A and D [Bt, H], bf16".format(
-                  lm["M"]["folded_shape"][0]), n=lm["M"]["launches"])]}))
+                  lm["M"]["folded_shape"][0]), n=lm["M"]["launches"]),
+        # phases W and V: one call at each shape; launches: that shape's
+        # calls in the measured serve pass (one launch a call)
+        *[entry("flash_attention", [row], what,
+                n=frontend[label]["flash_calls_by_shape"][str(key)])
+          for label, row, what, key in frontend_rows(rows)],
+        entry("decode_attention", rows["decode_attention V"],
+              "pixtral-12b's decode step, one call (split kernel + merge "
+              "kernel): B=8, cache 1569, lengths 1537..1567, Hq=32, Hkv=8, "
+              "D=128, bf16", n=frontend["V"]["launches"]["decode_attention"]),
+    ]}))
     for label in lm:
         print(f"phase {label} round wall ms: "
               f"{[round(t, 3) for t in lm[label]['wall_ms']]} ({card})")
     print(f"phase N round wall ms: "
           f"{[round(t, 3) for t in moe['N']['wall_ms']]} ({card})")
-    print(json.dumps({"lm": lm, "moe": moe, "serve": serve_out,
+    print(json.dumps({"lm": lm, "moe": moe, "frontend": frontend,
+                      "serve": serve_out,
                       "ssm_serve": ssm_out,
                       "reproducible_path_a": repro,
                       "comparison": comparison, "adversary": adversary,

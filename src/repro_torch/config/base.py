@@ -1,10 +1,10 @@
 """Config dataclasses of the port (counterpart of ``repro/config/base.py``).
 
-``ModelConfig`` carries the fields of the families the port runs: the
-paper's classifiers ``cnn`` and ``mlp``, the decoder-only LMs ``dense``
-and ``moe``, the attention-free Mamba2 ``ssm`` stack and the Jamba-style
-``hybrid`` interleave. The other LM families are refused with the
-``ROADMAP.md`` item that ports them. ``FedConfig`` keeps
+``ModelConfig`` keeps every field of the reference's, with its names,
+defaults and checks, for the eight families: the paper's classifiers
+``cnn`` and ``mlp``, the decoder-only LMs ``dense`` and ``moe``, the
+attention-free Mamba2 ``ssm`` stack, the Jamba-style ``hybrid``
+interleave, the Whisper-style ``encdec`` and the ``vlm``. ``FedConfig`` keeps
 every field of the reference's, with its names, defaults and checks
 (``server_test_fraction`` is read by nothing, in the reference too, and
 comes over inert). ``cohort`` > 0 is the population tier's slot capacity
@@ -22,16 +22,12 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
-# the decoder-LM families the port runs (served, and in the LM round)
-LM_FAMILIES = ("dense", "moe", "ssm", "hybrid")
-
-# LM families the reference runs and the port does not yet, each with the
-# ROADMAP.md item that ports it
-_FAMILIES_NOT_PORTED = {
-    "encdec": "queue 1 item 16, the next slice (models/encdec.py, "
-              "cross-attention)",
-    "vlm": "queue 1 item 16, the next slice (models/frontend_stub.py)",
-}
+# the LM families the port serves (``Model.prefill`` / ``decode_step``)
+LM_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
+# those the LM round trains (``--dataset lm``): the reference's round
+# batches tokens alone, so it gives whisper no frames and a vlm no
+# patches (ROADMAP.md queue 1 item 16's leftovers)
+ROUND_LM_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,6 +42,10 @@ class ModelConfig:
     * ``ssm`` — attention-free Mamba2 (SSD) stack.
     * ``hybrid`` — Jamba-style Mamba/attention interleave (attention
       where ``layer_idx % attn_every == attn_offset``) with periodic MoE.
+    * ``encdec`` — Whisper-style encoder-decoder (the audio frontend a
+      stub: ``encoder_seq`` frame embeddings).
+    * ``vlm`` — decoder-only over ``num_patches`` stub patch embeddings
+      and the text.
     * ``cnn`` — 3x3 conv + relu + 2x2 max-pool per entry of
       ``cnn_channels``, then two dense layers (Sec. III).
     * ``mlp`` — the MNIST fully-connected classifier.
@@ -87,6 +87,15 @@ class ModelConfig:
     attn_every: int = 0         # attention layer iff layer_idx % attn_every == attn_offset
     attn_offset: int = 0
 
+    # --- encoder-decoder (Whisper) -------------------------------------------
+    encoder_layers: int = 0
+    encoder_seq: int = 0        # fixed 1500 mel-frame positions for whisper
+    decoder_max_position: int = 0
+
+    # --- modality frontend stub ----------------------------------------------
+    frontend: Optional[str] = None  # 'audio' | 'vision' | None
+    num_patches: int = 0            # vlm: image patch embeddings per sample
+
     # --- cnn / mlp (the paper's classifiers) --------------------------------
     image_size: int = 0
     image_channels: int = 0
@@ -102,11 +111,6 @@ class ModelConfig:
     source: str = ""            # citation for the config (paper / model card)
 
     def __post_init__(self) -> None:
-        if self.family in _FAMILIES_NOT_PORTED:
-            raise ValueError(
-                f"family {self.family!r} is not ported yet (ROADMAP.md "
-                f"{_FAMILIES_NOT_PORTED[self.family]}); the port runs "
-                "'dense', 'moe', 'ssm', 'hybrid', 'cnn' and 'mlp'")
         _require(self.family in LM_FAMILIES + ("cnn", "mlp"),
                  f"unknown family {self.family!r}")
         if self.family == "ssm":
@@ -116,7 +120,7 @@ class ModelConfig:
                      f"{self.name}: ssm needs num_layers, d_model and "
                      "vocab_size")
             return
-        if self.family in ("dense", "moe", "hybrid"):
+        if self.family in ("dense", "moe", "hybrid", "encdec", "vlm"):
             _require(self.num_heads > 0 and self.num_kv_heads > 0,
                      f"{self.name}: attention archs need heads")
             _require(self.num_heads % self.num_kv_heads == 0,
@@ -134,6 +138,9 @@ class ModelConfig:
             if self.family == "hybrid":
                 _require(self.attn_every > 0,
                          f"{self.name}: hybrid needs attn_every")
+            if self.family == "encdec":
+                _require(self.encoder_layers > 0 and self.encoder_seq > 0,
+                         f"{self.name}: encdec needs encoder dims")
             return
         _require(self.num_classes > 0 and self.image_size > 0,
                  f"{self.name}: needs num_classes and image_size")
@@ -193,11 +200,13 @@ class ModelConfig:
 
 def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:
     """Reduced variant of the same family for CPU smoke tests (the
-    reference's ``reduce_for_smoke`` for the families the port runs):
+    reference's ``reduce_for_smoke``):
     at most 2 layers, d_model <= 256, vocab <= 512, at most 4 query
     heads of width 32, d_ff <= 512, at most 4 experts (top-2); an SSM
     state <= 16 in heads of 32, chunk 32; a hybrid stack keeps one
-    attention layer of its two (``attn_every`` 2, offset 1)."""
+    attention layer of its two (``attn_every`` 2, offset 1); an encdec
+    keeps at most 2 encoder layers over 64 frames and a 128-row position
+    table; a vlm at most 16 patches."""
     kw: dict = dict(
         name=cfg.name + "-smoke",
         num_layers=min(cfg.num_layers, 2),
@@ -222,6 +231,11 @@ def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:
     if cfg.family == "hybrid":
         # keep one attention layer in the 2-layer smoke stack
         kw.update(attn_every=2, attn_offset=1, moe_every=cfg.moe_every)
+    if cfg.family == "encdec":
+        kw.update(encoder_layers=min(cfg.encoder_layers, 2), encoder_seq=64,
+                  decoder_max_position=128)
+    if cfg.family == "vlm":
+        kw.update(num_patches=min(cfg.num_patches, 16))
     if cfg.family == "cnn":
         kw.update(cnn_channels=tuple(min(c, 16) for c in cfg.cnn_channels),
                   cnn_hidden=min(cfg.cnn_hidden, 64))

@@ -1,5 +1,6 @@
 """Arch-id -> ModelConfig registry: the paper's three classifiers and the
-LMs the port serves (dense, moe, Mamba2 and the Jamba hybrid)."""
+LMs the port serves (dense, moe, Mamba2, the Jamba hybrid, whisper's
+encoder-decoder and pixtral's vlm) — the reference's registry whole."""
 from __future__ import annotations
 
 import importlib
@@ -20,14 +21,15 @@ ARCH_IDS: Dict[str, str] = {
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "mamba2-2.7b": "mamba2_2p7b",
     "jamba-1.5-large-398b": "jamba_1p5_large_398b",
+    "whisper-base": "whisper_base",
+    "pixtral-12b": "pixtral_12b",
 }
 
 
 def get_config(arch_id: str) -> ModelConfig:
     if arch_id not in ARCH_IDS:
-        raise KeyError(f"unknown arch {arch_id!r}; the port has "
-                       f"{sorted(ARCH_IDS)} (whisper-base and "
-                       "pixtral-12b: ROADMAP.md queue 1 item 16)")
+        raise KeyError(f"unknown arch {arch_id!r}; known: "
+                       f"{sorted(ARCH_IDS)}")
     mod = importlib.import_module(f"repro_torch.configs.{ARCH_IDS[arch_id]}")
     return mod.config()
 

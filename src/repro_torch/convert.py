@@ -2,7 +2,7 @@
 checkpoints -> the port's.
 
 Both packages keep the same tree (names, layouts, dtypes: conv weights
-HWIO, dense weights ``[in, out]``, decoder layers stacked ``[L, ...]``),
+HWIO, dense weights ``[in, out]``, LM layers stacked ``[L, ...]``),
 so conversion is a checked, name-for-name copy of the leaves onto a
 device, and the flat ``[N, D]`` update layout is the same in both.
 """
@@ -31,7 +31,10 @@ def params_from_reference(tree_of_numpy: Dict[str, Any], device, *,
     RMSNorm scales, the MoE router and the mamba block's ``dt_bias``,
     ``A_log`` and ``D``, which the reference keeps in f32 in a bf16
     model. The decoder's tree is the reference's, period slots and all
-    (``layers/slot_0 .. slot_{period-1}``).
+    (``layers/slot_0 .. slot_{period-1}``), a vlm's ``patch_proj`` among
+    them; so is the encdec's (``encoder`` / ``decoder`` stacks, f32
+    LayerNorm scales and biases, ``dec_pos`` of as many rows as
+    ``model.max_target_positions`` gives).
     Refuses a missing or extra leaf and a shape mismatch against
     ``model.param_shapes()``. A bf16 leaf arrives as an ``ml_dtypes``
     bfloat16 array and goes through f32, which holds it exactly."""
@@ -81,8 +84,8 @@ def _reference_manifest_mismatches(saved: dict, trainer) -> list:
     train = sorted(set(mine["train"]) & set(saved.get("train", {})))
 
     def shared(m):
-        return {"arch": m.get("arch"), "fed": m.get("fed"),
-                "use_trust": m.get("use_trust"),
+        return {"arch": m.get("arch"), "model": m.get("model"),
+                "fed": m.get("fed"), "use_trust": m.get("use_trust"),
                 "train": {k: m.get("train", {}).get(k) for k in train}}
 
     return manifest_mismatches(shared(saved), shared(mine))
@@ -100,13 +103,12 @@ def state_from_reference_checkpoint(path: str, trainer) -> RoundState:
     so the run continues on the port's own stream, not the reference's.
 
     When the directory holds the reference's ``manifest.json``, it must
-    agree with ``trainer``'s on ``arch``, ``fed``, ``use_trust`` and the
+    agree with ``trainer``'s on ``arch``, ``model`` (the two packages'
+    ``ModelConfig`` have the same fields), ``fed``, ``use_trust`` and the
     ``train`` fields both packages have; ``ValueError`` names what
-    differs. Not compared: ``model``, since the reference's
-    ``ModelConfig`` has fields the port lacks (the encdec and vlm
-    families, ROADMAP.md queue 1 item 16) and the port's has the
-    classifiers' own; ``train.remat`` and ``train.seed``, which the
-    port's ``TrainConfig`` lacks; ``family`` and ``manifest_version``."""
+    differs. Not compared: ``train.remat`` and ``train.seed``, which the
+    port's ``TrainConfig`` lacks; ``family`` (``model.family`` holds it)
+    and ``manifest_version``."""
     man = os.path.join(os.path.dirname(os.path.abspath(path)), MANIFEST_NAME)
     if os.path.exists(man):
         with open(man) as f:

@@ -1,8 +1,9 @@
 """Batched serving entry point of the port: prefill a prompt batch, then
 decode token by token (the decoder-LM side of ``repro.launch.serve``).
 
-Serves a dense, moe, Mamba2 or hybrid LM at full width on the card by
-default, with weights drawn from ``--seed``:
+Serves any LM of the registry (dense, moe, Mamba2, hybrid, whisper's
+encoder-decoder, pixtral's vlm) at full width on the card by default,
+with weights drawn from ``--seed``:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
       --batch 8 --prompt-len 512 --gen 32
@@ -10,17 +11,26 @@ default, with weights drawn from ``--seed``:
       --batch 8 --prompt-len 512 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch granite-moe-1b-a400m --batch 8 --prompt-len 512 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base \\
+      --batch 8 --prompt-len 384 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch pixtral-12b \\
+      --batch 8 --prompt-len 512 --gen 32
 
 Prefill runs each attention layer through the ``flash_attention``
 kernel, decode through ``decode_attention``; prefill runs each mamba
 layer's scan through the ``ssd_scan`` kernel and decode steps the
 recurrence in plain torch. A MoE layer routes the prefill by capacity
 (groups of 512 tokens) and decode dropless, as the reference's server
-does. ``--device cpu --smoke`` runs the reduced config in f32 on the CPU
-(the kernels' plain versions);
-``--device cuda`` without a card raises. Prompt tokens and sampling come
-from a ``torch.Generator``, so the tokens differ from the reference's
-JAX draws.
+does. whisper encodes stub frames (``[B, 1500, 512]``) and its decoder
+attends them through ``flash_attention`` in the prefill and in every
+decode step; its learned position table is extended to ``prompt + gen +
+1`` rows where that exceeds its 448, as the reference's server extends
+it. pixtral's prompt is its stub patches (1,024 a sequence) before the
+text, and its cache holds both. ``--device cpu --smoke`` runs the
+reduced config in f32 on the CPU (the kernels' plain versions);
+``--device cuda`` without a card raises. Prompt tokens, the stub frames
+or patches (drawn after the tokens) and sampling come from a
+``torch.Generator``, so they differ from the reference's JAX draws.
 
 Serve-while-training (DESIGN.md §9): with ``--ckpt-dir`` the server
 waits up to ``--wait-secs`` for a checkpoint of the port's
@@ -46,6 +56,7 @@ from repro_torch.configs import get_config, list_configs
 from repro_torch.convert import params_from_reference
 from repro_torch.core.engine import resolve_device
 from repro_torch.models import build_model
+from repro_torch.models.frontend_stub import stub_embeddings
 
 # seconds between looks for a first checkpoint under --wait-secs
 POLL_S = 0.5
@@ -102,11 +113,16 @@ def load_serving_params(mgr: CheckpointManager, model, arch: str = None,
 
 
 def build(args: argparse.Namespace, **overrides):
-    """(model, params, prompt tokens [B, S] int32, generator) for the
-    parsed flags, on the run's device. With ``--ckpt-dir`` the params
-    are the newest checkpoint's and the prompt is drawn from ``--seed``
-    as the first draw. ``overrides`` replace fields of the arch's config
-    (a cut of its depth or widths) before ``--smoke``."""
+    """(model, params, prompt batch, generator) for the parsed flags, on
+    the run's device. The batch holds ``tokens`` [B, S] int32 and, for
+    whisper, ``frames`` [B, encoder_seq, D] or, for a vlm, ``patches``
+    [B, num_patches, D] in the model's dtype, drawn by ``stub_embeddings``
+    after the tokens. With ``--ckpt-dir`` the params are the newest
+    checkpoint's and the tokens are drawn from ``--seed`` as the first
+    draw. ``overrides`` replace fields of the arch's config (a cut of its
+    depth or widths) before ``--smoke``. An encdec's position table gets
+    ``prompt + gen + 1`` rows where that exceeds its own, as the
+    reference's server gives it."""
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if overrides:
@@ -115,7 +131,8 @@ def build(args: argparse.Namespace, **overrides):
         cfg = reduce_for_smoke(cfg).replace(dtype="float32")
     if cfg.family not in LM_FAMILIES:
         raise SystemExit(f"{cfg.name} ({cfg.family}) has no serving path")
-    model = build_model(cfg)
+    model = build_model(cfg, max_target_positions=args.prompt_len
+                        + args.gen + 1)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     if args.ckpt_dir:
         params, step = load_serving_params(
@@ -124,9 +141,14 @@ def build(args: argparse.Namespace, **overrides):
         print(f"serving round-{step} weights from {args.ckpt_dir}")
     else:
         params = model.init(gen)
-    tokens = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
-                           generator=gen, device=device, dtype=torch.int32)
-    return model, params, tokens, gen
+    batch = {"tokens": torch.randint(0, cfg.vocab_size,
+                                     (args.batch, args.prompt_len),
+                                     generator=gen, device=device,
+                                     dtype=torch.int32)}
+    stub = {"encdec": "frames", "vlm": "patches"}.get(cfg.family)
+    if stub:
+        batch[stub] = stub_embeddings(cfg, args.batch, gen, model.dtype)
+    return model, params, batch, gen
 
 
 def sample(logits: torch.Tensor, temperature: float,
@@ -147,20 +169,29 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def serve(model, params, tokens: torch.Tensor, gen_len: int,
+def cache_capacity(model, prompt_len: int, gen_len: int) -> int:
+    """Cache rows a sequence for a prompt and ``gen_len`` tokens: a vlm's
+    patches too, and one spare row, as the reference's server sizes it."""
+    cfg = model.cfg
+    return (prompt_len + gen_len + 1
+            + (cfg.num_patches if cfg.family == "vlm" else 0))
+
+
+def serve(model, params, batch: Dict[str, torch.Tensor], gen_len: int,
           temperature: float, gen: torch.Generator,
           on_step=None) -> Dict[str, object]:
-    """Prefill ``tokens``, then decode ``gen_len - 1`` more tokens (the
-    first comes from the prefill's logits). ``on_step(i, logits)`` sees
-    the prefill's logits (i = 0) and each decode step's (i >= 1).
-    Returns the generated tokens [B, gen_len] and the host-clock times,
-    each ending in a device synchronisation."""
-    B, S = tokens.shape
-    device = tokens.device
-    cap = S + gen_len + 1
+    """Prefill ``batch`` (``tokens`` [B, S] and a model's stub ``frames``
+    or ``patches``), then decode ``gen_len - 1`` more tokens (the first
+    comes from the prefill's logits). ``on_step(i, logits)`` sees the
+    prefill's logits (i = 0) and each decode step's (i >= 1). Returns
+    the generated tokens [B, gen_len], the cache and the host-clock
+    times, each ending in a device synchronisation."""
+    S = batch["tokens"].shape[1]
+    device = batch["tokens"].device
+    cap = cache_capacity(model, S, gen_len)
     _sync(device)
     t0 = time.perf_counter()
-    logits, cache = model.prefill(params, {"tokens": tokens}, cache_len=cap)
+    logits, cache = model.prefill(params, batch, cache_len=cap)
     _sync(device)
     t_prefill = time.perf_counter() - t0
     if on_step is not None:
@@ -182,13 +213,13 @@ def serve(model, params, tokens: torch.Tensor, gen_len: int,
 
 def main(argv=None):
     args = parse_args(argv)
-    model, params, tokens, gen = build(args)
-    B, S = tokens.shape
-    res = serve(model, params, tokens, args.gen, args.temperature, gen)
+    model, params, batch, gen = build(args)
+    B, S = batch["tokens"].shape
+    res = serve(model, params, batch, args.gen, args.temperature, gen)
     t_prefill, t_decode = res["prefill_s"], res["decode_s"]
     steps = args.gen - 1
     print(f"arch={model.cfg.name} batch={B} prompt={S} gen={args.gen} "
-          f"device={tokens.device}")
+          f"device={batch['tokens'].device}")
     print(f"prefill: {t_prefill * 1e3:.1f} ms "
           f"({B * S / max(t_prefill, 1e-9):.0f} tok/s)")
     print(f"decode : {t_decode * 1e3:.1f} ms "

@@ -52,7 +52,8 @@ import torch
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.config import (
-    LM_FAMILIES, FedConfig, TrainConfig, reduce_for_smoke)
+    LM_FAMILIES, ROUND_LM_FAMILIES, FedConfig, TrainConfig,
+    reduce_for_smoke)
 from repro_torch.configs import (
     get_config, get_scenario, list_configs, list_scenarios,
     scenario_for_population)
@@ -297,6 +298,16 @@ def build(args: argparse.Namespace, **overrides):
     if args.smoke:
         cfg = reduce_for_smoke(cfg).replace(dtype="float32")
     lm = cfg.family in LM_FAMILIES
+    if lm and cfg.family not in ROUND_LM_FAMILIES:
+        raise SystemExit(
+            f"--arch {args.arch} ({cfg.family}) has no LM round yet "
+            "(ROADMAP.md queue 1 item 16's leftovers): the round batches "
+            "tokens alone, as the reference's RoundProgram.batchify does, "
+            "so it would give " + ("whisper no encoder frames"
+                                   if cfg.family == "encdec" else
+                                   "a vlm no patches and train its text "
+                                   "alone") + "; serve it with "
+            "repro_torch.launch.serve")
     if lm != (args.dataset == "lm"):
         raise SystemExit(f"--arch {args.arch} ({cfg.family}) and --dataset "
                          f"{args.dataset} do not go together: the LMs take "

@@ -7,7 +7,12 @@ Params keep the reference's tree and layouts: ``wq [D, Hq*dh]``, ``wk``,
 ``torch.matmul``; the attention itself goes through the kernel ops
 (``flash_attention`` for a sequence, ``decode_attention`` for one token),
 or, for a sequence, through the differentiable ``blockwise_attention``
-that local training takes (``differentiable``).
+that local training takes (``differentiable``). RoPE is applied unless
+``use_rope`` is off (whisper's encoder and decoder). Cross-attention
+(whisper's decoder) projects q alone and attends the encoder's K/V,
+projected once by :func:`encode_memory_kv`, through ``flash_attention``
+non-causal, in a prefill and in every decode step alike, as the
+reference does.
 """
 from __future__ import annotations
 
@@ -52,7 +57,8 @@ def attention_init(gen: torch.Generator, cfg, dtype, lead=()) -> Dict:
     return {k: leaf(k, s) for k, s in attention_specs(cfg, dtype).items()}
 
 
-def _project_qkv(p, cfg, x: torch.Tensor, positions: torch.Tensor):
+def _project_qkv(p, cfg, x: torch.Tensor, positions: torch.Tensor,
+                 use_rope: bool = True):
     B, S, _ = x.shape
     Hq, Hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = x @ p["wq"]
@@ -66,25 +72,58 @@ def _project_qkv(p, cfg, x: torch.Tensor, positions: torch.Tensor):
     if cfg.qk_norm:
         q = rms_norm(p["q_norm"], q, cfg.norm_eps)
         k = rms_norm(p["k_norm"], k, cfg.norm_eps)
-    return (rope(q, positions, cfg.rope_theta),
-            rope(k, positions, cfg.rope_theta), v)
+    if use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    return q, k, v
 
 
 def attention_full(p, cfg, x: torch.Tensor, positions: torch.Tensor, *,
                    causal: bool = True, sliding_window: Optional[int] = None,
-                   return_kv: bool = False, differentiable: bool = False):
+                   use_rope: bool = True, return_kv: bool = False,
+                   differentiable: bool = False):
     """Full-sequence path (training / prefill). x [B,S,D] -> y [B,S,D];
-    with ``return_kv`` also the roped (k, v) [B,S,Hkv,dh] for the cache.
-    The attention is ``flash_attention`` or, with ``differentiable``,
-    ``blockwise_attention``."""
+    with ``return_kv`` also the (roped unless ``use_rope`` is off) (k, v)
+    [B,S,Hkv,dh] for the cache. The attention is ``flash_attention`` or,
+    with ``differentiable``, ``blockwise_attention``."""
     B, S, _ = x.shape
-    q, k, v = _project_qkv(p, cfg, x, positions)
+    q, k, v = _project_qkv(p, cfg, x, positions, use_rope)
     attend = blockwise_attention if differentiable else flash_attention
     o = attend(q, k, v, causal=causal, sliding_window=sliding_window)
     y = o.reshape(B, S, -1) @ p["wo"]
     if return_kv:
         return y, (k, v)
     return y
+
+
+def cross_attention_full(p, cfg, x: torch.Tensor, memory_kv, *,
+                         differentiable: bool = False) -> torch.Tensor:
+    """Decoder cross-attention against the encoder's K/V ``memory_kv``
+    (each [B,T,Hkv,dh]): x [B,S,D] -> y [B,S,D]. q alone is projected
+    (``bq`` added with ``qkv_bias``) and attends every memory row,
+    non-causal, through ``flash_attention`` (``blockwise_attention`` with
+    ``differentiable``), whatever S, a decode step's S = 1 included."""
+    B, S, _ = x.shape
+    q = x @ p["wq"]
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
+    k, v = memory_kv
+    attend = blockwise_attention if differentiable else flash_attention
+    o = attend(q, k, v, causal=False)
+    return o.reshape(B, S, -1) @ p["wo"]
+
+
+def encode_memory_kv(p, cfg, memory: torch.Tensor):
+    """Project the encoder's output [B,T,D] once into cross-attention
+    (k, v), each [B,T,Hkv,dh] and contiguous, as the kernels take them."""
+    B, T, _ = memory.shape
+    k = memory @ p["wk"]
+    v = memory @ p["wv"]
+    if cfg.qkv_bias:
+        k, v = k + p["bk"], v + p["bv"]
+    shape = (B, T, cfg.num_kv_heads, cfg.head_dim)
+    return k.reshape(shape), v.reshape(shape)
 
 
 def _cache_write_dus(cache: torch.Tensor, new: torch.Tensor,
@@ -104,7 +143,8 @@ def _cache_write_dus(cache: torch.Tensor, new: torch.Tensor,
 def attention_decode(p, cfg, x: torch.Tensor, positions: torch.Tensor,
                      kcache: torch.Tensor, vcache: torch.Tensor,
                      lengths: torch.Tensor, *,
-                     sliding_window: Optional[int] = None
+                     sliding_window: Optional[int] = None,
+                     use_rope: bool = True
                      ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
     """Single-token decode. x [B,1,D]; caches [B,T,Hkv,dh]; positions [B]
     int32. Writes the new K/V at ``positions`` (in place), then attends
@@ -112,7 +152,7 @@ def attention_decode(p, cfg, x: torch.Tensor, positions: torch.Tensor,
     the reference does (its ``lengths`` argument is not read there
     either)."""
     B = x.shape[0]
-    q, k, v = _project_qkv(p, cfg, x, positions[:, None])
+    q, k, v = _project_qkv(p, cfg, x, positions[:, None], use_rope)
     kcache = _cache_write_dus(kcache, k, positions)
     vcache = _cache_write_dus(vcache, v, positions)
     out, _lse = decode_attention(q[:, 0], kcache, vcache, positions + 1,

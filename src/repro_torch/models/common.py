@@ -1,5 +1,6 @@
-"""Shared building blocks: initializers, RMSNorm, rotary embeddings, loss
-and accuracy (the port's side of ``repro/models/common.py``)."""
+"""Shared building blocks: initializers, RMSNorm and LayerNorm, rotary
+and sinusoidal positions, loss and accuracy (the port's side of
+``repro/models/common.py``)."""
 from __future__ import annotations
 
 import torch
@@ -37,6 +38,24 @@ def rms_norm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return (xf * torch.rsqrt(var + eps) * p["scale"]).to(x.dtype)
 
 
+def layer_norm_init(dim: int, device=None):
+    """LayerNorm scale (one) and bias (zero), kept in f32 whatever the
+    model's dtype, as the reference keeps them."""
+    return {"scale": torch.ones((dim,), dtype=torch.float32, device=device),
+            "bias": torch.zeros((dim,), dtype=torch.float32, device=device)}
+
+
+def layer_norm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis in f32 with the biased variance (the
+    reference's ``jnp.var``), against the f32 scale and bias, then cast
+    back to ``x``'s dtype."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, unbiased=False, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps) * p["scale"]
+            + p["bias"]).to(x.dtype)
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
          ) -> torch.Tensor:
     """Rotary embedding, the half-split form (the first and second halves
@@ -51,6 +70,22 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
                      dim=-1).to(x.dtype)
+
+
+def sinusoidal_positions(seq: int, dim: int, device=None) -> torch.Tensor:
+    """Whisper-style sinusoidal table ``[seq, dim]`` in f32: the sines of
+    ``half = dim // 2`` timescales, then their cosines (``[sin | cos]``,
+    not interleaved), timescale j at ``exp(-j log(10000) / max(half - 1,
+    1))``, the log taken in f32 as the reference takes it. Made on
+    ``device`` alone (no host copy), so a CUDA graph may capture it."""
+    half = dim // 2
+    log_timescale = torch.full((), 10_000.0, dtype=torch.float32,
+                               device=device).log() / max(half - 1, 1)
+    inv = torch.exp(-log_timescale * torch.arange(half, dtype=torch.float32,
+                                                  device=device))
+    scaled = (torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+              * inv[None, :])
+    return torch.cat([torch.sin(scaled), torch.cos(scaled)], dim=1)
 
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

@@ -1,5 +1,5 @@
-"""Decoder-only LM stack, the dense, moe, ssm and hybrid families (the
-port's side of ``repro/models/decoder.py``).
+"""Decoder-only LM stack, the dense, moe, ssm, hybrid and vlm families
+(the port's side of ``repro/models/decoder.py``).
 
 The reference stacks the layers' params along a leading axis and drives
 the stack with ``lax.scan``; the hybrid (Jamba) family scans over
@@ -11,7 +11,10 @@ slot_{period-1}``, each leaf ``[num_layers // period, ...]``, and walks it
 with a Python loop: period p, slot s is layer ``p * period + s``. A slot
 is ``{norm1, attn | mamba}`` and, outside the ssm family, ``{norm2, moe |
 ffn}``; dense, moe and ssm are one slot. The full-sequence forward
-returns the MoE load-balance loss summed over the layers.
+returns the MoE load-balance loss summed over the layers. A vlm's
+stub patch embeddings (``prefix_embeds`` ``[B, P, D]``) go through its
+``patch_proj [D, D]`` and sit before the text: positions, logits and
+the cache's ``length`` count them.
 
 The cache keeps the reference's layout, slot by slot: ``{"layers":
 {"slot_s": {"k", "v": [P, B, cap, Hkv, dh]}}, "length": [B] int32}`` for
@@ -99,6 +102,8 @@ def decoder_specs(cfg, dtype) -> Dict[str, Any]:
         "final_norm": {"scale": ((D,), torch.float32)}}
     if not cfg.tie_embeddings:
         p["lm_head"] = ((D, cfg.vocab_size), dtype)
+    if cfg.family == "vlm":
+        p["patch_proj"] = ((D, D), dtype)
     return p
 
 
@@ -127,7 +132,8 @@ def slot_init(gen: torch.Generator, cfg, layer_idx: int, dtype, lead=()
 def init_decoder(cfg, gen: torch.Generator, dtype) -> Dict[str, Any]:
     """Fresh params on ``gen``'s device: the embedding N(0, 0.02^2), each
     slot's layers drawn stacked ``[periods, ...]`` in one
-    :func:`slot_init`, then the LM head when untied."""
+    :func:`slot_init`, then the LM head when untied and a vlm's
+    ``patch_proj``, both N(0, 0.02^2)."""
     period, n_periods = _periods(cfg)
     D = cfg.d_model
     p: Dict[str, Any] = {
@@ -140,6 +146,8 @@ def init_decoder(cfg, gen: torch.Generator, dtype) -> Dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = embed_init(gen, (D, cfg.vocab_size), dtype)
+    if cfg.family == "vlm":
+        p["patch_proj"] = embed_init(gen, (D, D), dtype)
     return p
 
 
@@ -220,24 +228,35 @@ def _logits(p, cfg, x):
     return x @ p["lm_head"]
 
 
-def _embed_inputs(p, tokens):
-    return p["embed"][tokens.long()]
+def _embed_inputs(p, cfg, tokens, prefix_embeds=None):
+    """Token embeddings [B,S,D], after ``prefix_embeds`` [B,P,D] when
+    given: cast to the embeddings' dtype and, for a vlm, projected by
+    ``patch_proj``."""
+    x = p["embed"][tokens.long()]
+    if prefix_embeds is None:
+        return x
+    pe = prefix_embeds.to(x.dtype)
+    if cfg.family == "vlm":
+        pe = pe @ p["patch_proj"]
+    return torch.cat([pe, x], dim=1)
 
 
-def decoder_forward(p, cfg, tokens, *, want_cache: bool = False,
+def decoder_forward(p, cfg, tokens, *, prefix_embeds=None,
+                    want_cache: bool = False,
                     cache_len: int = 0, sliding_window: Optional[int] = None,
                     differentiable: bool = False, moe_dropless: bool = False,
                     moe_group_size: int = 0
                     ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Dict]]:
-    """Full-sequence forward (train / prefill). tokens [B,S] -> (logits
-    [B,S,V], the MoE aux loss summed over the layers (an f32 scalar, 0
+    """Full-sequence forward (train / prefill). tokens [B,S], after
+    ``prefix_embeds`` [B,P,D] where given (a vlm's patches) -> (logits
+    [B,P+S,V], the MoE aux loss summed over the layers (an f32 scalar, 0
     without MoE), cache or None). ``cache_len`` pads the KV cache up to a
     serving capacity >= S; a stack without attention ignores it, as the
     reference does. Each layer's attention or scan is the kernel op or,
     with ``differentiable``, its differentiable twin; the MoE routes by
     capacity over groups of ``moe_group_size`` or, with
     ``moe_dropless``, dropless."""
-    x = _embed_inputs(p, tokens)
+    x = _embed_inputs(p, cfg, tokens, prefix_embeds)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
     period, n_periods = _periods(cfg)
@@ -272,7 +291,7 @@ def decoder_decode_step(p, cfg, cache, tokens, *,
     into its slice). Returns (logits [B,1,V], the cache with ``length +
     1``)."""
     positions = cache["length"]                      # [B], next position
-    x = _embed_inputs(p, tokens)
+    x = _embed_inputs(p, cfg, tokens)
     period, n_periods = _periods(cfg)
     for i in range(n_periods):
         for s in range(period):

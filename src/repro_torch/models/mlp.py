@@ -1,5 +1,5 @@
-"""Feed-forward blocks: the SwiGLU FFN of the dense LMs, and the paper's
-MNIST fully-connected classifier (family ``mlp``)."""
+"""Feed-forward blocks: the SwiGLU FFN of the decoder LMs, whisper's GELU
+MLP, and the paper's MNIST fully-connected classifier (family ``mlp``)."""
 from __future__ import annotations
 
 from typing import Dict
@@ -30,6 +30,33 @@ def swiglu(p, x: torch.Tensor) -> torch.Tensor:
     the down projection."""
     h = F.silu((x @ p["w_gate"]).float()).to(x.dtype)
     return (h * (x @ p["w_up"])) @ p["w_down"]
+
+
+def gelu_mlp_specs(d_model: int, d_ff: int, dtype) -> Dict:
+    """Leaf shapes and dtypes: ``{name: (shape, dtype)}``, biases in the
+    model's dtype as the reference keeps them."""
+    return {"w_in": ((d_model, d_ff), dtype), "b_in": ((d_ff,), dtype),
+            "w_out": ((d_ff, d_model), dtype), "b_out": ((d_model,), dtype)}
+
+
+def gelu_mlp_init(gen: torch.Generator, d_model: int, d_ff: int, dtype,
+                  lead=()) -> Dict:
+    """Fan-in truncated-normal weights, zero biases; ``lead`` prepends
+    stacked axes."""
+    out = {}
+    for name, (shape, dt) in gelu_mlp_specs(d_model, d_ff, dtype).items():
+        out[name] = (dense_init(gen, lead + shape, in_axis=len(lead),
+                                dtype=dt) if name.startswith("w") else
+                     torch.zeros(lead + shape, dtype=dt, device=gen.device))
+    return out
+
+
+def gelu_mlp(p, x: torch.Tensor) -> torch.Tensor:
+    """GELU of the input projection in f32, cast back, then the output
+    projection. The GELU is the tanh approximation, ``jax.nn.gelu``'s
+    default (torch's own default is the erf form)."""
+    h = F.gelu((x @ p["w_in"] + p["b_in"]).float(), approximate="tanh")
+    return h.to(x.dtype) @ p["w_out"] + p["b_out"]
 
 
 def mlp_param_shapes(cfg) -> Dict:

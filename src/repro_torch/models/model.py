@@ -1,4 +1,4 @@
-"""Family-independent model facade (the cnn/mlp and decoder-LM side of
+"""Family-independent model facade (the port's side of
 ``repro/models/model.py``).
 
     m = build_model(cfg)
@@ -8,8 +8,15 @@
     logits, cache = m.prefill(params, batch, cache_len=...)   # the LMs
     logits, cache = m.decode_step(params, cache, tokens)      # the LMs
 
-Batches are ``{"images": [B,H,W,C], "labels": [B]}`` for cnn/mlp and
-``{"tokens": [B,S], "labels": [B,S]}`` for the LMs.
+Batch conventions:
+
+* the decoder LMs (dense/moe/ssm/hybrid): ``{"tokens": [B,S] int,
+  "labels": [B,S]}``;
+* vlm: also ``{"patches": [B,P,D]}``; the logits cover patches + text,
+  and labels of the text alone are padded with -1 (ignored) over the
+  patch prefix;
+* encdec: ``{"frames": [B,T_enc,D], "tokens": [B,S], "labels": [B,S]}``;
+* cnn/mlp: ``{"images": [B,H,W,C], "labels": [B]}``.
 
 An LM's full-sequence attention and scan run the kernel ops
 (``flash_attention``, ``ssd_scan``: serve and eval), or, with
@@ -20,7 +27,8 @@ forward-only). cnn/mlp ignore it. A MoE layer (the ``moe`` and
 ``moe_group_size`` tokens (0: 512), or dropless with ``moe_dropless``;
 decode is always dropless. An LM's loss is ``nll + router_aux_coef *
 moe_aux``, the MoE load-balance loss summed over the layers (0 without
-MoE).
+MoE). An encdec's learned position table has ``max(
+decoder_max_position, max_target_positions)`` rows.
 """
 from __future__ import annotations
 
@@ -33,6 +41,7 @@ from torch.func import functional_call
 from repro_torch.config import LM_FAMILIES, ModelConfig
 from repro_torch.models import cnn as cnn_mod
 from repro_torch.models import decoder as dec_mod
+from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.common import softmax_cross_entropy, token_accuracy
 from repro_torch.utils import flat_names, tree_leaves, tree_map
@@ -48,6 +57,7 @@ class Model:
     sliding_window: Optional[int] = None   # long-context serving variant
     moe_dropless: bool = False             # exact per-token routing
     moe_group_size: int = 0                # 0 = the MoE's default (512)
+    max_target_positions: int = 0          # encdec learned-pos extension
     # the classifier family's weightless module, driven through
     # functional_call (None for the LMs, which are plain functions)
     net: Optional[torch.nn.Module] = dataclasses.field(
@@ -65,58 +75,84 @@ class Model:
     def _lm(self) -> bool:
         return self.cfg.family in LM_FAMILIES
 
+    def _specs(self) -> Dict[str, Any]:
+        """An LM's tree of ``(shape, dtype)`` leaves."""
+        if self.cfg.family == "encdec":
+            return encdec_mod.encdec_specs(self.cfg, self.dtype,
+                                           self.max_target_positions)
+        return dec_mod.decoder_specs(self.cfg, self.dtype)
+
     def param_shapes(self) -> Dict[str, Any]:
         """Nested dict of leaf shapes, in the reference's tree."""
         if self._lm():
-            return tree_map(lambda s: s[0],
-                            dec_mod.decoder_specs(self.cfg, self.dtype))
+            return tree_map(lambda s: s[0], self._specs())
         if self.cfg.family == "cnn":
             return cnn_mod.cnn_param_shapes(self.cfg)
         return mlp_mod.mlp_param_shapes(self.cfg)
 
     def param_dtypes(self) -> Dict[str, Any]:
         """Nested dict of leaf dtypes: the model's dtype, except the LMs'
-        RMSNorm scales, the MoE router and the mamba block's ``dt_bias``,
-        ``A_log`` and ``D``, which stay f32 as the reference keeps them."""
+        RMSNorm and LayerNorm params, the MoE router and the mamba block's
+        ``dt_bias``, ``A_log`` and ``D``, which stay f32 as the reference
+        keeps them."""
         if self._lm():
-            return tree_map(lambda s: s[1],
-                            dec_mod.decoder_specs(self.cfg, self.dtype))
+            return tree_map(lambda s: s[1], self._specs())
         return tree_map(lambda _: self.dtype, self.param_shapes())
 
     def init(self, gen: torch.Generator) -> Dict[str, Any]:
         """Fresh params, drawn from ``gen`` on its device."""
+        if self.cfg.family == "encdec":
+            return encdec_mod.init_encdec(self.cfg, gen, self.dtype,
+                                          self.max_target_positions)
         if self._lm():
             return dec_mod.init_decoder(self.cfg, gen, self.dtype)
         if self.cfg.family == "cnn":
             return cnn_mod.init_cnn(self.cfg, gen, self.dtype)
         return mlp_mod.init_mlp(self.cfg, gen, self.dtype)
 
-    def _decoder_forward(self, params, tokens, **kw):
+    def _lm_forward(self, params, batch, **kw):
+        """An LM's (logits, aux, cache or None) over ``batch``: an encdec
+        encodes ``frames`` and decodes ``tokens`` against them; the
+        decoder stack takes a vlm's ``patches`` before the tokens."""
+        if self.cfg.family == "encdec":
+            enc = encdec_mod.encode(params, self.cfg, batch["frames"],
+                                    differentiable=self.differentiable)
+            return encdec_mod.decode_full(
+                params, self.cfg, batch["tokens"], enc,
+                differentiable=self.differentiable, **kw)
         return dec_mod.decoder_forward(
-            params, self.cfg, tokens, sliding_window=self.sliding_window,
+            params, self.cfg, batch["tokens"],
+            prefix_embeds=batch.get("patches"),
+            sliding_window=self.sliding_window,
             differentiable=self.differentiable,
             moe_dropless=self.moe_dropless,
             moe_group_size=self.moe_group_size, **kw)
 
     def forward_train(self, params, batch) -> torch.Tensor:
-        """Logits: ``[B, num_classes]`` (cnn/mlp) or ``[B, S, V]`` (LM)."""
+        """Logits: ``[B, num_classes]`` (cnn/mlp) or ``[B, S, V]`` (LM;
+        ``[B, P + S, V]`` for a vlm)."""
         if self._lm():
-            return self._decoder_forward(params, batch["tokens"])[0]
+            return self._lm_forward(params, batch)[0]
         return functional_call(self.net, flat_names(params),
                                (batch["images"],))
 
     def loss(self, params, batch
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """A classifier's NLL; an LM's ``nll + router_aux_coef *
-        moe_aux``, with ``moe_aux`` among its metrics."""
+        moe_aux``, with ``moe_aux`` among its metrics. A vlm's text labels
+        are padded with -1 over the patch prefix."""
         lm = self._lm()
+        labels = batch["labels"]
         if lm:
-            logits, aux, _ = self._decoder_forward(params, batch["tokens"])
+            logits, aux, _ = self._lm_forward(params, batch)
+            pad = logits.shape[1] - labels.shape[1]
+            if self.cfg.family == "vlm" and pad:
+                labels = torch.cat([labels.new_full(
+                    (labels.shape[0], pad), -1), labels], dim=1)
         else:
             logits = self.forward_train(params, batch)
-        nll = softmax_cross_entropy(logits, batch["labels"])
-        metrics = {"nll": nll,
-                   "accuracy": token_accuracy(logits, batch["labels"])}
+        nll = softmax_cross_entropy(logits, labels)
+        metrics = {"nll": nll, "accuracy": token_accuracy(logits, labels)}
         if not lm:
             return nll, metrics
         metrics["moe_aux"] = aux
@@ -128,29 +164,44 @@ class Model:
 
     def prefill(self, params, batch, *, cache_len: int = 0
                 ) -> Tuple[torch.Tensor, Dict]:
-        """Logits ``[B, S, V]`` of the prompt and its cache: each
-        attention slot's KV cache padded to ``cache_len`` rows, each mamba
-        slot's conv and ssm states (an attention-free stack leaves
-        ``cache_len`` unused, as in the reference)."""
+        """Logits ``[B, S, V]`` (a vlm's ``[B, P + S, V]``) of the prompt
+        and its cache: each attention slot's KV cache padded to
+        ``cache_len`` rows, each mamba slot's conv and ssm states (an
+        attention-free stack leaves ``cache_len`` unused, as in the
+        reference); an encdec's self-attention cache and each layer's
+        cross K/V."""
         self._require_lm("serving")
-        logits, _, cache = self._decoder_forward(
-            params, batch["tokens"], want_cache=True, cache_len=cache_len)
+        logits, _, cache = self._lm_forward(params, batch, want_cache=True,
+                                            cache_len=cache_len)
         return logits, cache
 
     def decode_step(self, params, cache, tokens) -> Tuple[torch.Tensor, Dict]:
         """Logits ``[B, 1, V]`` of one token a sequence; writes the cache
         in place and returns it with ``length + 1``."""
         self._require_lm("serving")
+        if self.cfg.family == "encdec":
+            return encdec_mod.decode_step(params, self.cfg, cache, tokens)
         return dec_mod.decoder_decode_step(
             params, self.cfg, cache, tokens,
             sliding_window=self.sliding_window)
 
     def make_cache(self, params, batch_size: int, capacity: int, *,
-                   length: Optional[int] = None) -> Dict:
+                   length: Optional[int] = None,
+                   enc_states: Optional[torch.Tensor] = None) -> Dict:
+        """A zeroed cache of ``capacity`` rows; an encdec's cross K/V
+        filled from ``enc_states`` [B, T_enc, D], layer by layer."""
         self._require_lm("serving")
-        return dec_mod.make_empty_cache(
-            self.cfg, batch_size, capacity, self.dtype, length=length,
-            device=params["embed"].device)
+        device = params["embed"].device
+        if self.cfg.family != "encdec":
+            return dec_mod.make_empty_cache(
+                self.cfg, batch_size, capacity, self.dtype, length=length,
+                device=device)
+        if enc_states is None:
+            raise ValueError("an encdec cache needs enc_states")
+        return encdec_mod.fill_cross_cache(
+            params, self.cfg, encdec_mod.make_empty_cache(
+                self.cfg, batch_size, capacity, self.dtype, length=length,
+                device=device), enc_states)
 
     def param_count(self, params=None) -> int:
         if params is None:

@@ -1,9 +1,9 @@
 """Parameter accounting (the port's side of ``repro/models/params.py``).
 
 ``count_params_analytic(cfg)`` counts the leaves of the model's param
-tree from their shapes (``Model.param_shapes``: ``decoder_specs`` for
-the LMs), allocating nothing, so it counts a 398 B-param config as
-readily as a small one. With ``active_only`` each MoE expert bank
+tree from their shapes (``Model.param_shapes``: ``decoder_specs`` or
+``encdec_specs`` for the LMs), allocating nothing, so it counts a 398
+B-param config as readily as a small one. With ``active_only`` each MoE expert bank
 (``w_gate``, ``w_up``, ``w_down`` under a ``moe`` node) counts
 ``num_experts_per_tok`` of its ``num_experts`` experts, as the
 reference's MODEL_FLOPS terms take it.

@@ -360,12 +360,12 @@ def test_serve_reads_the_newest_checkpoint_and_refuses_another_arch(
     trainer.save_checkpoint(mgr, newer, step=4)
     args = ["--device", "cpu", "--smoke", "--batch", "2", "--prompt-len",
             "8", "--gen", "3", "--ckpt-dir", str(tmp_path)]
-    model, params, tokens, gen = serve_mod.build(serve_mod.parse_args(args))
+    model, params, batch, gen = serve_mod.build(serve_mod.parse_args(args))
     for got, want in zip(tree_leaves(params),
                          tree_leaves(newer.global_params)):
         assert torch.equal(got, want)
     res = serve_mod.main(args)
-    direct = serve_mod.serve(model, newer.global_params, tokens, 3, 0.0,
+    direct = serve_mod.serve(model, newer.global_params, batch, 3, 0.0,
                              gen)
     assert torch.equal(res["tokens"], direct["tokens"])
     with pytest.raises(SystemExit, match="refusing"):
@@ -429,3 +429,34 @@ def test_reference_checkpoint_converts_and_plays_on(tmp_path):
     _assert_counts_match(r)
     _assert_round_matches(r)
     assert r["tnew"].round_idx == 2
+
+
+def test_reference_manifest_of_another_model_is_refused(tmp_path):
+    """``state_from_reference_checkpoint`` holds the reference's manifest
+    to the trainer's ``model`` field too (the two packages' ModelConfig
+    have the same fields): the manifest of this very model passes to the
+    checkpoint's leaves (absent here), that of another MLP is refused
+    before any leaf is read, naming the field."""
+    from repro.checkpoint.manifest import run_manifest as jrun_manifest
+    fed = dict(num_users=4, num_testers=2)
+    tc = dict(optimizer="sgd", lr=0.1, schedule="constant", batch_size=8,
+              grad_clip=0.0)
+    small = dict(mlp_hidden=(16,))
+    ttrainer = FederatedTrainer(
+        build_model(get_config("fedtest-mlp-mnist").replace(**small)),
+        FedConfig(**fed), TrainConfig(**tc), device="cpu")
+    path = str(tmp_path / "ckpt_00000001.npz")
+
+    def write(**model_kw):
+        jcfg = jget_config("fedtest-mlp-mnist").replace(**{**small,
+                                                           **model_kw})
+        with open(tmp_path / "manifest.json", "w") as f:
+            json.dump(jrun_manifest(jcfg, JFedConfig(**fed),
+                                    JTrainConfig(remat=False, **tc)), f)
+
+    write()
+    with pytest.raises(FileNotFoundError):
+        state_from_reference_checkpoint(path, ttrainer)
+    write(mlp_hidden=(32,))
+    with pytest.raises(ValueError, match=r"model\.mlp_hidden"):
+        state_from_reference_checkpoint(path, ttrainer)

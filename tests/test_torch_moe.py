@@ -453,13 +453,14 @@ def test_serve_build_takes_a_cut_config():
     """``build``'s overrides replace fields of the arch's config (the
     card's reduced Jamba period cuts depth and widths) before
     ``--smoke``."""
-    model, params, tokens, _ = serve_mod.build(
+    model, params, batch, _ = serve_mod.build(
         serve_mod.parse_args(["--device", "cpu", "--smoke", "--arch",
                               "granite-moe-1b-a400m", "--batch", "1",
                               "--prompt-len", "4"]),
         num_layers=1, vocab_size=64)
     assert (model.cfg.num_layers, model.cfg.vocab_size) == (1, 64)
     assert tuple(params["embed"].shape) == (64, model.cfg.d_model)
+    tokens = batch["tokens"]
     assert tuple(tokens.shape) == (1, 4) and int(tokens.max()) < 64
 
 

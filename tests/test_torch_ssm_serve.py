@@ -209,8 +209,9 @@ def test_greedy_serve_loop_matches_reference():
     jmodel, tmodel, jparams, tparams = _pair(seed=9)
     B, S, gen_len = 3, 33, 8
     toks = _tokens(tmodel.cfg, B, S, seed=10)
-    res = serve_mod.serve(tmodel, tparams, torch.from_numpy(toks), gen_len,
-                          0.0, torch.Generator().manual_seed(0))
+    res = serve_mod.serve(tmodel, tparams,
+                          {"tokens": torch.from_numpy(toks)}, gen_len, 0.0,
+                          torch.Generator().manual_seed(0))
     got = res["tokens"].numpy()
     assert got.shape == (B, gen_len) and got.dtype == np.int32
 
