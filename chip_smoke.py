@@ -74,7 +74,24 @@ toolkit (``nvcc``), and exits non-zero on the first phase that fails.
    round on the cohort's [32] stack and no other kernel, the testers
    from the cohort, at most 32 filled slots, the weights exactly 0 and
    the scores unchanged outside the cohort; each round's malicious
-   weight is printed. Then the LM round through the same launcher
+   weight is printed. Then phase R, the multi-round driver
+   (``--rounds-per-call``): each of A-F, from the trainer its phase ran
+   (built anew), 5 eager rounds from the seed (the second under
+   ``torch.cuda.set_sync_debug_mode("error")``) against 5 rounds at
+   ``rounds_per_call`` = 4, one chunk of 4 replays of one CUDA graph of
+   a round and one eager round (on A 9 rounds, two chunks on the same
+   graph): the states bitwise equal (params, score fields, the
+   generator's state, C's error feedback), the graph captured once, the
+   wrappers' counters at the warm-up's and the capture's calls alone,
+   and one replay's trace (``torch.profiler``) holding the path's kernel
+   once a round (the wrappers never see a replay); eager, graphed (4
+   replays on the host clock) and device ms a round (CUDA events around
+   each replay) are printed. Then the same driver on each seam a round
+   reads its index or a host-made value through (``round_robin``,
+   ``coverage``, ``fixed``, ``targeted``, dropout with int8, trust and
+   eval resampling, lying testers), on a small MLP: 12 eager rounds
+   against chunks through a checkpoint and a resume, bitwise. Then the
+   LM round through the same launcher
    (``--dataset lm``, the FedConfig and TrainConfig of
    ``examples/federated_llm.py``: 4 users, 2 testers, 1
    ``random_weights`` attacker, 8 AdamW steps of 16 sequences of 64
@@ -89,7 +106,10 @@ toolkit (``nvcc``), and exits non-zero on the first phase that fails.
    no other kernel. The last cross-test's first folded launch must equal
    its (tester, client) blocks launched one by one, bitwise, and the
    plain version within the kernel checks' tolerances (in M each block
-   with its client's own A and D). Then the CI job itself as
+   with its client's own A and D). L's first 2 rounds then run again as
+   one chunk of 2 replays of a graph of its round (the cache emptied
+   first): bitwise equal, its peak and a replay's device time printed.
+   Then the CI job itself as
    ``repro.launch.federated --population`` builds it (the CNN cut to
    (8, 16, 16) channels over a synthetic MNIST-like population, 12
    rounds): ``weighted_aggregate`` once a round and no other kernel, and
@@ -302,6 +322,35 @@ LM_PHASES = (("L", ["--arch", "qwen2-0.5b"] + LM_ARGS, "flash_attention",
               {}),
              ("M", ["--arch", "mamba2-2.7b"] + LM_ARGS, "ssd_scan",
               {"num_layers": M_LAYERS}))
+# phase R, the multi-round driver: each of paths A-F (PATHS less B100 and
+# G) for RPC + 1 rounds at --rounds-per-call RPC, one replayed chunk of
+# one CUDA graph of a round and one eager round (RPC_REUSE, two chunks:
+# the second reuses the first's buffers and graph), against as many eager
+# rounds from the same seed; the kernel each path's graph launches, by
+# the name a profiler trace gives it. Phase L's chunk: RPC_LM rounds
+RPC, RPC_LM, RPC_REUSE = 4, 2, "A"
+RPC_PATHS = ("A", "B", "C", "D", "E", "F")
+# phase R's seams, each a reader of the round index or of a per-round
+# host value, on a small MLP: SEAM_ROUNDS eager rounds against a trainer
+# that runs SEAM_SPLIT rounds (a chunk) and checkpoints, and a second
+# that restores it and runs on to SEAM_ROUNDS (two chunks of its graph)
+SEAM_ROUNDS, SEAM_SPLIT = 12, 4
+SEAMS = {
+    "round_robin": dict(selector="round_robin"),
+    "coverage": dict(selector="coverage"),      # a cycle of 3 rounds
+    "fixed": dict(selector="fixed", selector_kwargs={"indices": (4, 1)}),
+    "targeted": dict(fault="targeted", participation=0.5,
+                     fault_kwargs={"size": 2, "start_round": 5}),
+    "dropout_int8_trust_resample": dict(
+        fault="dropout", fault_rate=0.3, participation=0.75,
+        compressor="int8", aggregator_kwargs={"use_trust": True}),
+    "liars_score_weighted": dict(selector="score_weighted",
+                                 lying_testers=1),
+}
+SEAM_RESAMPLE = {"dropout_int8_trust_resample": 2}
+GRAPH_KERNELS = {"weighted_aggregate": "wagg_group_kernel",
+                 "robust_combine": "robust_kernel",
+                 "dequant_aggregate": "dqagg_"}
 # the durability phase: path E unbroken for DURABLE_ROUNDS rounds, against
 # DURABLE_SPLIT rounds, a checkpoint, a new trainer restoring it and the
 # rest; then the CLI killed by SIGTERM after its first checkpoint and
@@ -1649,7 +1698,9 @@ def phase_path(torch, path, argv, op_name, rounds):
     """``rounds`` full-width rounds of one path through the launcher's
     code path. Every kernel's launch count is set to 0 just before the
     rounds and read just after: ``op_name`` must have launched and no
-    other. Returns (launches of op_name, round wall ms)."""
+    other. Returns (launches of op_name, round wall ms, the adversary's
+    malicious weights, (trainer, data)), the trainer for phase R to
+    rebuild without this phase's step timers."""
     from repro_torch.kernels.dequant_aggregate import dequant_aggregate_ref
     from repro_torch.kernels.robust_combine import (
         robust_combine_network_ref, row_select_weights)
@@ -1843,7 +1894,269 @@ def phase_path(torch, path, argv, op_name, rounds):
         worst = max(worst, float((got - want_t).abs().max()))
     print(f"path {path}: last round's {op_name} output == plain version on "
           f"its own inputs (max |err| {worst:.3g})")
-    return counts[op_name], walls, adversary_rows
+    return counts[op_name], walls, adversary_rows, (trainer, data)
+
+
+def graph_launches(torch, fn, names):
+    """Kernel launches of ``fn`` by name, from a ``torch.profiler`` trace
+    (CUPTI sees the kernels of a graph replay, which no wrapper counts):
+    ``{name: launches}`` for each kernel whose demangled name holds one of
+    ``names``, the trace's summed device ms and its kernel launches."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts, device_ms, launches = collections.Counter(), 0.0, 0
+    for e in prof.key_averages():
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or e.self_device_time_total <= 0):
+            continue
+        device_ms += e.self_device_time_total / 1e3
+        launches += e.count
+        for name in names:
+            if name in e.key:
+                counts[name] += e.count
+    return counts, device_ms, launches
+
+
+def phase_rounds_per_call(torch, card, path, built, op_name):
+    """Phase R on one path, from ``built``, the ``(trainer, data)`` its
+    ``phase_path`` ran (a trainer built anew from its fields, without that
+    phase's step timers): ``RPC`` + 1 eager rounds from the seed (the
+    second under ``torch.cuda.set_sync_debug_mode("error")``: a round
+    after the first, as a capture follows its warm-up round, so a host
+    read left in the round fails here before a capture does), then the
+    same rounds through a trainer with ``rounds_per_call`` = ``RPC``: one
+    chunk, ``RPC`` replays of the graph it captures, and an eager
+    remainder (on ``RPC_REUSE``, ``2 * RPC`` + 1 rounds: a second chunk
+    on the same buffers and graph). The end states must be bitwise equal
+    (every param, the score fields, the generator's state and the error
+    feedback). Then, on the captured graph: ``RPC`` replays back to back,
+    each between CUDA events (the device's time of a round) and all on
+    the host clock (the graphed time of a round), and one replay
+    profiled, which must launch ``op_name``'s kernel once (the tree's
+    grouped launches for weighted_aggregate), though no wrapper counts a
+    replay. Returns the numbers printed."""
+    import dataclasses
+    from repro_torch.kernels.weighted_aggregate import plan_launches
+    from repro_torch.utils import tree_leaves
+
+    trainer, data = built
+    eager = dataclasses.replace(trainer)
+    graphed = dataclasses.replace(trainer, rounds_per_call=RPC)
+    chunks = 2 if path == RPC_REUSE else 1
+    rounds = chunks * RPC + 1
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    t0 = time.perf_counter()
+    state, eager_ms = eager.init(), []
+    for r in range(rounds):
+        if r == 1:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            (state, _), ms = timed(lambda: eager.run_round(state, data))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        eager_ms.append(ms)
+    sizes = [p.numel() for p in tree_leaves(state.global_params)]
+    per_round = (len(plan_launches(sizes, [True] * len(sizes), 4))
+                 if op_name == "weighted_aggregate" else 1)
+    kernel_ops = ops()
+    reset_counts(kernel_ops)
+    g_state, chunk_ms = graphed.init(), []
+    for _ in range(chunks):
+        (g_state, stacked), ms = timed(lambda: graphed.run_chunk(g_state,
+                                                                 data))
+        chunk_ms.append(ms)
+    host_launches = kernel_ops[op_name].launches
+    check(host_launches == 2 * per_round,
+          f"path {path}: the wrapper counted {host_launches} launches over "
+          f"{chunks} chunk(s), want {2 * per_round} (the warm-up round's "
+          f"and the capture's; a replay calls no wrapper)")
+    g_state, _ = graphed.run_round(g_state, data)
+    torch.cuda.synchronize()
+    check(graphed.chunk is not None and graphed.chunk.graph is not None,
+          f"path {path}: one CUDA graph captured")
+    n = _bitwise(torch, state, g_state,
+                 f"path {path}: {rounds} rounds as {chunks} chunk(s) of "
+                 f"{RPC} replays and one eager round against {rounds} "
+                 f"eager rounds")
+    check(bool(torch.isfinite(stacked["weights"]).all())
+          and stacked["weights"].shape == (RPC, eager.fed.num_users),
+          f"path {path}: a chunk's weights finite and stacked [R, N]")
+
+    # RPC replays back to back: CUDA events around each (the device's
+    # time of a round), the host clock around them all (graphed)
+    graph = graphed.chunk.graph
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(RPC)]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for start, end in events:
+        start.record()
+        graph.replay()
+        end.record()
+    torch.cuda.synchronize()
+    graphed_round = (time.perf_counter() - t) * 1e3 / RPC
+    device_ms = [start.elapsed_time(end) for start, end in events]
+    counts, trace_ms, trace_launches = graph_launches(
+        torch, graph.replay, list(GRAPH_KERNELS.values()))
+    want = {GRAPH_KERNELS[op_name]: per_round}
+    check(dict(counts) == want,
+          f"path {path}: a replay launches {dict(counts)} by the profiler, "
+          f"want {want}")
+    steady = eager_ms[1:]
+    eager_round = sum(steady) / len(steady)
+    device_round = sum(device_ms) / len(device_ms)
+    out = {"rounds": rounds, "rounds_per_call": RPC,
+           "tensors_bitwise": n, "eager_ms": eager_ms,
+           "first_chunk_ms": chunk_ms[0], "chunk_ms": chunk_ms[1:],
+           "eager_round_ms": eager_round, "graphed_round_ms": graphed_round,
+           "device_round_ms": device_ms, "device_round_mean_ms":
+           device_round, "idle_eager": 1 - device_round / eager_round,
+           "idle_graphed": 1 - device_round / graphed_round,
+           "replay_launches": dict(counts),
+           "replay_trace_launches": trace_launches,
+           "replay_trace_device_ms": trace_ms,
+           "wrapper_launches_capture": host_launches,
+           "phase_s": time.perf_counter() - t0, "card": card}
+    reuse = (f"; a second chunk {chunk_ms[1] / RPC:.3f} ms a round"
+             if chunks > 1 else "")
+    print(f"phase R path {path} ({op_name}): {rounds} rounds, {chunks} "
+          f"chunk(s) of {RPC} replays + 1 eager, bitwise the eager run "
+          f"({n} tensors); a round: eager {eager_round:.3f} ms, graphed "
+          f"{graphed_round:.3f} ms, device {device_round:.3f} ms (idle "
+          f"{out['idle_eager']:.3f} eager, {out['idle_graphed']:.3f} "
+          f"graphed){reuse}; first chunk (warm-up + capture + {RPC} "
+          f"replays) {chunk_ms[0]:.1f} ms; a replay launches "
+          f"{dict(counts)} of {trace_launches} kernels ({trace_ms:.3f} ms "
+          f"by the profiler), the wrapper counted {host_launches} (the "
+          f"warm-up and the capture); phase {out['phase_s']:.1f} s; {card}")
+    return out
+
+
+def phase_rpc_seams(torch, card):
+    """Phase R's seams, the round's readers of its index or of a value
+    the host makes (``SEAMS``: ``round_robin``, ``coverage``'s cycles,
+    ``fixed``'s ids, the ``targeted`` fault's start, dropout with int8,
+    trust and eval rows redrawn every 2 rounds, the lying testers under
+    ``score_weighted``), each on ``fedtest-mlp-mnist`` with one hidden
+    layer of 32, 6 users and 2 testers: ``SEAM_ROUNDS`` eager rounds from
+    the seed against ``FederatedTrainer.run`` at ``rounds_per_call`` =
+    ``RPC``, one trainer to ``SEAM_SPLIT`` rounds with a checkpoint, a
+    second restoring it and running on (two chunks of the graph it
+    captures, so its buffers, the coverage schedule and the eval rows are
+    loaded again for the second): bitwise equal. Returns each case's
+    seconds."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.config import FedConfig, TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core import FederatedTrainer
+    from repro_torch.data import MNIST_LIKE, make_federated_image_dataset
+    from repro_torch.models import build_model
+
+    model = build_model(get_config("fedtest-mlp-mnist").replace(
+        mlp_hidden=(32,)))
+    data = make_federated_image_dataset(MNIST_LIKE, 6, num_samples=1200,
+                                        global_test=100, seed=0,
+                                        device="cuda")
+    tc = TrainConfig(optimizer="sgd", lr=0.1, schedule="constant",
+                     batch_size=8, grad_clip=0.0)
+    seconds = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_seams_") as scratch:
+        for name, fed_kw in SEAMS.items():
+            fed = FedConfig(num_users=6, num_testers=2, num_malicious=1,
+                            attack="random_weights", local_steps=2,
+                            **fed_kw)
+
+            def trainer(rounds_per_call):
+                return FederatedTrainer(
+                    model, fed, tc, eval_batch=32, device="cuda",
+                    rounds_per_call=rounds_per_call,
+                    eval_resample_every=SEAM_RESAMPLE.get(name, 0))
+
+            t0 = time.perf_counter()
+            eager = trainer(1)
+            want = eager.init()
+            for _ in range(SEAM_ROUNDS):
+                want, _ = eager.run_round(want, data)
+            mgr = CheckpointManager(os.path.join(scratch, name),
+                                    save_every=SEAM_SPLIT)
+            first = trainer(RPC)
+            first.run(data, rounds=SEAM_SPLIT, ckpt=mgr)
+            second = trainer(RPC)
+            state, at = second.restore_checkpoint(mgr)
+            got, hist = second.run(data, rounds=SEAM_ROUNDS, state=state)
+            _bitwise(torch, want, got,
+                     f"phase R seam {name}: {SEAM_SPLIT} rounds, a "
+                     f"checkpoint and {SEAM_ROUNDS - SEAM_SPLIT} resumed, "
+                     f"in chunks of {RPC} replays, against {SEAM_ROUNDS} "
+                     f"eager rounds")
+            check(at == SEAM_SPLIT and hist["round"] == [8, 12]
+                  and all(t.chunk.graph is not None
+                          for t in (first, second)),
+                  f"phase R seam {name}: resumed at {at}, history "
+                  f"{hist['round']}, a graph on each trainer")
+            seconds[name] = time.perf_counter() - t0
+    print(f"phase R seams: {len(seconds)} bitwise through a resume, "
+          f"chunks of {RPC} replays ("
+          + ", ".join(f"{k} {v:.2f} s" for k, v in seconds.items())
+          + f"); {card}")
+    return seconds
+
+
+def lm_chunk(torch, card, label, trainer, data, want, eager_ms,
+             eager_peak):
+    """Phase L's chunk: ``RPC_LM`` rounds through a trainer built anew
+    from ``trainer``'s fields with ``rounds_per_call`` = ``RPC_LM`` (one
+    capture, ``RPC_LM`` replays), from the seed, against ``want``, the
+    host copy of the phase's state after its first ``RPC_LM`` eager
+    rounds: bitwise. The cache is emptied before the warm-up round, and
+    the graph keeps its own pool beside the phase's data; the allocator's
+    peak is printed beside the eager rounds'. The train CLI runs such a
+    chunk (it refuses ``--rounds-per-call`` > 1 only with
+    ``--population``), so running out of memory here fails the smoke.
+    Returns the numbers printed."""
+    import dataclasses
+
+    graphed = dataclasses.replace(trainer, rounds_per_call=RPC_LM)
+    free_memory(torch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    g_state, _ = graphed.run_chunk(graphed.init(), data)
+    torch.cuda.synchronize()
+    chunk_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    got = {k: t.cpu() for k, t in _state_tensors(g_state).items()}
+    differ = [k for k in want if not torch.equal(_bits(torch, want[k]),
+                                                 _bits(torch, got[k]))]
+    check(want.keys() == got.keys() and not differ,
+          f"phase {label} chunk: {RPC_LM} replays bitwise {RPC_LM} eager "
+          f"rounds ({len(want)} tensors; differ: {differ})")
+    device_ms = _events(torch, graphed.chunk.graph.replay, 1)
+    eager_round = sum(eager_ms) / len(eager_ms)
+    out = {"rounds_per_call": RPC_LM, "tensors_bitwise": len(want),
+           "eager_round_ms": eager_round, "first_chunk_ms": chunk_ms,
+           "device_round_ms": device_ms,
+           "idle_eager": 1 - device_ms / eager_round,
+           "eager_peak_bytes": eager_peak, "peak_bytes": peak, "card": card}
+    print(f"phase {label} chunk: {RPC_LM} replays bitwise {RPC_LM} eager "
+          f"rounds ({len(want)} tensors); eager round {eager_round:.1f} ms "
+          f"(its first rounds), first chunk (warm-up + capture + "
+          f"{RPC_LM} replays) {chunk_ms:.1f} ms, a replay {device_ms:.1f} "
+          f"ms on the device; peak {peak / 2**30:.3f} GiB against the eager "
+          f"rounds' {eager_peak / 2**30:.3f} GiB; {card}")
+    del graphed, g_state
+    free_memory(torch)
+    return out
 
 
 def lm_fold_check(torch, label, op_name, captured, testers, clients, rows):
@@ -1917,7 +2230,7 @@ ALLOC_KEYS = ("num_alloc_retries", "num_device_alloc", "num_device_free")
 
 
 def phase_lm(torch, card, label, argv, op_name, overrides=None,
-             reduced_why=None):
+             reduced_why=None, chunk=False):
     """The LM federated round through the train launcher's code path
     (``build(parse_args(argv), **overrides)``, the overrides cutting the
     depth):
@@ -1929,8 +2242,10 @@ def phase_lm(torch, card, label, argv, op_name, overrides=None,
     ``weighted_aggregate`` once a table (2 a round: the bf16 leaves and
     the f32 ones); no other kernel runs. The last cross-test's first
     folded launch is captured and checked (:func:`lm_fold_check`).
-    ``reduced_why`` replaces the ``reduced`` line's reckoning. Returns
-    the numbers printed."""
+    ``reduced_why`` replaces the ``reduced`` line's reckoning. With
+    ``chunk``, the state after the first ``RPC_LM`` rounds is kept on the
+    host and :func:`lm_chunk` runs them again as one chunk of replays.
+    Returns the numbers printed."""
     import repro_torch.kernels.flash_attention.ops as flash_ops
     import repro_torch.kernels.ssd_scan.ops as ssd_ops
     from repro_torch.configs import get_config
@@ -2064,6 +2379,9 @@ def phase_lm(torch, card, label, argv, op_name, overrides=None,
                       f"{state.round_idx}: {step} launched {got}, want "
                       f"{want}")
             rows.append(values[1])
+            if chunk and state.round_idx == RPC_LM:
+                chunk_want = {k: t.cpu()
+                              for k, t in _state_tensors(state).items()}
             print(f"phase {label} round {state.round_idx}: wall "
                   f"{walls[-1]:.1f} ms (" + ", ".join(
                       f"{k} {v:.2f}" for k, v in step_ms.items())
@@ -2115,6 +2433,10 @@ def phase_lm(torch, card, label, argv, op_name, overrides=None,
               f"nll {out['nll']:.5f} + {cfg.router_aux_coef} x moe_aux "
               f"{out['moe_aux']:.5f} (summed over {cfg.num_layers} MoE "
               f"layers; 1.0 a layer is balanced)")
+    if chunk:
+        del state, metrics
+        out["chunk"] = lm_chunk(torch, card, label, trainer, data,
+                                chunk_want, walls[:RPC_LM], peak)
     return out
 
 
@@ -2585,19 +2907,29 @@ def phase_reproducible(torch, card):
 
 
 def _state_tensors(state):
-    """A round state's tensors by name: params, the three score fields
-    and the generator's state."""
+    """A round state's tensors by name: params, the three score fields,
+    the generator's state and the error feedback where there is one."""
     from repro_torch.utils import tree_leaves
     out = {f"param {i}": t
            for i, t in enumerate(tree_leaves(state.global_params))}
     out.update({f"scores.{k}": v for k, v in state.scores._asdict().items()})
     out["gen_state"] = state.gen.get_state()
+    if state.comp_state is not None:
+        out["comp_state"] = state.comp_state
     return out
+
+
+def _bits(torch, t):
+    """A tensor's bit pattern, so that NaNs compare by their bits."""
+    if not t.is_floating_point():
+        return t
+    return t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
 
 
 def _bitwise(torch, one, two, what):
     a, b = _state_tensors(one), _state_tensors(two)
-    differ = [k for k in a if not torch.equal(a[k], b[k])]
+    differ = [k for k in a if not torch.equal(_bits(torch, a[k]),
+                                              _bits(torch, b[k]))]
     check(a.keys() == b.keys() and not differ
           and one.round_idx == two.round_idx,
           f"{what}: bitwise equal ({len(a)} tensors; differ: {differ})")
@@ -3744,9 +4076,13 @@ def main() -> int:
     rows.update(phase_ssd_times(torch, peaks))
 
     launches, walls, adversary, population = {}, {}, {}, {}
+    built = {}
     for path, argv, op_name, rounds in PATHS:   # A, D-G and B, B100 add
-        n, walls[path], per_round = phase_path(torch, path, argv, op_name,
-                                               rounds)
+        n, walls[path], per_round, trained = phase_path(
+            torch, path, argv, op_name, rounds)
+        if path in RPC_PATHS:
+            built[path] = trained
+        del trained
         launches[op_name] = launches.get(op_name, 0) + n
         if path == "G":
             population["G"] = {"malicious_weight": per_round,
@@ -3756,8 +4092,16 @@ def main() -> int:
                   f"{per_round[-1]:.5f} (the reference CI's job follows)")
         elif per_round:
             adversary[path] = per_round
-    # the LM round, after path G: qwen2-0.5b (L), then Mamba2 (M)
-    lm = {label: phase_lm(torch, card, label, argv, op_name, overrides)
+    # phase R: paths A-F through the multi-round driver, a CUDA graph of
+    # a round replayed, against their eager rounds
+    chunked = {path: phase_rounds_per_call(torch, card, path,
+                                           built.pop(path), op_name)
+               for path, _, op_name, _ in PATHS if path in RPC_PATHS}
+    seams = phase_rpc_seams(torch, card)
+    # the LM round, after path G: qwen2-0.5b (L, its first rounds again as
+    # one chunk of replays), then Mamba2 (M)
+    lm = {label: phase_lm(torch, card, label, argv, op_name, overrides,
+                          chunk=label == "L")
           for label, argv, op_name, overrides in LM_PHASES}
     rows.update(phase_fold_times(torch, peaks, lm))
     population["ci"] = phase_population_ci(torch, card)
@@ -3885,7 +4229,13 @@ def main() -> int:
               f"{[round(t, 3) for t in lm[label]['wall_ms']]} ({card})")
     print(f"phase N round wall ms: "
           f"{[round(t, 3) for t in moe['N']['wall_ms']]} ({card})")
+    for path, row in chunked.items():
+        print(f"phase R path {path} a round: eager "
+              f"{row['eager_round_ms']:.3f} ms, graphed "
+              f"{row['graphed_round_ms']:.3f} ms, device "
+              f"{row['device_round_mean_ms']:.3f} ms ({card})")
     print(json.dumps({"lm": lm, "moe": moe, "frontend": frontend,
+                      "rounds_per_call": chunked, "rpc_seams_s": seams,
                       "serve": serve_out,
                       "ssm_serve": ssm_out,
                       "reproducible_path_a": repro,

@@ -6,9 +6,29 @@
 the card unless the caller passes ``device="cpu"``; asked for the card
 where there is none, it raises rather than carrying on on the CPU.
 ``PopulationTrainer`` (``core/engine/population.py``) subclasses it for
-cohort rounds through :meth:`FederatedTrainer._make_backend`. The
-scanned multi-round driver (``rounds_per_call``, ROADMAP.md queue 1 item
-8) is not ported.
+cohort rounds through :meth:`FederatedTrainer._make_backend`.
+
+The multi-round driver (``rounds_per_call`` = R > 1, the twin of the
+reference's ``lax.scan`` over R rounds): :meth:`~FederatedTrainer.run`
+sends every full chunk of R rounds through
+:meth:`~FederatedTrainer.run_chunk` and a remainder through
+:meth:`~FederatedTrainer.run_round`. A chunk plays its rounds on static
+buffers (the global params, the ``ScoreState``, the error feedback, a
+generator and the round index as a 0-d device counter), each round
+writing its results back into them, with no read to the host between
+rounds. On the card the round is one ``torch.cuda.CUDAGraph``, captured
+once a trainer after an eager warm-up round on a side stream (whose
+draws and results are undone) and replayed R times; the run's generator
+is registered with the graph, so R replays leave it where R eager rounds
+do. A failed capture raises: there is no eager fallback on ``cuda``. On
+the CPU the same round runs R times in a loop. Either way the states,
+the generator and the history are those of R single rounds, bitwise.
+The host prepares what the graph reads before a chunk (the ``coverage``
+selector's permutations, :meth:`Selector.schedule`) and before a replay
+whose eval bucket is new (its eval rows); the population tier's cohort
+plan is read to the host every round, so it refuses ``rounds_per_call >
+1`` (``core/engine/population.py``). A kernel op's ``launches`` count
+sees the capture's one call, not the replays.
 
 Durability (DESIGN.md §9): :meth:`FederatedTrainer.state_dict` copies a
 round state to host arrays, the generator's ``get_state()`` bytes
@@ -42,7 +62,7 @@ from repro_torch.core.engine.program import (
     RoundDraws, RoundProgram, init_comp_state)
 from repro_torch.core.scoring import ScoreState, init_scores
 from repro_torch.data.pipeline import FederatedDataset, gather_client_batches
-from repro_torch.utils import tree_map
+from repro_torch.utils import tree_leaves, tree_map
 
 
 def resolve_device(device) -> torch.device:
@@ -91,6 +111,36 @@ class StateDict(NamedTuple):
     seed: Any = None                # 0-d int64
 
 
+@dataclasses.dataclass
+class ChunkBuffers:
+    """The static tensors a chunk's round reads and writes in place, and
+    on the card its graph: allocated by the first chunk of a trainer and
+    reused by every later one."""
+
+    params: Any                     # the global params tree
+    scores: ScoreState
+    comp: Optional[torch.Tensor]    # the error feedback, or None
+    counter: torch.Tensor           # 0-d int64: the round index
+    gen: torch.Generator            # the graph's registered generator
+    data: Any                       # the dataset the round reads
+    seed: int = 0
+    eval_idx: Optional[torch.Tensor] = None  # [N, eval_batch] int64
+    bucket: Any = None              # the (seed, eval bucket) eval_idx holds
+    graph: Any = None               # torch.cuda.CUDAGraph on the card
+    metrics: Any = None             # the captured round's metric outputs
+
+    def tensors(self):
+        """The static round state (params, scores, error feedback) in
+        :func:`_flat_state`'s order."""
+        return _flat_state(self.params, self.scores, self.comp)
+
+
+def _flat_state(global_params, scores, comp_state):
+    """A round state's tensors in one fixed order."""
+    out = tree_leaves(global_params) + list(scores)
+    return out + ([] if comp_state is None else [comp_state])
+
+
 def _host(t: torch.Tensor) -> np.ndarray:
     """A tensor's copy in host memory, bf16 as f32 (numpy has no bf16)."""
     dtype = torch.float32 if t.dtype == torch.bfloat16 else t.dtype
@@ -108,8 +158,14 @@ class FederatedTrainer:
     # 0 keeps the fixed eval prefix (the first eval_batch test rows, every
     # round); r > 0 redraws each tester's eval rows every r rounds
     eval_resample_every: int = 0
+    # > 1 sends run()'s full chunks of this many rounds through run_chunk
+    # (one CUDA graph of a round, replayed, on the card)
+    rounds_per_call: int = 1
 
     def __post_init__(self):
+        if self.rounds_per_call < 1:
+            raise ValueError(f"rounds_per_call must be >= 1, got "
+                             f"{self.rounds_per_call}")
         self.device = resolve_device(self.device)
         self.program = RoundProgram(self.model, self.fed, self.train)
         self.backend = self._make_backend(
@@ -118,6 +174,9 @@ class FederatedTrainer:
         self.aggregator = self.program.aggregator
         self.attack = self.program.attack
         self.selector = self.program.selector
+        # the chunk's static buffers and graph: made by the first chunk,
+        # one capture a trainer
+        self.chunk: Optional[ChunkBuffers] = None
 
     def _make_backend(self, impl: str):
         """The backend factory hook; the population tier overrides it."""
@@ -237,24 +296,157 @@ class FederatedTrainer:
         return gather_eval_batches(data.test.xs, data.test.ys,
                                    draws.eval_idx)
 
+    def _play(self, global_params, scores, comp_state, round_idx, data,
+              draws: RoundDraws):
+        """Steps 1-7 on the round's draws; ``round_idx`` is the host int
+        or the chunk's device counter."""
+        bx, by = gather_client_batches(data.train, draws.batch_idx)
+        tx, ty = self.eval_batches(data, draws)
+        return self.program.run(
+            self.backend, global_params, scores,
+            bx=bx, by=by, tx=tx, ty=ty, draws=draws,
+            round_idx=round_idx, counts=data.train.counts,
+            server_data=(data.server_x[:self.eval_batch],
+                         data.server_y[:self.eval_batch]),
+            comp_state=comp_state)
+
     def run_round(self, state: RoundState, data: FederatedDataset,
                   draws: Optional[RoundDraws] = None):
         """One round; ``draws`` replaces the round's own draws (the parity
         tests replay the reference's)."""
         if draws is None:
             draws = self.draw(state, data)
-        bx, by = gather_client_batches(data.train, draws.batch_idx)
-        tx, ty = self.eval_batches(data, draws)
-        new_global, new_scores, new_comp, metrics = self.program.run(
-            self.backend, state.global_params, state.scores,
-            bx=bx, by=by, tx=tx, ty=ty, draws=draws,
-            round_idx=state.round_idx, counts=data.train.counts,
-            server_data=(data.server_x[:self.eval_batch],
-                         data.server_y[:self.eval_batch]),
-            comp_state=state.comp_state)
+        new_global, new_scores, new_comp, metrics = self._play(
+            state.global_params, state.scores, state.comp_state,
+            state.round_idx, data, draws)
         return state._replace(global_params=new_global, scores=new_scores,
                               round_idx=state.round_idx + 1,
                               comp_state=new_comp), metrics
+
+    # ------------------------------------------------------ the chunk driver
+    def _chunk_round(self, buf: ChunkBuffers):
+        """One round on the static buffers, its results written back into
+        them and the counter advanced: the body a chunk captures."""
+        draws = self.program.draw_round(
+            buf.gen, buf.data.train.counts, buf.counter, buf.params,
+            scores=buf.scores.scores)
+        if self.eval_resample_every > 0:
+            draws = draws._replace(eval_idx=buf.eval_idx)
+        new_global, new_scores, new_comp, metrics = self._play(
+            buf.params, buf.scores, buf.comp, buf.counter, buf.data, draws)
+        for dst, src in zip(buf.tensors(),
+                            _flat_state(new_global, new_scores, new_comp)):
+            dst.copy_(src)
+        buf.counter.add_(1)
+        return metrics
+
+    def _load_chunk(self, state: RoundState, data) -> ChunkBuffers:
+        """Copy ``state`` into the static buffers, the host's round index
+        into the counter and its generator state into the buffers' own,
+        and let the selector load the chunk's schedule. The first chunk of
+        a trainer allocates the buffers and captures the round (a graph
+        on the card); every later chunk replays that capture, so one on
+        another dataset, which would need a second, raises."""
+        buf = self.chunk
+        if buf is not None and data is not buf.data:
+            raise ValueError("a chunk's round reads the dataset it was "
+                             "captured on; build a trainer for another")
+        if buf is None:
+            buf = ChunkBuffers(
+                params=tree_map(torch.clone, state.global_params),
+                scores=ScoreState(*(t.clone() for t in state.scores)),
+                comp=(None if state.comp_state is None
+                      else state.comp_state.clone()),
+                counter=torch.zeros((), dtype=torch.int64,
+                                    device=self.device),
+                gen=torch.Generator(device=self.device), data=data)
+        else:
+            for dst, src in zip(buf.tensors(), _flat_state(
+                    state.global_params, state.scores, state.comp_state)):
+                dst.copy_(src)
+        buf.counter.fill_(state.round_idx)
+        buf.gen.set_state(state.gen.get_state())
+        buf.seed = state.seed
+        self.selector.schedule(state.round_idx, self.rounds_per_call,
+                               self.fed.num_users, self.fed.num_testers,
+                               self.device)
+        self._load_eval_rows(buf, state.round_idx)
+        if self.chunk is None:
+            if self.device.type == "cuda":
+                self._capture(buf)
+            self.chunk = buf
+        return buf
+
+    def _load_eval_rows(self, buf: ChunkBuffers, round_idx: int) -> None:
+        """Under eval resampling, write the eval rows of ``round_idx``'s
+        bucket into the static buffer the round gathers from, when the
+        (seed, bucket) is not the one it holds. Drawn from (seed, bucket)
+        alone, outside the round's stream."""
+        if self.eval_resample_every <= 0:
+            return
+        bucket = (buf.seed, round_idx // self.eval_resample_every)
+        if bucket == buf.bucket:
+            return
+        idx = eval_batch_indices(buf.seed, buf.data.test.counts,
+                                 self.eval_batch, bucket[1])
+        if buf.eval_idx is None:
+            buf.eval_idx = idx
+        else:
+            buf.eval_idx.copy_(idx)
+        buf.bucket = bucket
+
+    def _capture(self, buf: ChunkBuffers) -> None:
+        """Capture one round on the static buffers into a CUDA graph. An
+        eager warm-up round on a side stream first makes every lazy
+        first-call set-up (library loads, cuBLAS handles, kernel
+        attributes) outside the capture; its results and draws are then
+        undone. The buffers' generator is registered with the graph, so
+        each replay draws on from where the generator stands."""
+        saved = [t.clone() for t in buf.tensors()]
+        counter, gen_state = buf.counter.clone(), buf.gen.get_state()
+        main = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            self._chunk_round(buf)
+        main.wait_stream(side)
+        for dst, src in zip(buf.tensors() + [buf.counter],
+                            saved + [counter]):
+            dst.copy_(src)
+        buf.gen.set_state(gen_state)
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(buf.gen)
+        with torch.cuda.graph(graph):
+            buf.metrics = self._chunk_round(buf)
+        buf.graph = graph
+
+    def run_chunk(self, state: RoundState, data: FederatedDataset):
+        """``rounds_per_call`` rounds with no read to the host between
+        them: on the card ``rounds_per_call`` replays of the trainer's
+        one graph of a round, on the CPU the same round in a loop.
+        Returns ``(state, metrics)``, each metric stacked ``[R, ...]``;
+        the state and the generator are those of R :meth:`run_round`
+        calls, bitwise."""
+        buf = self._load_chunk(state, data)
+        rounds = []
+        for i in range(self.rounds_per_call):
+            self._load_eval_rows(buf, state.round_idx + i)
+            if buf.graph is not None:
+                buf.graph.replay()
+                metrics = buf.metrics
+            else:
+                metrics = self._chunk_round(buf)
+            # the graph's outputs (and a metric that is a static buffer)
+            # are overwritten by the next round
+            rounds.append({k: v.clone() for k, v in metrics.items()})
+        state.gen.set_state(buf.gen.get_state())
+        stacked = {k: torch.stack([m[k] for m in rounds]) for k in rounds[0]}
+        return state._replace(
+            global_params=tree_map(torch.clone, buf.params),
+            scores=ScoreState(*(t.clone() for t in buf.scores)),
+            round_idx=state.round_idx + self.rounds_per_call,
+            comp_state=None if buf.comp is None else buf.comp.clone()
+        ), stacked
 
     def global_accuracy(self, state: RoundState, data: FederatedDataset
                         ) -> float:
@@ -269,15 +461,19 @@ class FederatedTrainer:
             state: Optional[RoundState] = None, ckpt=None,
             should_stop: Optional[Callable[[], bool]] = None):
         """Rounds up to ``rounds`` (default ``fed.rounds``), the global
-        accuracy read every ``eval_every`` rounds and after the last;
-        returns (final_state, history dict).
+        accuracy read every ``eval_every`` rounds, after the last and at
+        every chunk boundary; returns (final_state, history dict).
 
-        ``state`` resumes a run (from :meth:`restore_checkpoint`):
-        ``rounds`` is the total, so a state at round k runs rounds k to
-        ``rounds``, bitwise as an unbroken run would. ``ckpt``, a
-        ``CheckpointManager``, saves at its ``save_every`` cadence;
-        ``should_stop()`` is asked
-        before each round, so a signal handler ends the loop at a round
+        With ``rounds_per_call`` = R > 1 every full chunk of R rounds
+        goes through :meth:`run_chunk` and a remainder of ``rounds % R``
+        through :meth:`run_round`; the history keeps a chunk's last
+        round's loss and malicious weight. ``state`` resumes a run (from
+        :meth:`restore_checkpoint`): ``rounds`` is the total, so a state
+        at round k runs rounds k to ``rounds``, bitwise as an unbroken
+        run would, through either driver. ``ckpt``, a
+        ``CheckpointManager``, saves at its ``save_every`` cadence
+        between driver calls; ``should_stop()`` is asked before each
+        call, so a signal handler ends the loop at a round or chunk
         boundary and the caller saves the returned state."""
         rounds = self.fed.rounds if rounds is None else rounds
         if state is None:
@@ -287,11 +483,17 @@ class FederatedTrainer:
         while state.round_idx < rounds:
             if should_stop is not None and should_stop():
                 break
-            state, metrics = self.run_round(state, data)
+            step = self.rounds_per_call
+            if step > 1 and rounds - state.round_idx >= step:
+                state, chunk = self.run_chunk(state, data)
+                metrics = {k: v[-1] for k, v in chunk.items()}
+            else:
+                state, metrics = self.run_round(state, data)
+                step = 1
             done = state.round_idx
             if ckpt is not None and ckpt.should_save(done):
                 self.save_checkpoint(ckpt, state)
-            if done % eval_every and done < rounds:
+            if done % eval_every and done < rounds and step == 1:
                 continue
             ga = self.global_accuracy(state, data)
             history["round"].append(done)

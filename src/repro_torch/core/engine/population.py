@@ -55,6 +55,13 @@ from repro_torch.utils import (
 # drawn from (run seed, NOISE_STREAM, round, client) alone
 NOISE_STREAM = 12
 
+# why the population tier runs no chunk of rounds (rounds_per_call > 1)
+CHUNK_REFUSAL = (
+    "the population tier reads its cohort plan to the host once a round "
+    "(PopulationTrainer.draw: the ids that the attack and the noise "
+    "name), so its round cannot be one CUDA graph; rounds_per_call > 1 "
+    "runs on the dense engine only")
+
 
 def cohort_from_mask(part_mask: torch.Tensor, capacity: int
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -292,6 +299,8 @@ class PopulationTrainer(FederatedTrainer):
                 "eval_resample_every is a dense-driver feature (it draws "
                 "[N, eval_batch] gather indices); the population tier "
                 "gathers tester rows directly")
+        if self.rounds_per_call > 1:
+            raise ValueError(CHUNK_REFUSAL)
         super().__post_init__()
         if self.program.needs_updates:
             raise ValueError(
@@ -314,8 +323,8 @@ class PopulationTrainer(FederatedTrainer):
             gen, state.round_idx, state.scores.scores)
         idx, valid, eff_mask = cohort_from_mask(part_mask, self.capacity)
         # the round's one read of the cohort plan to the host: the attack
-        # and the noise name their clients there. A CUDA graph of the
-        # round (ROADMAP.md queue 1 item 8) would have to move it
+        # and the noise name their clients there. It keeps the round out
+        # of a CUDA graph (CHUNK_REFUSAL)
         ids = tuple(i for i in idx.tolist() if i < n)
         if self.testers_from_cohort:
             tester_ids = recruit_testers(tester_ids, idx, len(ids), n)

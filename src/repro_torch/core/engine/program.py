@@ -33,6 +33,12 @@ parity tests build it from the reference's key schedule, so both
 packages run a round on the same random numbers. Steps 2b and 5 draw
 only when their seam is on: a round without a fault or liars draws what
 it drew before they were ported.
+
+``round_idx`` is the host int of a single round or, in a chunk of rounds
+(``FederatedTrainer.run_chunk``), the chunk's 0-d int64 counter on the
+device: everything it reaches (the selectors, the ``targeted`` fault)
+computes with it on the device, so a CUDA graph of the round reads it
+there and nothing of the round is read to the host.
 """
 from __future__ import annotations
 
@@ -238,8 +244,7 @@ class RoundProgram:
         return params, torch.stack(losses).mean()
 
     # ------------------------------------------------------- round plumbing
-    def draw_selection(self, gen: torch.Generator, round_idx: int,
-                       scores=None):
+    def draw_selection(self, gen: torch.Generator, round_idx, scores=None):
         """The round's first draws: the ``[K]`` tester ids, then the
         ``[N]`` participation mask (all ones at participation 1, drawing
         nothing)."""
@@ -268,7 +273,7 @@ class RoundProgram:
         return fault_draws, lies
 
     def draw_round(self, gen: torch.Generator, counts: torch.Tensor,
-                   round_idx: int, global_params, scores=None) -> RoundDraws:
+                   round_idx, global_params, scores=None) -> RoundDraws:
         """The round's random numbers, drawn from ``gen`` on its device.
         ``scores`` are the ``[N]`` scores entering the round. The
         population tier draws the same stream up to the noise
@@ -288,7 +293,7 @@ class RoundProgram:
 
     # ------------------------------------------------------------ the round
     def run(self, backend, global_params, scores, *, bx, by, tx, ty,
-            draws: RoundDraws, round_idx: int, counts, server_data=None,
+            draws: RoundDraws, round_idx, counts, server_data=None,
             comp_state=None):
         """One FedTest round on ``backend``; returns ``(new_global,
         new_scores, new_comp_state, metrics)``. ``bx, by`` are the round's

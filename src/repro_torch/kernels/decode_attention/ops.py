@@ -61,7 +61,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Each launch of the CUDA split kernel adds one to
     ``decode_attention.launches``, and of its merge kernel one to
-    ``decode_attention.merge_launches``.
+    ``decode_attention.merge_launches``. A CUDA graph's replay launches
+    both without calling this wrapper and adds nothing: count a
+    replay's launches from a profiler trace.
     """
     if q.dim() != 3 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"decode_attention wants q [B,Hq,D] and k, v "

@@ -33,7 +33,9 @@ def dequant_aggregate(w: torch.Tensor, scales: torch.Tensor,
 
     ``M`` must be a whole number of chunks (the int8 compressor pads at
     encode time). Each launch of the CUDA kernel adds one to
-    ``dequant_aggregate.launches``.
+    ``dequant_aggregate.launches``. A CUDA graph's replay launches the
+    kernel without calling this wrapper and adds nothing: count a
+    replay's launches from a profiler trace.
     """
     if q.dim() != 2 or chunk <= 0:
         raise ValueError(f"dequant_aggregate wants q [C, M] and a positive "

@@ -133,7 +133,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     t <= i + q_offset (causal) and t > i + q_offset - sliding_window.
     Each launch of the CUDA kernel adds one to
     ``flash_attention.launches``; a batch over 65,535 rows takes one
-    launch a slice of that many.
+    launch a slice of that many. A CUDA graph's replay launches the
+    kernel without calling this wrapper and adds nothing: count a
+    replay's launches from a profiler trace.
     """
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention wants q [B,S,Hq,D] and k, v "

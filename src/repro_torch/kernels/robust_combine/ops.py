@@ -82,6 +82,9 @@ def combine_rows(x: torch.Tensor, mask: torch.Tensor,
     """x [C, M] f32; mask [C]; w_row [C] sorted-position weights -> [M].
 
     Each launch of the CUDA kernel adds one to ``robust_combine.launches``.
+    A CUDA graph's replay launches the kernel without calling this
+    wrapper and adds nothing: count a replay's launches from a profiler
+    trace.
     """
     C = x.shape[0] if x.dim() == 2 else -1
     if C < 1 or mask.shape != (C,) or w_row.shape != (C,):

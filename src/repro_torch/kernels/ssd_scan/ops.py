@@ -200,7 +200,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     dimension is unit-stride (and, in bf16, their rows start on 16-byte
     boundaries). Each launch of the CUDA kernel adds one to
     ``ssd_scan.launches``; a batch over 65,535 rows takes one launch a
-    slice of that many."""
+    slice of that many. A CUDA graph's replay launches the kernel
+    without calling this wrapper and adds nothing: count a replay's
+    launches from a profiler trace."""
     _check(x, dt, A, B, C, D, chunk)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, dt, A, B, C, D)):

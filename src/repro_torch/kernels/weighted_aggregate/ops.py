@@ -6,6 +6,10 @@ their inputs alone: CUDA tensors go to the hand-written kernel
 ``ref.py``. There is no fallback between the two: a CUDA input the kernel
 cannot take raises. On the card a whole tree is reduced in one launch a
 table of up to :data:`TABLE` leaves (:func:`plan_launches`).
+
+``weighted_aggregate.launches`` counts the launches these wrappers make.
+A CUDA graph's replay launches the kernel without calling a wrapper and
+adds nothing: count a replay's launches from a profiler trace.
 """
 from __future__ import annotations
 

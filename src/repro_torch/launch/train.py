@@ -30,13 +30,19 @@ Runs the FedTest round on the card by default:
       --dataset lm --users 4 --testers 2 --malicious 1 --local-steps 8 \\
       --batch 16 --optimizer adamw --lr 2e-3 --rounds 3
 
+  # chunks of 4 rounds: on the card one CUDA graph of a round, captured
+  # once and replayed 4 times with no read to the host between rounds;
+  # the global accuracy is read at every chunk boundary
+  PYTHONPATH=src python -m repro_torch.launch.train --rounds-per-call 4 \\
+      --rounds 10
+
 ``--device cpu`` runs on the CPU; ``--device cuda`` without a card
-raises. The flags are ``repro.launch.train``'s, with its defaults, less
-``--rounds-per-call`` (not ported yet: ROADMAP.md queue 1 item 8), plus
+raises. The flags are ``repro.launch.train``'s, with its defaults, plus
 ``--device`` and ``--participation``. ``--population`` runs
 ``PopulationTrainer`` over the dense dataset through
 ``DensePopulationData``; it does not take ``--dataset lm`` yet (ROADMAP.md
-queue 1).
+queue 1), nor ``--rounds-per-call`` above 1 (its round reads the cohort
+plan to the host).
 """
 from __future__ import annotations
 
@@ -59,6 +65,7 @@ from repro_torch.configs import (
     scenario_for_population)
 from repro_torch.core import CROSSTEST_IMPLS, FederatedTrainer
 from repro_torch.core.engine import PopulationTrainer, resolve_device
+from repro_torch.core.engine.population import CHUNK_REFUSAL
 from repro_torch.data import (
     CIFAR_LIKE, MNIST_LIKE, DensePopulationData, FederatedDataset,
     build_client_arrays, make_federated_image_dataset, make_token_stream,
@@ -198,6 +205,12 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="redraw each tester's eval rows every N rounds "
                          "(0: the fixed first rows, every round)")
     ap.add_argument("--rounds", type=int, default=None)
+    ap.add_argument("--rounds-per-call", type=int, default=1,
+                    help=">1 routes steady-state training through the "
+                         "multi-round driver (one CUDA graph of a round, "
+                         "replayed this many times a call, on the card; a "
+                         "loop on the CPU); global accuracy is evaluated "
+                         "at chunk boundaries")
     ap.add_argument("--local-steps", type=int, default=None)
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--lr", type=float, default=0.05)
@@ -315,6 +328,9 @@ def build(args: argparse.Namespace, **overrides):
     if lm and args.population is not None:
         raise SystemExit("--population does not take --dataset lm yet "
                          "(ROADMAP.md queue 1)")
+    if args.population is not None and args.rounds_per_call > 1:
+        raise SystemExit(f"--rounds-per-call {args.rounds_per_call} with "
+                         f"--population: {CHUNK_REFUSAL}")
     fed = fed_config(args)
     tc = TrainConfig(optimizer=args.optimizer, lr=args.lr,
                      schedule="constant", batch_size=args.batch,
@@ -333,7 +349,8 @@ def build(args: argparse.Namespace, **overrides):
             testers_from_cohort=args.testers_from_cohort)
         return trainer, DensePopulationData(data), cfg
     trainer = FederatedTrainer(build_model(cfg), fed, tc, device=device,
-                               eval_resample_every=args.eval_resample_every)
+                               eval_resample_every=args.eval_resample_every,
+                               rounds_per_call=args.rounds_per_call)
     return trainer, data, cfg
 
 
@@ -388,6 +405,7 @@ def main(argv=None):
                          "crosstest_impl": fed.crosstest_impl,
                          "eval_resample_every":
                              trainer.eval_resample_every,
+                         "rounds_per_call": trainer.rounds_per_call,
                          "users": fed.num_users,
                          "testers": fed.num_testers,
                          "malicious": fed.num_malicious,

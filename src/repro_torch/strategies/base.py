@@ -22,6 +22,7 @@ handed is a ``torch.Generator`` (selectors) or the draws themselves
 """
 from __future__ import annotations
 
+import functools
 import inspect
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
@@ -36,7 +37,8 @@ class AttackContext(NamedTuple):
 
     scores: torch.Tensor               # [N] moving-average scores (pre-round)
     weights: torch.Tensor              # [N] implied aggregation weights
-    round_idx: int
+    # the host int, or a chunk's 0-d int64 device counter
+    round_idx: Any
 
     @property
     def num_users(self) -> int:
@@ -50,7 +52,8 @@ class RoundContext(NamedTuple):
     tester_ids: torch.Tensor           # [K] ids of this round's testers
     scores: Any                        # ScoreState (moving-average scores)
     counts: torch.Tensor               # [N] per-client sample counts
-    round_idx: int
+    # the host int, or a chunk's 0-d int64 device counter
+    round_idx: Any
     # [N, D] float32 flattened client updates (trained - global), present
     # only when the aggregator sets ``needs_updates`` or defines
     # ``combine`` (the round builds the matrix at most once)
@@ -201,9 +204,12 @@ def resolve_placement(num_users: int, size: int, placement: str = "last",
     return tuple(range(num_users - size, num_users))
 
 
+@functools.lru_cache(maxsize=None)
 def placement_mask(num_users: int, indices: Tuple[int, ...],
                    device=None) -> torch.Tensor:
-    """0/1 float mask [N] for a static client-index set."""
+    """0/1 float mask [N] for a static client-index set. Made (a copy
+    from the host) at the first call for its arguments, outside a chunk's
+    capture, and the same tensor returned after: callers only read it."""
     mask = torch.zeros((num_users,), dtype=torch.float32, device=device)
     mask[list(indices)] = 1.0
     return mask
@@ -326,13 +332,20 @@ class Selector:
     """Picks the K tester ids for a round, int32 on the device of ``key``,
     the round's ``torch.Generator`` (the CPU when it is None); ``scores``
     (keyword-only) carries the ``[N]`` moving-average scores entering the
-    round."""
+    round. ``round_idx`` is the host int, or a chunk's 0-d int64 device
+    counter (``FederatedTrainer.run_chunk``)."""
 
     name = "base"
 
     def select(self, key, num_users: int, num_testers: int,
                round_idx, *, scores=None) -> torch.Tensor:
         raise NotImplementedError
+
+    def schedule(self, first_round: int, num_rounds: int, num_users: int,
+                 num_testers: int, device) -> None:
+        """Before a chunk of ``num_rounds`` rounds from ``first_round``:
+        load on ``device`` whatever :meth:`select` reads for them on the
+        device counter. Nothing for a policy that needs nothing."""
 
     def __repr__(self) -> str:
         return f"<selector {self.name}>"

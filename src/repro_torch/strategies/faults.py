@@ -19,8 +19,8 @@ draws.
   with ``mean_c = 1 + spread * c / (N - 1)`` and ``[N]`` Exponential(1)
   jitters; a client over ``deadline`` is dropped.
 * ``targeted``           — the placed index set is dropped every round
-  from ``start_round`` on; it draws nothing, and ``round_idx`` is a host
-  int.
+  from ``start_round`` on; it draws nothing. ``round_idx`` is the host
+  int or a chunk's device counter.
 """
 from __future__ import annotations
 
@@ -103,6 +103,5 @@ class Targeted(Fault):
     def mask(self, draws, num_users, round_idx, device=None):
         dropped = placement_mask(num_users, self.target_indices(num_users),
                                  device)
-        if round_idx < self.start_round:
-            return torch.ones_like(dropped)
-        return 1.0 - dropped
+        # a bool or a 0-d device bool: nothing is read to the host
+        return 1.0 - dropped * (round_idx >= self.start_round)
