@@ -124,7 +124,37 @@ toolkit (``nvcc``), and exits non-zero on the first phase that fails.
    only, and the allocator's peak at N = 100,000 less than 1 GiB above
    the peak at N = 1,000; then int8 at N = 10,000: ``dequant_aggregate``
    once a round and no other kernel, and 1,000 error-feedback rows of
-   clients outside each round's cohort unchanged, bitwise. Then the paper's
+   clients outside each round's cohort unchanged, bitwise. Then phase P,
+   the pod round (one client a rank of a ``torch.distributed`` group; 4
+   ranks, each a process, share the card through gloo, every collective
+   staged through host memory). P1: ``PodTrainer``, the pod CLI's
+   driver, on ``fedtest-cnn`` at full width (cifar_like, 1,000 samples
+   a client, K = 4, one sign_flip attacker, 10 steps of 32), 3 rounds
+   each of ring and allgather: ring == allgather bitwise (params,
+   weights, [K, N] counts, the generator), every rank holding rank 0's
+   params; against the local backend on the same draws with its clients
+   trained one at a time, as the ranks train them, the counts, the
+   weights and the params bitwise; the local backend's vmapped run
+   printed beside it, and where it parts held by ``vmap_witness``
+   (round 1's SGD steps both ways: the params within rounding until a
+   pre-activation within rounding of a ReLU's 0 or a max-pool tie routes
+   a gradient otherwise; in float64 no flip and the params within
+   1e-9); ``weighted_aggregate`` once a round on every rank
+   and no other kernel, its last output against the plain version; round
+   ms, the exchange's share, bytes staged a round and each rank's peak
+   printed. The same group then runs the reference crosstest schedule on
+   both exchanges (bitwise the batched runs), the mutual_boost coalition
+   for 8 rounds (its malicious weight printed beside the CI's 0.1), and a
+   ring round of ``trimmed_mean_coord``: ``robust_combine`` once on every
+   rank on the gathered [4, 188,810] matrix. P2 and P3, all at once: the
+   reference CI's pod-smoke commands (ring with sign_flip; allgather at
+   participation 0.75; int8 for 6 rounds, ``dequant_aggregate`` once a
+   round) and its population-smoke command (C = 32 over 4 ranks, 12
+   rounds, its malicious weights bitwise the unsharded CI run's above)
+   through ``python -m repro_torch.launch.federated --dist-backend
+   gloo``, each exiting 0 with rank 0's kernel once a round; meanwhile
+   P1's round at world size 1 under nccl, whose collectives run on the
+   card (a four-card run waits for a four-chip cell). Then the paper's
    comparison (Figs. 4-5): ``repro_torch.examples.fedtest_cifar``'s
    ``run_curve`` at its full scale, 3 rounds each of ``fedtest``,
    ``fedavg`` and ``accuracy_based`` against 3 attackers at scale 4; every
@@ -454,6 +484,62 @@ PIXTRAL_CACHE = 1024 + 512 + 32 + 1
 # pixtral's f32 teacher forcing runs on this many of the 8 sequences: its
 # f32 weights (49.1 GB) replace the bf16 ones, leaf by leaf
 V_F32_ROWS = 2
+
+# phase P, the pod round (slice 15): one client a rank of a
+# torch.distributed group, POD_N ranks sharing the card through gloo with
+# every collective staged through host memory. P1: PodTrainer (the pod
+# CLI's driver) on fedtest-cnn at full width (cifar_like, 1,000 samples
+# a client as in path A), K = 4, one sign_flip attacker, POD_ROUNDS
+# rounds each of ring and allgather, held against the local backend on
+# the same draws; then one round of ring with trimmed_mean_coord; then
+# one round at world size 1 under nccl. P2: the reference CI's pod-smoke
+# commands through the pod CLI; P3: its population-smoke command
+POD_N, POD_ROUNDS, POD_SAMPLES, POD_EVAL = 4, 3, 4000, 256
+POD_FED = dict(num_users=POD_N, num_testers=POD_N, num_malicious=1,
+               attack="sign_flip", local_steps=10, seed=0)
+POD_COMBINE = dict(aggregator="trimmed_mean_coord",
+                   aggregator_kwargs={"trim_fraction": TRIM,
+                                      "score_gate": 0.5})
+POD_TRAIN = dict(optimizer="sgd", lr=0.05, schedule="constant",
+                 batch_size=32, grad_clip=0.0)
+# the vmap witness (vmap_witness): round 1's SGD steps of P1's run, the
+# local backend's vmapped local phase against each client trained alone.
+# The first forward, from the same params, differs by at most
+# VMAP_FORWARD_RTOL of a layer's largest pre-activation; before a
+# client's first flip of a gradient route its params agree within
+# VMAP_ROUNDING; in float64 nothing flips and the params end within
+# VMAP_F64_ATOL
+VMAP_FORWARD_RTOL = 1e-5
+VMAP_ROUNDING = dict(rtol=1e-5, atol=1e-6)
+VMAP_F64_ATOL = 1e-9
+# P1's further runs in its group: the reference crosstest schedule on
+# both exchanges (bitwise the batched one) and the mutual_boost coalition
+# (scenario_for_pod's refit of mutual_boost_vs_fedtest) for POD_MB_ROUNDS
+POD_MB_ROUNDS = 8
+# P2 and P3, the reference CI's commands through the pod CLI (the CI's
+# --assert-malicious-below 0.1 is reported beside each final malicious
+# weight, not held: the reference misses it on some seeds, ROADMAP queue
+# 3): (name, flags, rounds, the kernel a round). P2 is cut to ring,
+# allgather and int8 to keep phase P near 120 s; the CI's crosstest pair
+# and its mutual_boost run are P1's reference and mutual_boost runs
+POD_CLI = (
+    ("ring", ["--clients", "4", "--rounds", "2", "--attack", "sign_flip",
+              "--malicious", "1"], 2, "weighted_aggregate"),
+    ("allgather", ["--clients", "4", "--rounds", "2", "--exchange",
+                   "allgather", "--attack", "sign_flip", "--malicious", "1",
+                   "--participation", "0.75"], 2, "weighted_aggregate"),
+    ("int8", ["--clients", "4", "--rounds", "6", "--compressor", "int8",
+              "--attack", "sign_flip", "--attack-scale", "4",
+              "--malicious", "1", "--min-classes", "8", "--local-steps",
+              "10", "--batch", "16"], 6, "dequant_aggregate"),
+    ("population", ["--clients", "4", "--population", str(CI_POPULATION),
+                    "--cohort", str(CI_COHORT), "--rounds", str(CI_ROUNDS),
+                    "--attack", "sign_flip", "--malicious",
+                    str(CI_MALICIOUS), "--testers", str(CI_TESTERS),
+                    "--testers-from-cohort", "--local-steps",
+                    str(CI_STEPS), "--batch", str(CI_BATCH)], CI_ROUNDS,
+     "weighted_aggregate"),
+)
 
 # published peaks by card (NVIDIA data sheets, dense): HBM bytes/s, fp32
 # FLOP/s outside the tensor cores, bf16 FLOP/s on the tensor cores
@@ -2625,6 +2711,609 @@ def phase_population_ci(torch, card):
             "launches": counts["weighted_aggregate"]}
 
 
+# ------------------------------------------------------------ phase P
+def pod_rank(group, runs):
+    """One rank of phase P1 (spawned by ``run_ranks``): each of ``runs``,
+    ``(label, FedConfig fields, exchange, rounds)``, through
+    :class:`PodTrainer` (the pod CLI's driver) on ``fedtest-cnn`` at full
+    width from the seed. The launch counts, the group's exchange counters
+    and the allocator's peak are set to 0 before a run's rounds and read
+    after; the last round's step-7 output is held against the plain
+    version on its own inputs. Returns, for each run, numpy copies of
+    what the parent compares."""
+    import torch
+    from repro_torch.config import FedConfig, TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import PodTrainer
+    from repro_torch.data import CIFAR_LIKE, make_federated_image_dataset
+    from repro_torch.kernels.robust_combine import (
+        robust_combine_network_ref, row_select_weights)
+    from repro_torch.kernels.weighted_aggregate import weighted_aggregate_ref
+    from repro_torch.models import build_model
+    from repro_torch.utils import tree_leaves
+
+    dev, rank, n = group.device, group.rank, group.world_size
+    model = build_model(get_config("fedtest-cnn"))
+    data = make_federated_image_dataset(CIFAR_LIKE, n,
+                                        num_samples=POD_SAMPLES * n // POD_N,
+                                        seed=0, device=dev)
+    kernel_ops = ops()
+    out = {}
+    for label, fed_kw, exchange, rounds in runs:
+        trainer = PodTrainer(model, FedConfig(**fed_kw),
+                             TrainConfig(**POD_TRAIN), eval_batch=POD_EVAL,
+                             group=group, exchange=exchange)
+        program, backend, seen = trainer.program, trainer.backend, {}
+
+        def keep(step, fn):
+            def run(*args):
+                seen[step] = (args, fn(*args))
+                return seen[step][1]
+            return run
+        backend.cross_test = keep("cross_test", backend.cross_test)
+        backend._stack = keep("stack", backend._stack)
+        backend.weighted_sum = keep("aggregate", backend.weighted_sum)
+        if program.uses_combine:
+            program.aggregator.combine = keep("combine",
+                                              program.aggregator.combine)
+        state = trainer.init(0)
+        torch.cuda.synchronize(dev)
+        reset_counts(kernel_ops)
+        group.reset_counters()
+        torch.cuda.reset_peak_memory_stats(dev)
+        walls, exchange, rows, first = [], [], [], None
+        for r in range(rounds):
+            torch.cuda.synchronize(dev)
+            t0, ex0 = time.perf_counter(), group.exchange_s
+            state, metrics = trainer.run_round(state, data)
+            torch.cuda.synchronize(dev)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            exchange.append((group.exchange_s - ex0) * 1e3)
+            if r == 0 and rank == 0 and "stack" in seen:
+                first = [t.cpu().numpy()
+                         for t in tree_leaves(seen["stack"][1])]
+            rows.append({
+                "weights": metrics["weights"].cpu().numpy(),
+                "malicious_weight": float(metrics["malicious_weight"]),
+                "counts": (seen["cross_test"][1] * POD_EVAL).round()
+                .to(torch.int64).cpu().numpy()})
+        launches = {k: op.launches for k, op in kernel_ops.items()}
+        # the last round's step 7 against the plain version
+        if program.uses_combine:
+            (ctx, updates), got = seen["combine"]
+            agg = program.aggregator
+            mask = agg.gate_mask(ctx)
+            w_row = row_select_weights(mask, mode=agg._mode,
+                                       trim_fraction=agg.trim_fraction)
+            pairs = [(got, robust_combine_network_ref(updates, mask, w_row))]
+            shape = tuple(updates.shape)
+        else:
+            (_, weights, _), got = seen["aggregate"]
+            stack = seen["stack"][1]
+            pairs = [(g.reshape(-1), weighted_aggregate_ref(
+                x.reshape(x.shape[0], -1), weights))
+                for g, x in zip(tree_leaves(got), tree_leaves(stack))]
+            shape = tuple(tree_leaves(stack)[0].shape[:1])
+        err = max(float((a - b).abs().max()) for a, b in pairs)
+        for a, b in pairs:
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+        out[label] = dict(
+            walls=walls, rows=rows, launches=launches, err=err,
+            shape=shape, exchange_ms=exchange,
+            bytes_staged=group.bytes_staged, calls=group.calls,
+            peak=torch.cuda.max_memory_allocated(dev),
+            params=[p.cpu().numpy()
+                    for p in tree_leaves(state.global_params)],
+            first=first, gen=state.gen.get_state().numpy(),
+            transport=group.transport)
+    return out
+
+
+def pod_local_trainer():
+    """P1's run on the local backend on the card: the trainer and the
+    dataset (POD_N clients, the ranks' data)."""
+    from repro_torch.config import FedConfig, TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import FederatedTrainer
+    from repro_torch.data import CIFAR_LIKE, make_federated_image_dataset
+    from repro_torch.models import build_model
+    trainer = FederatedTrainer(
+        build_model(get_config("fedtest-cnn")), FedConfig(**POD_FED),
+        TrainConfig(**POD_TRAIN), eval_batch=POD_EVAL, device="cuda")
+    data = make_federated_image_dataset(CIFAR_LIKE, POD_N,
+                                        num_samples=POD_SAMPLES, seed=0,
+                                        device=trainer.device)
+    return trainer, data
+
+
+def pod_local(torch, rounds, per_client=False):
+    """The local backend's rounds of P1's first run from the same seed
+    (its draws are the pod's): per round the weights and the [K, N]
+    counts, then the final params and the round-1 model stack. With
+    ``per_client`` its local phase trains one client at a time, as a pod
+    rank does (``local_train`` on one client's batches), in place of the
+    vmap over the clients' stack."""
+    from repro_torch.utils import tree_leaves, tree_map
+
+    trainer, data = pod_local_trainer()
+    backend, accs, models = trainer.backend, [], []
+    cross_test = backend.cross_test
+
+    def keep(*args):
+        accs.append(cross_test(*args))
+        models.append(args[1])
+        return accs[-1]
+    backend.cross_test = keep
+    if per_client:
+        def train(local_train, global_params, bx, by):
+            out = [local_train(global_params, bx[c], by[c])
+                   for c in range(bx.shape[0])]
+            return (tree_map(lambda *leaves: torch.stack(leaves),
+                             *[params for params, _ in out]),
+                    torch.stack([loss for _, loss in out]))
+        backend.train = train
+    state, rows = trainer.init(0), []
+    for _ in range(rounds):
+        state, metrics = trainer.run_round(state, data)
+        rows.append({"weights": metrics["weights"].cpu().numpy(),
+                     "counts": (accs[-1] * POD_EVAL).round()
+                     .to(torch.int64).cpu().numpy()})
+    return (rows,
+            [p.cpu().numpy() for p in tree_leaves(state.global_params)],
+            [t.cpu().numpy() for t in tree_leaves(models[0])])
+
+
+def _preacts(torch, params, images):
+    """The pre-activations of each ReLU of ``fedtest-cnn``'s forward on
+    ``images``, op for op ``repro_torch.models.cnn.CNN.forward``: each
+    conv layer's output (NCHW), then fc1's."""
+    import torch.nn.functional as F
+    x = images.permute(0, 3, 1, 2)
+    out = []
+    for i in range(len(params) - 2):
+        layer = params[f"conv{i}"]
+        out.append(F.conv2d(x, layer["w"].permute(3, 2, 0, 1), layer["b"],
+                            padding=1))
+        x = F.max_pool2d(F.relu(out[-1]), 2, ceil_mode=True)
+    x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+    out.append(x @ params["fc1"]["w"] + params["fc1"]["b"])
+    return out
+
+
+def _route_masks(torch, zs):
+    """Where the backward lets a gradient through, from ``_preacts``: a
+    conv pre-activation that is positive and is its 2x2 max-pool window's
+    winner (the pool's own indices), an fc1 pre-activation that is
+    positive. Any leading batch axes."""
+    import torch.nn.functional as F
+    masks = []
+    for z in zs[:-1]:
+        flat = z.reshape((-1,) + z.shape[-3:])
+        _, idx = F.max_pool2d(F.relu(flat), 2, ceil_mode=True,
+                              return_indices=True)
+        won = torch.zeros(flat.shape[:2] + (flat[0, 0].numel(),),
+                          dtype=torch.bool, device=z.device)
+        won.scatter_(2, idx.flatten(2), True)
+        masks.append((won.view_as(flat) & (flat > 0)).view_as(z))
+    masks.append(zs[-1] > 0)
+    return masks
+
+
+def _flip_record(torch, flip, z_vmapped, z_alone):
+    """The first element whose gradient route differs (``flip``, flat):
+    its pre-activation in both runs and, in each, its signed distance to
+    the kink that decides the route: the ReLU's 0, or for a conv element
+    positive in both runs, its 2x2 max-pool window's winner."""
+    import numpy as np
+    import torch.nn.functional as F
+    i = int(flip.nonzero()[0])
+    zs = {"vmapped": z_vmapped, "alone": z_alone}
+    out = {"flips": int(flip.sum())}
+    for key, z in zs.items():
+        out[f"z_{key}"] = float(z.flatten()[i])
+    relu = ((out["z_vmapped"] > 0) != (out["z_alone"] > 0)
+            or z_alone.dim() < 4)
+    out["kink"] = "ReLU" if relu else "max-pool tie"
+    for key, z in zs.items():
+        if relu:
+            out[f"margin_{key}"] = out[f"z_{key}"]
+            continue
+        b, ch, h, w = np.unravel_index(i, tuple(z.shape))
+        pooled = F.max_pool2d(F.relu(z[b:b + 1]), 2, ceil_mode=True)
+        out[f"margin_{key}"] = (out[f"z_{key}"]
+                                - float(pooled[0, ch, h // 2, w // 2]))
+    return out
+
+
+def vmap_witness(torch):
+    """Where the local backend's vmapped local phase parts from the same
+    clients trained one at a time (P1 prints both runs): round 1's
+    batches of P1's run, each SGD step taken both ways from the step's
+    own params, in float32 through ``RoundProgram.local_train`` and in
+    float64 (the model's forward under ``torch.func.grad``, cross-entropy
+    and SGD in f64). Per client and step it compares the two forwards'
+    pre-activations (their spread: a layer's max |difference|) and
+    gradient routes (``_route_masks``), and records the first step that
+    routes a gradient otherwise: the element, its pre-activation in both
+    runs and its distance to the kink. Held: the f32 vmapped steps are
+    bitwise ``LocalBackend.train``'s round; the first forward, from the
+    same params, spreads by at most VMAP_FORWARD_RTOL of each layer's
+    largest pre-activation; before a client's first flip its params
+    agree within VMAP_ROUNDING; in f64 no route flips and the params end
+    within VMAP_F64_ATOL. Returns the numbers."""
+    import torch.nn.functional as F
+    from torch.func import grad, vmap
+
+    from repro_torch.utils import tree_leaves, tree_map
+
+    trainer, data = pod_local_trainer()
+    program, n, lr = trainer.program, POD_N, POD_TRAIN["lr"]
+    model = program.train_model
+    state = trainer.init(0)
+    bx, by, _, _ = trainer.client_batches(data, trainer.draw(state, data))
+    g = state.global_params
+    want, _ = trainer.backend.train(program.local_train, g, bx, by)
+    layers = [f"conv{i}" for i in range(len(g) - 2)] + ["fc1"]
+    steps = bx.shape[1]
+
+    def step32(p, x, y):
+        return program.local_train(p, x[None], y[None])[0]
+
+    def step64(p, x, y):
+        def loss(q):
+            return F.cross_entropy(model.forward_train(q, {"images": x}),
+                                   y.long())
+        return tree_map(lambda a, d: a - lr * d, p, grad(loss)(p))
+
+    out = {}
+    for dtype, step in ((torch.float32, step32), (torch.float64, step64)):
+        key = "f32" if dtype == torch.float32 else "f64"
+        start = tree_map(lambda t: t.to(dtype), g)
+        xs = bx.to(dtype)
+        stack = tree_map(lambda t: t[None].expand((n,) + t.shape), start)
+        own, first, diffs, rounding = [start] * n, [None] * n, [], []
+        forward = [None] * n     # the first forward's spread / scale
+        for s in range(steps):
+            zv = vmap(lambda p, x: _preacts(torch, p, x))(stack, xs[:, s])
+            mv = _route_masks(torch, zv)
+            for c in range(n):
+                if first[c] is not None:
+                    continue
+                zc = _preacts(torch, own[c], xs[c, s])
+                spread = [float((v[c] - w).abs().max()) for v, w in
+                          zip(zv, zc)]
+                if s == 0:
+                    forward[c] = [d / float(w.abs().max())
+                                  for d, w in zip(spread, zc)]
+                for name, a, b, v, w, d in zip(
+                        layers, mv, _route_masks(torch, zc), zv, zc, spread):
+                    flip = (a[c] != b).flatten()
+                    if flip.any():
+                        first[c] = dict(_flip_record(torch, flip, v[c], w),
+                                        step=s, layer=name, spread=d)
+                        break
+            stack = vmap(step)(stack, xs[:, s], by[:, s])
+            own = [step(own[c], xs[c, s], by[c, s]) for c in range(n)]
+            pairs = [list(zip((t[c] for t in tree_leaves(stack)),
+                              tree_leaves(own[c]))) for c in range(n)]
+            diffs.append([max(float((a - b).abs().max()) for a, b in pc)
+                          for pc in pairs])
+            rounding.append([all(torch.allclose(a, b, **VMAP_ROUNDING)
+                                 for a, b in pc) for pc in pairs])
+        out[key] = {"first_flip": first, "max_diff_by_step": diffs,
+                    "first_forward_spread": forward}
+        for c in range(n):
+            flip = first[c]
+            print(f"P1 vmap witness {key} client {c}: the first forward's "
+                  f"spread / scale {[f'{r:.3g}' for r in forward[c]]} "
+                  f"({', '.join(layers)}); "
+                  + ("no gradient route flips" if flip is None else
+                     f"first route flip at step {flip['step'] + 1} of "
+                     f"{steps} in {flip['layer']} ({flip['flips']} "
+                     f"elements, at a {flip['kink']}), pre-activation "
+                     f"{flip['z_vmapped']:.6g} vmapped, "
+                     f"{flip['z_alone']:.6g} alone, from the kink "
+                     f"{flip['margin_vmapped']:.3g} and "
+                     f"{flip['margin_alone']:.3g}, the layer's spread "
+                     f"{flip['spread']:.3g}")
+                  + f"; params max |diff| after each step "
+                  f"{[f'{d[c]:.3g}' for d in diffs]}")
+            check(max(forward[c]) <= VMAP_FORWARD_RTOL,
+                  f"vmap witness {key} client {c}: the first forward's "
+                  f"spread within {VMAP_FORWARD_RTOL} of each layer's scale")
+            before = steps if flip is None else flip["step"]
+            check(all(r[c] for r in rounding[:before]),
+                  f"vmap witness {key} client {c}: params within "
+                  f"{VMAP_ROUNDING} before the first route flip")
+        if dtype == torch.float32:
+            check(_same([t.cpu().numpy() for t in tree_leaves(stack)],
+                        [t.cpu().numpy() for t in tree_leaves(want)]),
+                  "vmap witness: the step-by-step vmapped run is bitwise "
+                  "LocalBackend.train's")
+        else:
+            check(first == [None] * n and max(diffs[-1]) <= VMAP_F64_ATOL,
+                  f"vmap witness f64: no route flips ({first}) and the "
+                  f"params end within {VMAP_F64_ATOL} "
+                  f"({max(diffs[-1]):.3g})")
+    return out
+
+
+def _same(a, b) -> bool:
+    import numpy as np
+    return all(np.array_equal(x, y, equal_nan=True) for x, y in zip(a, b))
+
+
+def phase_pod(torch, card):
+    """P1: the pod round at full width on POD_N ranks sharing the card
+    (gloo, staged through host memory), ring and allgather POD_ROUNDS
+    rounds each: ring == allgather bitwise (params, weights, [K, N]
+    counts, generator); against the local backend on the same draws with
+    its clients trained one at a time, as the ranks train them, the
+    counts, the weights and the params bitwise; the local backend's own
+    vmapped run beside it, printed, and ``vmap_witness`` on where it
+    parts; ``weighted_aggregate`` once a round on every rank and no other
+    kernel. The same group then runs the reference crosstest schedule on
+    both exchanges (bitwise the batched runs), the mutual_boost coalition
+    for POD_MB_ROUNDS rounds, and one ring round of
+    ``trimmed_mean_coord``: ``robust_combine`` once on every rank, on the
+    gathered [POD_N, 188,810] matrix. Returns the phase's numbers, with
+    every run's launches summed over the ranks."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs import scenario_for_pod
+    from repro_torch.launch.mesh import run_ranks
+
+    t_phase = time.perf_counter()
+    boost = dataclasses.asdict(dataclasses.replace(
+        scenario_for_pod("mutual_boost_vs_fedtest", POD_N),
+        local_steps=POD_FED["local_steps"], seed=0))
+    reference = dict(POD_FED, crosstest_impl="reference")
+    runs = [("ring", POD_FED, "ring", POD_ROUNDS),
+            ("allgather", POD_FED, "allgather", POD_ROUNDS),
+            ("ring reference", reference, "ring", POD_ROUNDS),
+            ("allgather reference", reference, "allgather", POD_ROUNDS),
+            ("mutual_boost", boost, "ring", POD_MB_ROUNDS),
+            ("trimmed_mean_coord", dict(POD_FED, **POD_COMBINE), "ring", 1)]
+    t0 = time.perf_counter()
+    ranks = run_ranks(pod_rank, POD_N, runs, device_type="cuda",
+                      backend="gloo", timeout_s=300, join_timeout_s=600)
+    group_s = time.perf_counter() - t0
+    # the local backend twice: training one client at a time, as a rank
+    # does (held bitwise), and under its vmap over the clients (printed;
+    # vmap_witness shows where and why the two part)
+    local = {mode: pod_local(torch, POD_ROUNDS,
+                             per_client=mode == "per client")
+             for mode in ("per client", "vmapped")}
+    out = {"group_s": group_s, "transport": ranks[0]["ring"]["transport"],
+           "vmap_witness": vmap_witness(torch)}
+    ring, gather = ranks[0]["ring"], ranks[0]["allgather"]
+    check(_same(ring["params"], gather["params"])
+          and np.array_equal(ring["gen"], gather["gen"])
+          and all(_same([a["weights"], a["counts"]],
+                        [b["weights"], b["counts"]])
+                  for a, b in zip(ring["rows"], gather["rows"])),
+          "P1: ring == allgather bitwise (params, weights, counts, "
+          "generator)")
+    for rank, res in enumerate(ranks):
+        check(_same(res["ring"]["params"], ring["params"]),
+              f"P1: rank {rank} holds rank 0's params")
+    for label in ("ring", "allgather"):
+        one, two = ranks[0][label], ranks[0][f"{label} reference"]
+        check(_same(one["params"], two["params"])
+              and np.array_equal(one["gen"], two["gen"])
+              and all(_same([a["weights"], a["counts"]],
+                            [b["weights"], b["counts"]])
+                      for a, b in zip(one["rows"], two["rows"])),
+              f"P1 {label}: crosstest batched == reference bitwise")
+    print("P1 crosstest: batched == reference bitwise on ring and "
+          "allgather (params, weights, counts, generator)")
+    boost_rows = [per["mutual_boost"] for per in ranks]
+    for rank, r in enumerate(boost_rows):
+        want = {k: (POD_MB_ROUNDS if k == "weighted_aggregate" else 0)
+                for k in r["launches"]}
+        check(r["launches"] == want, f"P1 mutual_boost rank {rank} "
+              f"launches {r['launches']}, want {want}")
+    mal = [r["malicious_weight"] for r in boost_rows[0]["rows"]]
+    check(all(math.isfinite(v) for v in mal)
+          and all(np.isfinite(p).all() for p in boost_rows[0]["params"]),
+          f"P1 mutual_boost: finite malicious weights {mal} and params")
+    print(f"P1 mutual_boost ({POD_MB_ROUNDS} rounds, ring): malicious "
+          f"weight a round {[round(v, 5) for v in mal]}, final "
+          f"{mal[-1]:.5f} against the CI's bar 0.1 "
+          f"({'below' if mal[-1] < 0.1 else 'not below'}); round ms "
+          f"{[round(t, 3) for t in boost_rows[0]['walls']]}")
+    for mode, (rows, params, first) in local.items():
+        by_client = [max(float(np.abs(a[c] - b[c]).max())
+                         for a, b in zip(ring["first"], first))
+                     for c in range(POD_N)]
+        print(f"P1 against the local backend ({mode}): round 1's models, "
+              f"each client's params max |diff| "
+              f"{[f'{d:.3g}' for d in by_client]}")
+        for r, (a, b) in enumerate(zip(ring["rows"], rows)):
+            differ = a["counts"] != b["counts"]
+            print(f"P1 ({mode}) round {r + 1}: {int(differ.sum())} of "
+                  f"{differ.size} counts differ (by at most "
+                  f"{int(np.abs(a['counts'] - b['counts']).max())} of "
+                  f"{POD_EVAL}); weights equal "
+                  f"{bool(np.array_equal(a['weights'], b['weights']))}")
+        diff = max(float(np.abs(a - b).max())
+                   for a, b in zip(ring["params"], params))
+        print(f"P1 ({mode}): the final params max |diff| {diff:.3g}")
+        out[f"local {mode}"] = {"round1_client_max_diff": by_client,
+                                "params_max_diff": diff}
+    rows, params, _ = local["per client"]
+    for label in ("ring", "allgather"):
+        res = ranks[0][label]
+        check(all(np.array_equal(a["counts"], b["counts"])
+                  and np.array_equal(a["weights"], b["weights"])
+                  for a, b in zip(res["rows"], rows))
+              and _same(res["params"], params),
+              f"P1 {label}: counts, weights and params bitwise the local "
+              "backend's (one client trained at a time)")
+        for rank, per in enumerate(ranks):
+            r = per[label]
+            want = {k: (POD_ROUNDS if k == "weighted_aggregate" else 0)
+                    for k in r["launches"]}
+            check(r["launches"] == want,
+                  f"P1 {label} rank {rank} launches {r['launches']}, "
+                  f"want {want}")
+        # the exchange's share of the steady rounds (the first pays the
+        # set-up of cuDNN, the kernels and gloo's connections)
+        walls = [per[label]["walls"] for per in ranks]
+        share = [sum(per[label]["exchange_ms"][1:]) / sum(w[1:])
+                 for per, w in zip(ranks, walls)]
+        staged = [per[label]["bytes_staged"] / POD_ROUNDS for per in ranks]
+        peaks = [per[label]["peak"] / 2**20 for per in ranks]
+        print(f"P1 {label} ({res['transport']}): round ms rank 0 "
+              f"{[round(t, 3) for t in walls[0]]}, every rank's steady "
+              f"mean {[round(sum(w[1:]) / len(w[1:]), 3) for w in walls]}; "
+              f"rank 0's exchange ms a round "
+              f"{[round(t, 3) for t in res['exchange_ms']]}, every rank's "
+              f"steady share {[round(x, 3) for x in share]}; bytes staged "
+              f"a round {[int(b) for b in staged]}; collectives a round "
+              f"{ranks[0][label]['calls'] / POD_ROUNDS:.0f}; peak MiB "
+              f"{[round(p, 1) for p in peaks]}; weighted_aggregate once a "
+              f"round on every rank on a {res['shape']} stack (max |err| "
+              f"against the plain version {res['err']:.3g}); {card}")
+        out[label] = {"round_ms": walls, "exchange_share": share,
+                      "exchange_ms": [per[label]["exchange_ms"]
+                                      for per in ranks],
+                      "bytes_staged_a_round": staged, "peak_mib": peaks,
+                      "malicious_weight": [r["malicious_weight"]
+                                           for r in res["rows"]],
+                      "launches": sum(per[label]["launches"][
+                          "weighted_aggregate"] for per in ranks)}
+    comb = [per["trimmed_mean_coord"] for per in ranks]
+    for rank, r in enumerate(comb):
+        want = {k: (1 if k == "robust_combine" else 0) for k in r["launches"]}
+        check(r["launches"] == want and r["shape"] == (POD_N, 188_810),
+              f"P1 combine rank {rank}: launches {r['launches']} on "
+              f"{r['shape']}, want {want} on ({POD_N}, 188810)")
+    print(f"P1 trimmed_mean_coord (ring): robust_combine once on every "
+          f"rank on the gathered {comb[0]['shape']} matrix (max |err| "
+          f"against the plain version {comb[0]['err']:.3g}); round ms "
+          f"{[round(r['walls'][0], 3) for r in comb]}; {card}")
+    out["trimmed_mean_coord"] = {"round_ms": [r["walls"][0] for r in comb],
+                                 "launches": len(comb)}
+    out["mutual_boost"] = {"malicious_weight": mal,
+                           "launches": POD_MB_ROUNDS * len(boost_rows)}
+    out["launches"] = {op: sum(per[label]["launches"][op]
+                               for per in ranks for label in per)
+                       for op in ranks[0]["ring"]["launches"]}
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def pod_nccl(card):
+    """P1's round at world size 1 under nccl (one card a rank is nccl's
+    layout; a four-card run waits for a four-chip cell): its collectives
+    must run and ``weighted_aggregate`` launch once. Returns its numbers
+    and launch counts."""
+    from repro_torch.launch.mesh import run_ranks
+    one = dict(POD_FED, num_users=1, num_testers=1, num_malicious=0,
+               attack="none")
+    t0 = time.perf_counter()
+    nccl = run_ranks(pod_rank, 1, [("nccl", one, "ring", 1)],
+                     device_type="cuda", backend="nccl", timeout_s=300,
+                     join_timeout_s=300)[0]["nccl"]
+    want = {k: (1 if k == "weighted_aggregate" else 0)
+            for k in nccl["launches"]}
+    check(nccl["transport"] == "nccl" and nccl["calls"] > 0
+          and nccl["launches"] == want,
+          f"P1 nccl at world size 1: transport {nccl['transport']}, "
+          f"{nccl['calls']} collectives, launches {nccl['launches']}")
+    print(f"P1 nccl, world size 1: {nccl['calls']} collectives on the card "
+          f"in a round of {nccl['walls'][0]:.3f} ms "
+          f"({nccl['exchange_ms'][0]:.3f} ms in them), weighted_aggregate "
+          f"once; the group took "
+          f"{time.perf_counter() - t0:.1f} s. A four-card nccl run (one "
+          f"client a card) waits for a four-chip cell; {card}")
+    return {"round_ms": nccl["walls"], "calls": nccl["calls"],
+            "exchange_ms": nccl["exchange_ms"],
+            "launches": nccl["launches"],
+            "group_s": time.perf_counter() - t0}
+
+
+def phase_pod_cli(torch, card, ci_malicious):
+    """P2 and P3: the reference CI's pod-smoke and population-smoke
+    commands (POD_CLI) through ``python -m repro_torch.launch.federated
+    --dist-backend gloo``, all at once, each a group of 4 ranks sharing
+    the card, and meanwhile P1's round at world size 1 under nccl
+    (``pod_nccl``). Each must exit 0 with finite values and rank 0's
+    kernel a round and no other; the population run's malicious weight a
+    round must equal, bitwise, the unsharded ``PopulationTrainer`` run of
+    the same flags and seed (``ci_malicious``, from
+    ``phase_population_ci``). Each final malicious weight is printed
+    beside the CI's bar of 0.1."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    scratch = tempfile.mkdtemp(prefix="chip_smoke_pod_")
+    t0 = time.perf_counter()
+    try:
+        procs = {}
+        for name, argv, _, _ in POD_CLI:
+            cmd = [sys.executable, "-m", "repro_torch.launch.federated",
+                   "--device", "cuda", "--dist-backend", "gloo", "--out",
+                   os.path.join(scratch, name)] + argv
+            # a session of its own: a failed run's ranks go with it
+            procs[name] = (time.perf_counter(), subprocess.Popen(
+                cmd, env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True, start_new_session=True))
+        done = {}
+        try:
+            nccl = pod_nccl(card)
+            for name, (start, proc) in procs.items():
+                stdout, _ = proc.communicate(timeout=900)
+                done[name] = (proc.returncode, stdout,
+                              time.perf_counter() - start)
+        finally:
+            for _, proc in procs.values():
+                if proc.poll() is None:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                    proc.wait(timeout=60)
+        out = {}
+        for name, argv, rounds, op_name in POD_CLI:
+            rc, stdout, wall = done[name]
+            check(rc == 0, f"P2 {name}: exit {rc}\n{stdout[-3000:]}")
+            lines = stdout.splitlines()
+            head = next(ln for ln in lines
+                        if ln.startswith(("pod:", "population:")))
+            launches = json.loads(next(
+                ln for ln in lines if ln.startswith("rank 0 kernel launches")
+            ).split(": ", 1)[1])
+            want = {k: (rounds if k == op_name else 0) for k in launches}
+            check(launches == want, f"P2 {name}: rank 0 launches "
+                  f"{launches}, want {want}")
+            kind = "population" if name == "population" else (
+                "allgather" if "allgather" in argv else "ring")
+            with open(os.path.join(scratch, name,
+                                   f"mnist_like__{kind}.json")) as f:
+                hist = json.load(f)
+            mal = hist["malicious_weight"]
+            check(len(mal) == rounds and all(math.isfinite(v) for v in mal),
+                  f"P2 {name}: {rounds} finite malicious weights {mal}")
+            print(f"P2 {name}: exit 0 in {wall:.1f} s; {head}; rank 0 "
+                  f"launches {launches}; malicious weight a round "
+                  f"{[round(v, 5) for v in mal]}, final {mal[-1]:.5f} "
+                  f"against the CI's bar 0.1 "
+                  f"({'below' if mal[-1] < 0.1 else 'not below'}); {card}")
+            out[name] = {"wall_s": wall, "malicious_weight": mal,
+                         "launches": launches[op_name], "op": op_name}
+        sharded = out["population"]["malicious_weight"]
+        check(sharded == ci_malicious,
+              f"P3: the sharded population's malicious weights {sharded} "
+              f"equal the unsharded run's {ci_malicious}")
+        print(f"P3 population-smoke, C = {CI_COHORT} over 4 ranks: its "
+              f"{CI_ROUNDS} malicious weights equal the unsharded run's "
+              f"bitwise; last {sharded[-1]:.5f} against the CI's bar "
+              f"{CI_GATE}")
+        out["nccl"] = nccl
+        out["wall_s"] = time.perf_counter() - t0
+        return out
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+
+
 def phase_population(torch, card, n, compressor="identity"):
     """POP_ROUNDS rounds of ``PopulationTrainer`` over a synthetic
     population of ``n`` clients (``make_synthetic_population``, 16 rows a
@@ -4121,6 +4810,23 @@ def main() -> int:
     check(large - small < 2**30,
           f"the peak at N={POP_SIZES[1]:,} exceeds the peak at "
           f"N={POP_SIZES[0]:,} by {(large - small) / 2**30:.3f} GiB")
+    # phase P, the pod round: ranks in processes of their own, sharing the
+    # card; P3 is the CI job's command above, its cohort over 4 ranks
+    free_memory(torch)
+    pod = phase_pod(torch, card)
+    pod["cli"] = phase_pod_cli(torch, card,
+                               population["ci"]["malicious_weight"])
+    for op, n in pod["launches"].items():
+        launches[op] = launches.get(op, 0) + n
+    # the nccl round's; the CLI runs' rank 0 (each rank launches as many)
+    for op, n in pod["cli"]["nccl"]["launches"].items():
+        launches[op] = launches.get(op, 0) + n
+    for name, *_ in POD_CLI:
+        row = pod["cli"][name]
+        launches[row["op"]] += row["launches"]
+    print(f"phase P took {pod['phase_s'] + pod['cli']['wall_s']:.1f} s "
+          f"(P1 {pod['phase_s']:.1f}, P2 and P3 at once "
+          f"{pod['cli']['wall_s']:.1f}); {card}")
     comparison = phase_comparison(torch, card)
     repro = phase_reproducible(torch, card)
     serve_counts, serve_out = phase_serve(torch, card)
@@ -4241,6 +4947,7 @@ def main() -> int:
                       "reproducible_path_a": repro,
                       "comparison": comparison, "adversary": adversary,
                       "population": population,
+                      "pod": pod,
                       "durability": durability}))
     print(f"chip_smoke passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {

@@ -136,9 +136,9 @@ def list_scenarios() -> List[str]:
 
 def scenario_for_pod(name: str, num_clients: int) -> FedConfig:
     """A named preset refit to ``num_clients`` clients, as the reference
-    refits it for a pod of that many devices (a pure function of the
+    refits it for a pod of that many ranks (a pure function of the
     preset; :func:`scenario_for_population` refits through it, and the
-    port's pod backends, ROADMAP.md queue 1 item 15, will use it).
+    pod CLI's ``--scenario``, ``repro_torch.launch.federated``, uses it).
     Testers and attackers are clamped to stay valid. A coalition refits by
     fraction (4 of 20 becomes 1 of 4, 2 of 8), floored at one member, and
     drags a paired attack of the same size along; every other field

@@ -57,7 +57,7 @@ from repro_torch.checkpoint.serialization import conform, flatten_with_paths
 from repro_torch.config import FedConfig, TrainConfig
 from repro_torch.core.cross_testing import (
     eval_batch_indices, gather_eval_batches)
-from repro_torch.core.engine.backends import LocalBackend
+from repro_torch.core.engine.backends import LocalBackend, pod_backend
 from repro_torch.core.engine.program import (
     RoundDraws, RoundProgram, init_comp_state)
 from repro_torch.core.scoring import ScoreState, init_scores
@@ -296,12 +296,18 @@ class FederatedTrainer:
         return gather_eval_batches(data.test.xs, data.test.ys,
                                    draws.eval_idx)
 
+    def client_batches(self, data: FederatedDataset, draws: RoundDraws):
+        """The training batches and tester eval rows of the clients this
+        trainer plays: every client's, ``[N, steps, batch, ...]`` and
+        ``[N, eval_batch, ...]``."""
+        bx, by = gather_client_batches(data.train, draws.batch_idx)
+        return (bx, by) + self.eval_batches(data, draws)
+
     def _play(self, global_params, scores, comp_state, round_idx, data,
               draws: RoundDraws):
         """Steps 1-7 on the round's draws; ``round_idx`` is the host int
         or the chunk's device counter."""
-        bx, by = gather_client_batches(data.train, draws.batch_idx)
-        tx, ty = self.eval_batches(data, draws)
+        bx, by, tx, ty = self.client_batches(data, draws)
         return self.program.run(
             self.backend, global_params, scores,
             bx=bx, by=by, tx=tx, ty=ty, draws=draws,
@@ -506,3 +512,50 @@ class FederatedTrainer:
                       f"loss={float(metrics['local_loss']):.4f}  "
                       f"mal_w={float(metrics['malicious_weight']):.4f}")
         return state, history
+
+
+@dataclasses.dataclass
+class PodTrainer(FederatedTrainer):
+    """One rank's driver of the pod round: client ``group.rank`` of a
+    ``torch.distributed`` group of ``fed.num_users`` ranks, on
+    ``group.device`` (:class:`~repro_torch.launch.mesh.RankGroup`).
+
+    Every rank holds the whole replicated state (params, scores, error
+    feedback) and the same generator, seeded as the local driver seeds
+    it, so each draws the whole round's stream and keeps its own row: the
+    pod sees the draws the local round sees. A round trains, attacks and
+    encodes the rank's own client and exchanges the rest through the
+    ``exchange`` backend (``ring`` or ``allgather``). Rank 0 writes a
+    checkpoint and every rank restores it, so a resumed run is bitwise the
+    unbroken one. One round a call: a chunk of rounds
+    (``rounds_per_call`` > 1) is refused."""
+
+    group: Any = None
+    exchange: str = "ring"
+
+    def __post_init__(self):
+        if self.rounds_per_call > 1:
+            raise ValueError("the pod round runs one round a call; "
+                             "rounds_per_call > 1 runs on the dense engine")
+        self.device = self.group.device
+        super().__post_init__()
+
+    def _make_backend(self, impl: str):
+        return pod_backend(self.fed, self.group, self.exchange, impl)
+
+    def client_batches(self, data: FederatedDataset, draws: RoundDraws):
+        """The rank's own client's rows: ``[steps, batch, ...]`` and
+        ``[eval_batch, ...]``."""
+        r = self.group.rank
+        idx = draws.batch_idx[r]
+        tx, ty = self.eval_batches(data, draws)
+        return data.train.xs[r][idx], data.train.ys[r][idx], tx[r], ty[r]
+
+    def save_checkpoint(self, mgr, state: RoundState,
+                        step: Optional[int] = None) -> Optional[str]:
+        """Rank 0 writes ``state`` (replicated on every rank); the others
+        wait for it. Returns the path on rank 0."""
+        path = (super().save_checkpoint(mgr, state, step)
+                if self.group.rank == 0 else None)
+        self.group.barrier()
+        return path

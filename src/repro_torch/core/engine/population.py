@@ -26,8 +26,20 @@ while the population state stays a dense ``[N]`` ``ScoreState``:
 
 The port holds this tier to its own dense engine: discrete outputs
 exactly, floats to the last bits (a vmap over C rows and one over N may
-round differently). The reference's ``mesh`` sharding of the cohort axis
-is not ported (ROADMAP.md queue 1 item 15).
+round differently).
+
+**Cohort sharding** (the reference's ``mesh`` / ``axis``): given a
+``torch.distributed`` group of W ranks (``PopulationTrainer.group``),
+rank r holds the contiguous slots ``[r·C/W, (r+1)·C/W)`` of the cohort,
+and a C that W does not divide is refused. Every rank draws the whole
+round (the same generator) and keeps the replicated ``[N]`` state;
+training, the attack, the mask and the encoding run on its own slots,
+its ``[K, C/W]`` cross-test columns and ``[C/W]`` losses and server
+accuracies are gathered in slot order, and step 7 gathers the cohort
+stack (or its payloads) and runs the unsharded tier's reduction on every
+rank. The reference holds its GSPMD sharding only to suppression; the
+port holds its sharded tier to its unsharded one: every discrete field
+and the weights exactly, the params to the last bits.
 
 The sentinel N marks an unfilled slot. torch has no ``mode="drop"``
 scatter, and an out-of-range index is a device-side assert on the card,
@@ -136,7 +148,8 @@ class PopulationBackend:
     name = "population"
 
     def __init__(self, num_users: int, capacity: int,
-                 crosstest_impl: str = "batched", *, block: int = 0):
+                 crosstest_impl: str = "batched", *, block: int = 0,
+                 group=None):
         if crosstest_impl not in CROSSTEST_IMPLS:
             raise ValueError(f"crosstest_impl must be one of "
                              f"{CROSSTEST_IMPLS}, got {crosstest_impl!r}")
@@ -144,10 +157,34 @@ class PopulationBackend:
             raise ValueError(
                 f"cohort capacity must be in [1, num_users={num_users}], "
                 f"got {capacity}")
+        world = 1 if group is None else group.world_size
+        if capacity % world:
+            raise ValueError(
+                f"cohort {capacity} must divide evenly across {world} "
+                "ranks for the cohort sharding")
         self.num_users = num_users
         self.capacity = capacity
         self.crosstest_impl = crosstest_impl
         self.block = block
+        self.group = group
+        # this rank's slots [lo, lo + shard) of the cohort
+        self.shard = capacity // world
+        self.lo = 0 if group is None else group.rank * self.shard
+
+    def _own(self, t):
+        """This rank's slots of a slot-indexed array."""
+        return t[self.lo:self.lo + self.shard]
+
+    def _gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's slots ``[shard, ...]`` -> ``[C, ...]`` in slot
+        order."""
+        return t if self.group is None else self.group.all_gather(t)
+
+    def _gather_stack(self, stack):
+        if self.group is None:
+            return stack
+        return tree_map(lambda t: t.reshape((-1,) + t.shape[2:]),
+                        self.group.gather_tree(stack))
 
     def _safe_idx(self, plan: CohortPlan) -> torch.Tensor:
         # sentinel slots gather client N - 1; their results never escape
@@ -170,13 +207,15 @@ class PopulationBackend:
 
     # ------------------------------------------------------ backend protocol
     def train(self, local_train, global_params, bx, by):
-        """Broadcast to the C slots + local phase. ``bx`` packs the cohort
-        plan with the gathered batches: ``(plan, x)``."""
+        """Broadcast to this rank's slots + local phase. ``bx`` packs the
+        cohort plan with the gathered batches of all C slots: ``(plan,
+        x)``."""
         plan, cx = bx
         stack = tree_map(
-            lambda x: x[None].expand((self.capacity,) + x.shape),
+            lambda x: x[None].expand((self.shard,) + x.shape),
             global_params)
-        stack, loss = vmap(local_train)(stack, cx, by)
+        stack, loss = vmap(local_train)(stack, self._own(cx), self._own(by))
+        loss = self._gather(loss)
         models = CohortModels(stack, plan, global_params)
         # clients outside the cohort report 0; the program's loss metric
         # masks them out
@@ -186,13 +225,14 @@ class PopulationBackend:
         return models, losses
 
     def apply_attack(self, attack, noise, models, global_params, actx):
-        """Step 3 on the filled slots, each corrupted as its client."""
+        """Step 3 on this rank's filled slots, each corrupted as its
+        client."""
         stack = attack.apply(noise, models.stack, global_params, actx,
-                             client_ids=models.plan.ids)
+                             client_ids=self._own(models.plan.ids))
         return models._replace(stack=stack)
 
     def mask_models(self, models, global_params, part_mask):
-        my_part = part_mask[self._safe_idx(models.plan)]
+        my_part = part_mask[self._own(self._safe_idx(models.plan))]
         stack = tree_map(
             lambda t, g: torch.where(
                 my_part.reshape((-1,) + (1,) * (t.dim() - 1)) > 0,
@@ -206,14 +246,16 @@ class PopulationBackend:
         backend measures on a masked slot."""
         acc_c = cross_test_tiled(eval_fn, models.stack, tx, ty,
                                  block=self.block,
-                                 impl=self.crosstest_impl)        # [K, C]
+                                 impl=self.crosstest_impl)   # [K, shard]
+        acc_c = self._gather(acc_c.T.contiguous()).T              # [K, C]
         base = vmap(lambda x, y: eval_fn(models.global_ref, x, y))(tx, ty)
         acc = base[:, None].expand(base.shape[0], self.num_users)
         return self._scatter(acc, models.plan, acc_c)
 
     def server_eval(self, eval_fn, models, sx, sy):
         def run():
-            accs = vmap(lambda p: eval_fn(p, sx, sy))(models.stack)
+            accs = self._gather(
+                vmap(lambda p: eval_fn(p, sx, sy))(models.stack))
             base = eval_fn(models.global_ref, sx, sy)
             return self._scatter(base.expand(self.num_users), models.plan,
                                  accs)
@@ -231,7 +273,7 @@ class PopulationBackend:
         """Step 7 over the cohort stack: ``weights`` is the ``[N]``
         simplex, exactly 0 outside the (effective) cohort, so this is the
         population's sum."""
-        return aggregate_pytree(models.stack,
+        return aggregate_pytree(self._gather_stack(models.stack),
                                 self._cohort_weights(models.plan, weights))
 
     def compress_exchange(self, compressor, models, global_params,
@@ -242,17 +284,17 @@ class PopulationBackend:
         with the plan, ``(plan, payloads)``, so that :meth:`compressed_sum`
         can gather the ``[N]`` weights to their slots."""
         plan = models.plan
-        safe = self._safe_idx(plan)
-        updates = _flatten_updates(models.stack, global_params)  # [C, D]
+        safe = self._own(self._safe_idx(plan))
+        updates = _flatten_updates(models.stack, global_params)  # [shard, D]
         state_rows = comp_state[safe]
         payloads, new_rows = compressor.encode(state_rows, updates)
         decoded = compressor.decode(payloads)
-        eff = plan.valid * (part_mask[safe] if part_mask is not None
-                            else 1.0)
+        eff = self._own(plan.valid) * (part_mask[safe]
+                                       if part_mask is not None else 1.0)
         # masked and sentinel slots sent nothing: their rows stay and
         # their decoded update is exactly 0
         keep = (eff > 0)[:, None]
-        new_rows = torch.where(keep, new_rows, state_rows)
+        new_rows = self._gather(torch.where(keep, new_rows, state_rows))
         decoded = torch.where(keep, decoded, 0.0)
         count = len(plan.ids)
         new_state = comp_state.index_copy(0, plan.idx[:count],
@@ -263,6 +305,10 @@ class PopulationBackend:
 
     def compressed_sum(self, compressor, payloads, decoded, weights):
         plan, payloads = payloads
+        if self.group is not None:
+            payloads = {k: self._gather(v) for k, v in payloads.items()}
+            decoded = (self._gather(decoded) if compressor.reads_decoded
+                       else None)
         return compressor.aggregate(payloads, decoded,
                                     self._cohort_weights(plan, weights))
 
@@ -287,10 +333,14 @@ class PopulationTrainer(FederatedTrainer):
     ids onto cohort members (slot = id mod the cohort's size), since at
     C ≪ N a population-wide tester is almost never sampled and the
     scores degenerate to zero. Data comes from a population provider
-    (:mod:`repro_torch.data.population`)."""
+    (:mod:`repro_torch.data.population`). ``group`` (a
+    :class:`~repro_torch.launch.mesh.RankGroup`) shards the cohort's
+    slots over its ranks, each on ``group.device`` holding the replicated
+    state."""
 
     crosstest_block: int = 0
     testers_from_cohort: bool = False
+    group: Any = None
 
     def __post_init__(self):
         self.capacity = self.fed.cohort or self.fed.num_users
@@ -301,6 +351,8 @@ class PopulationTrainer(FederatedTrainer):
                 "gathers tester rows directly")
         if self.rounds_per_call > 1:
             raise ValueError(CHUNK_REFUSAL)
+        if self.group is not None:
+            self.device = self.group.device
         super().__post_init__()
         if self.program.needs_updates:
             raise ValueError(
@@ -311,7 +363,8 @@ class PopulationTrainer(FederatedTrainer):
 
     def _make_backend(self, impl: str):
         return PopulationBackend(self.fed.num_users, self.capacity, impl,
-                                 block=self.crosstest_block)
+                                 block=self.crosstest_block,
+                                 group=self.group)
 
     def draw(self, state: RoundState, data) -> RoundDraws:
         """The round's draws: the dense engine's stream, the batch

@@ -293,6 +293,21 @@ class Attack:
 
         return tree_map(merge, stacked_params, *bad)
 
+    def apply_local(self, noise, params, global_params, client_idx: int,
+                    num_users: int, ctx=None):
+        """One client's step 3, the pod backends' (one client a rank):
+        ``params`` is that client's tree, with no client axis. A malicious
+        client's model is corrupted from its own ``noise[client_idx]``, as
+        :meth:`apply` corrupts slot ``client_idx`` of the stack, bitwise;
+        any other client keeps its trained params. ``client_idx`` is the
+        rank, a host int, so the selection is a host branch on the static
+        placement (the reference's ``where`` on a traced index)."""
+        if client_idx not in self.malicious_set(num_users):
+            return params
+        bad = self.corrupt(noise[client_idx] if noise is not None else None,
+                           params, global_params, ctx, client_idx)
+        return tree_map(lambda t, b: b.to(t.dtype), params, bad)
+
     def __repr__(self) -> str:
         return (f"<attack {self.name} m={self.num_malicious} "
                 f"placement={self.placement}>")

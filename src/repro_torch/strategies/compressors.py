@@ -41,6 +41,9 @@ class Compressor:
     shared."""
 
     name = "base"
+    # aggregate() reads the decoded [C, D] stack; False where it reads the
+    # payloads alone (int8), so the pod gathers only those
+    reads_decoded = True
 
     def __init__(self, dim: int):
         self.dim = int(dim)
@@ -131,6 +134,8 @@ class Int8(Compressor):
     [D_pad], scales f32 [D_pad / chunk]); the server aggregates it with
     the fused ``dequant_aggregate`` kernel, which never writes the f32
     ``[C, D]`` stack."""
+
+    reads_decoded = False
 
     def __init__(self, dim: int, chunk: int = 256):
         super().__init__(dim)

@@ -9,7 +9,7 @@ follow.
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, List
+from typing import Any, Callable, Dict, List, NamedTuple, Sequence
 
 import torch
 
@@ -81,3 +81,51 @@ def flat_names(tree: Tree, prefix: str = "") -> Dict[str, torch.Tensor]:
         else:
             out[name] = v
     return out
+
+
+def pack_leaves(tensors: Sequence[torch.Tensor]):
+    """The tensors as one flat buffer a dtype, in first-seen dtype order
+    (what a collective sends in one call): ``(plan, flats)``, ``plan``
+    the (dtype, member indices) of each buffer."""
+    plan: List = []
+    for i, t in enumerate(tensors):
+        for dtype, members in plan:
+            if dtype == t.dtype:
+                members.append(i)
+                break
+        else:
+            plan.append((t.dtype, [i]))
+    flats = [torch.cat([tensors[i].reshape(-1) for i in members])
+             for _, members in plan]
+    return plan, flats
+
+
+def unpack_leaves(plan, flats, shapes, lead=()) -> List[torch.Tensor]:
+    """The tensors :func:`pack_leaves` packed (with ``lead`` axes in front)."""
+    out: List = [None] * len(shapes)
+    for (_, members), flat in zip(plan, flats):
+        off = 0
+        for i in members:
+            n = math.prod(shapes[i])
+            out[i] = flat[..., off:off + n].reshape(tuple(lead)
+                                                    + tuple(shapes[i]))
+            off += n
+    return out
+
+
+class PackedTree(NamedTuple):
+    """A param tree as one flat buffer a dtype, the form a ring hop sends;
+    :meth:`tree` gives views of the buffers in the tree's layout."""
+
+    like: Any                  # a tree of the layout (leaf shapes)
+    plan: List                 # pack_leaves' (dtype, member indices) a buffer
+    flats: List[torch.Tensor]
+
+    @classmethod
+    def of(cls, tree) -> "PackedTree":
+        return cls(tree, *pack_leaves(tree_leaves(tree)))
+
+    def tree(self):
+        shapes = [tuple(t.shape) for t in tree_leaves(self.like)]
+        parts = iter(unpack_leaves(self.plan, self.flats, shapes))
+        return tree_map(lambda _: next(parts), self.like)
