@@ -215,7 +215,7 @@ toolkit (``nvcc``), and exits non-zero on the first phase that fails.
    with a dropless prefill, in bf16 and, where it fits, on the weights
    upcast to f32; host and device times, the idle share and the
    allocator peak (qwen3-moe's decode step also by kernel). Last, N: the
-   LM round of phase L on ``granite-moe-1b-a400m`` with 12 of its 24
+   LM round of phase L on ``granite-moe-1b-a400m`` with 8 of its 24
    layers (a ``reduced`` line gives the memory reckoning), held as L is,
    and the global model's ``moe_aux``.
 7. The encdec and vlm families, last, through the same serve code path
@@ -236,6 +236,19 @@ toolkit (``nvcc``), and exits non-zero on the first phase that fails.
    step's device time by kernel and the allocator peak. Their kernel shapes are checked and timed in
    phases 2 and 3 (groups 8 / 8 and 32 / 8; S = 384 and S = 1 against T
    = 1,500 non-causal; a decode cache of 1,569 rows at D = 128).
+T. The dry-run and roofline tooling (slice 16): the card's ``Chip``
+   (``repro_torch.roofline.chip_for``, the figures every bound above
+   reads), its ``hbm_bytes`` the device's ``total_memory``; the dry-run
+   CLI (``python -m repro_torch.launch.dryrun``, started in the
+   background as the run begins, two CPU processes that see no card) of
+   ``qwen2-72b decode_32k --mesh single`` (with its depth extrapolation)
+   and ``qwen3-moe-30b-a3b train_4k --mesh multi --no-extrapolate``:
+   ``ok`` on 256 and 512 chips, collective bytes above 0; the report's
+   tables built from their artifacts and each run's wall; then the
+   dry-run of the serve phase's qwen2-0.5b prefill (bf16, batch 8,
+   prompt 512) on one card's mesh (``make_host_mesh``), its three
+   roofline terms printed beside the device ms the serve phase measured
+   for that prefill (information, not a check).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -464,8 +477,11 @@ MOE_SERVES = (
 # Jamba's bf16 run takes the Mamba2 phase's bounds; every model whose f32
 # copy fits is checked again in f32 at the Mamba2 f32 bounds
 MOE_TF_TOL, MOE_TF_MEAN_TOL = 0.5, 0.05
-# the LM round on granite-moe-1b-a400m: phase L's flags, 12 of 24 layers
-N_LAYERS = 12
+# the LM round on granite-moe-1b-a400m: phase L's flags, 8 of 24 layers.
+# At 12 layers AdamW's step for 4 clients peaked at 66.7 GiB allocated
+# with 77 GiB reserved and the allocator retrying, and one run on an
+# H100 80GB ran out of memory there (PERF.md, PR 26)
+N_LAYERS = 8
 # the encdec and vlm families (slice 13), after every earlier phase, in
 # bf16 with weights from the seed, each at full width and depth: W,
 # whisper-base over 1,500 stub frames, a 384-token prompt and 32 greedy
@@ -541,14 +557,27 @@ POD_CLI = (
      "weighted_aggregate"),
 )
 
-# published peaks by card (NVIDIA data sheets, dense): HBM bytes/s, fp32
-# FLOP/s outside the tensor cores, bf16 FLOP/s on the tensor cores
-PEAKS = {"H100 PCIe": (2.0e12, 51e12, 756e12),
-         "H100 NVL": (3.9e12, 60e12, 835e12),
-         "H100": (3.35e12, 67e12, 989e12), "H200": (4.8e12, 67e12, 989e12)}
-# the L2 cache of each of those cards (50 MB): a timing row whose inputs
-# are smaller takes its calls over copies of them that fill it four times
+# the L2 cache of each card repro_torch.roofline.CHIPS names (50 MB): a
+# timing row whose inputs are smaller takes its calls over copies of them
+# that fill it four times
 L2_BYTES = 50 << 20
+# phase T's dry-runs (the CLI's flags; the chips each runs on), started in
+# the background as the run begins, and the serve prefill it sets beside
+# one card's roofline (the serve phase's qwen2-0.5b: bf16, batch 8,
+# prompt 512)
+DRYRUNS = ((["--arch", "qwen2-72b", "--shape", "decode_32k", "--mesh",
+             "single"], 256),
+           (["--arch", "qwen3-moe-30b-a3b", "--shape", "train_4k", "--mesh",
+             "multi", "--no-extrapolate"], 512))
+DRYRUN_TIMEOUT_S = 1000
+HOST_DRYRUN = r'''
+import json
+from repro_torch.config import InputShape
+from repro_torch.launch.dryrun import lower_one
+rec = lower_one("qwen2-0.5b", InputShape("serve_prefill", 512, 8, "prefill"),
+                mesh="host", extrapolate=False)
+print(json.dumps(rec))
+'''
 
 
 def check(cond, what) -> None:
@@ -565,11 +594,44 @@ def must_raise(exc, fn, what) -> None:
     raise RuntimeError(f"check failed: {what} must raise {exc.__name__}")
 
 
-def card_peaks(name: str):
-    for key, peaks in PEAKS.items():
-        if key in name:
-            return key, peaks
-    raise RuntimeError(f"no published peaks for card {name!r}")
+def card_peaks(torch):
+    """The card's ``Chip`` (``repro_torch.roofline.chip_for``) and the
+    peaks every bound reads from it: HBM bytes/s, f32 FLOP/s outside the
+    tensor cores, bf16 FLOP/s on them (NVIDIA data sheets, dense)."""
+    from repro_torch.roofline import chip_for
+    chip = chip_for(torch.cuda.get_device_properties(0))
+    return chip, (chip.hbm_bw, chip.peak_flops_fp32, chip.peak_flops_bf16)
+
+
+def dryrun_env():
+    """A dry-run subprocess's environment: the port on its path, no card
+    visible (the dry-run touches no device), one thread."""
+    return dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+                CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+
+
+def start_dryruns(out_dir):
+    """Phase T's dry-runs through the CLI, all started at once in the
+    background, each writing its log under ``out_dir``: [(flags, chips,
+    process, log path, start time)]."""
+    runs = []
+    for flags, chips in DRYRUNS:
+        log = os.path.join(out_dir, f"{flags[1]}__{flags[3]}.log")
+        with open(log, "w") as fh:
+            proc = subprocess.Popen(
+                [sys.executable, "-W", "ignore", "-m",
+                 "repro_torch.launch.dryrun", *flags, "--out", out_dir],
+                cwd=ROOT, env=dryrun_env(), stdout=fh,
+                stderr=subprocess.STDOUT)
+        runs.append((flags, chips, proc, log, time.perf_counter()))
+    return runs
+
+
+def stop_processes(runs) -> None:
+    for *_, proc, _, _ in runs:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
 
 
 def ops():
@@ -4668,7 +4730,8 @@ def phase_moe_round(torch, card):
     ``weighted_aggregate`` twice a round, the folded launch equal to its
     blocks bitwise), and the global model's ``moe_aux`` printed. What
     this process still holds and the card's free memory are printed
-    first: the round's peak leaves about 12 GiB of the card."""
+    first: at 8 layers the reckoning is 44.1 GiB, and the round's peak
+    leaves about 30 GiB of the card."""
     from repro_torch.configs import get_config
 
     free_memory(torch)
@@ -4717,6 +4780,90 @@ def frontend_rows(rows):
          ((8, 1536, 32, 128), (8, 1536, 8, 128), True)))
 
 
+def phase_tooling(torch, card, chip, serve_out, dryruns, dry_dir):
+    """Phase T, the dry-run and roofline tooling (slice 16): the card's
+    ``Chip``, its ``hbm_bytes`` the device's ``total_memory`` and within
+    its data-sheet row's; the background dry-runs (``DRYRUNS``) each
+    exit 0 with ``status: "ok"`` on its chip count and collective bytes
+    above 0; the report's tables from their artifacts; then one card's
+    roofline of the serve prefill on ``make_host_mesh``, beside the
+    serve phase's device ms for it. Returns the phase's numbers."""
+    import dataclasses
+
+    from repro_torch.launch import report
+    from repro_torch.roofline import CHIPS, roofline_terms
+
+    props = torch.cuda.get_device_properties(0)
+    row = next(c for key, c in CHIPS if key in props.name)
+    print(f"phase T: the card's Chip {dataclasses.asdict(chip)} "
+          f"(data-sheet row {row.name}: {row.hbm_bytes:.0f} B HBM, "
+          f"{row.vmem_bytes:.0f} B shared memory an SM); {card}")
+    check(chip.hbm_bytes == props.total_memory
+          and 0.9 * row.hbm_bytes <= chip.hbm_bytes <= row.hbm_bytes,
+          f"Chip.hbm_bytes {chip.hbm_bytes} is total_memory "
+          f"{props.total_memory}, within 10 % under the row's "
+          f"{row.hbm_bytes}")
+    out = {"chip": dataclasses.asdict(chip), "dryruns": {}}
+    for flags, chips, proc, log, t0 in dryruns:
+        try:
+            rc = proc.wait(timeout=max(1.0, DRYRUN_TIMEOUT_S
+                                       - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            rc = None
+        wall = time.perf_counter() - t0
+        with open(log) as fh:
+            tail = fh.read()[-3000:]
+        tag = f"{flags[1]}__{flags[3]}__{flags[5]}"
+        check(rc == 0, f"dry-run {' '.join(flags)} exited {rc} after "
+              f"{wall:.1f} s: {tail}")
+        with open(os.path.join(dry_dir, tag + ".json")) as fh:
+            rec = json.load(fh)
+        coll = rec.get("collective_bytes_per_device", 0)
+        check(rec["status"] == "ok" and rec["num_chips"] == chips
+              and coll > 0,
+              f"dry-run {tag}: status {rec['status']}, "
+              f"{rec.get('num_chips')} chips (want {chips}), collective "
+              f"bytes {coll}")
+        cost = rec["cost"]
+        print(f"phase T dry-run {tag}: ok on {rec['num_chips']} chips, "
+              f"per device {cost['flops_per_device']:.6e} FLOPs, "
+              f"{cost['bytes_per_device']:.6e} B, collectives "
+              f"{rec['collectives']} ({coll:.6e} B), peak intermediates "
+              f"{rec['memory']['temp_bytes']} B; wall {wall:.1f} s (the "
+              f"process's own {rec['wall_s']} s)")
+        out["dryruns"][tag] = {"wall_s": wall, "record": rec}
+    recs = report.load_all(dry_dir)
+    print(report.dryrun_table(recs))
+    for mesh in ("single", "multi"):
+        print(f"roofline, mesh {mesh}:")
+        print(report.roofline_table(recs, mesh))
+    t0 = time.perf_counter()
+    host = subprocess.run([sys.executable, "-W", "ignore", "-c",
+                           HOST_DRYRUN], cwd=ROOT, env=dryrun_env(),
+                          capture_output=True, text=True, timeout=600)
+    check(host.returncode == 0, f"host dry-run: {host.stderr[-3000:]}")
+    rec = json.loads(host.stdout.strip().splitlines()[-1])
+    check(rec["status"] == "ok" and rec["num_chips"] == 1,
+          f"host dry-run: {rec.get('status')} on {rec.get('num_chips')}")
+    cost = rec["cost"]
+    terms = roofline_terms(cost["flops_per_device"],
+                           cost["bytes_per_device"],
+                           rec["collective_bytes_per_device"], chip, 1)
+    device_ms = serve_out["prefill_device_ms"]
+    print(f"phase T one card's roofline, qwen2-0.5b serve prefill (bf16, "
+          f"batch 8, prompt 512; the dry-run's blockwise twin, cache 512 "
+          f"rows): compute {terms['compute_s'] * 1e3:.4f} ms, memory "
+          f"{terms['memory_s'] * 1e3:.4f} ms, collective "
+          f"{terms['collective_s'] * 1e3:.4f} ms ({terms['bottleneck']}); "
+          f"the serve phase's prefill on the device "
+          f"{device_ms:.4f} ms ({cost['flops_per_device']:.6e} FLOPs, "
+          f"{cost['bytes_per_device']:.6e} B; dry-run "
+          f"{time.perf_counter() - t0:.1f} s; {card})")
+    out["host_prefill"] = {"roofline": terms, "record": rec,
+                           "serve_prefill_device_ms": device_ms}
+    return out
+
+
 def main() -> int:
     # every phase on the allocator's expandable segments: with fixed
     # segments the LM rounds' AdamW steps fragmented the cache up to the
@@ -4736,15 +4883,27 @@ def main() -> int:
         return 2
     sys.path.insert(0, src)
 
+    t_start = time.perf_counter()
+    card = phase_environment(torch)
+    dry_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    dryruns = start_dryruns(dry_dir)
+    try:
+        return run_phases(torch, card, t_start, dryruns, dry_dir)
+    finally:
+        stop_processes(dryruns)
+        shutil.rmtree(dry_dir, ignore_errors=True)
+
+
+def run_phases(torch, card, t_start, dryruns, dry_dir) -> int:
+    """Every phase after the environment's, phase T's dry-runs already
+    running in the background."""
     from repro_torch.configs import get_config
     from repro_torch.core.engine import flat_update_dim
     from repro_torch.models import build_model
     from repro_torch.strategies import COMPRESSORS
     from repro_torch.utils import tree_leaves
 
-    t_start = time.perf_counter()
-    card = phase_environment(torch)
-    _, peaks = card_peaks(torch.cuda.get_device_name(0))
+    chip, peaks = card_peaks(torch)
     phase_build()
     check_weighted_aggregate(torch)
     check_robust_combine(torch)
@@ -4856,6 +5015,7 @@ def main() -> int:
                 for label, argv, n_ref in FRONTEND_SERVES}
     print(f"phases W and V took {time.perf_counter() - t_frontend:.1f} s, "
           f"the build of each model included ({card})")
+    tooling = phase_tooling(torch, card, chip, serve_out, dryruns, dry_dir)
 
     def entry(name, path_rows, shape, n=None):
         def total(key):    # None where no PyTorch call computes the same
@@ -4948,7 +5108,8 @@ def main() -> int:
                       "comparison": comparison, "adversary": adversary,
                       "population": population,
                       "pod": pod,
-                      "durability": durability}))
+                      "durability": durability,
+                      "tooling": tooling}))
     print(f"chip_smoke passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,9 +24,10 @@ def _require(cond: bool, msg: str) -> None:
 
 # the LM families the port serves (``Model.prefill`` / ``decode_step``)
 LM_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
-# those the LM round trains (``--dataset lm``): the reference's round
-# batches tokens alone, so it gives whisper no frames and a vlm no
-# patches (ROADMAP.md queue 1 item 16's leftovers)
+# those the LM round trains (``--dataset lm``). The reference's round
+# batches tokens alone: for encdec it fails (its forward_train reads
+# batch["frames"], which batchify never makes), and it trains a vlm on
+# its text without patches (ROADMAP.md queue 1 item 16's leftovers)
 ROUND_LM_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
@@ -183,6 +184,13 @@ class ModelConfig:
             return False
         return layer_idx % self.moe_every == self.moe_offset
 
+    def supports_long_context(self) -> bool:
+        """True if the arch can serve a 524k-token KV without quadratic
+        attention: ssm trivially, hybrid with its attention bounded,
+        dense / moe / vlm through the sliding-window variant the dry-run
+        applies; not encdec, whose decoder stops at 448 positions."""
+        return self.family != "encdec"
+
     def replace(self, **kw: Any) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
@@ -242,6 +250,26 @@ def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:
     if cfg.family == "mlp":
         kw.update(mlp_hidden=tuple(min(h, 64) for h in cfg.mlp_hidden))
     return cfg.replace(**kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    """One workload shape of the dry-run."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # 'train' | 'prefill' | 'decode'
+
+    def __post_init__(self) -> None:
+        _require(self.kind in ("train", "prefill", "decode"), self.kind)
+
+
+INPUT_SHAPES: Mapping[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
 
 
 def _freeze_kwargs(kw: Any) -> Tuple[Tuple[str, Any], ...]:
@@ -381,3 +409,4 @@ class TrainConfig:
     total_steps: int = 1_000
     grad_clip: float = 1.0
     batch_size: int = 32
+    remat: bool = True             # a checkpoint a layer in launch/steps

@@ -81,7 +81,9 @@ def _reference_manifest_mismatches(saved: dict, trainer) -> list:
     """What a reference run's manifest and ``trainer``'s disagree on,
     over the fields the two packages share."""
     mine = trainer.manifest()
-    train = sorted(set(mine["train"]) & set(saved.get("train", {})))
+    # remat is a field of both, read by neither package's round
+    train = sorted((set(mine["train"]) & set(saved.get("train", {})))
+                   - {"remat"})
 
     def shared(m):
         return {"arch": m.get("arch"), "model": m.get("model"),
@@ -106,9 +108,11 @@ def state_from_reference_checkpoint(path: str, trainer) -> RoundState:
     agree with ``trainer``'s on ``arch``, ``model`` (the two packages'
     ``ModelConfig`` have the same fields), ``fed``, ``use_trust`` and the
     ``train`` fields both packages have; ``ValueError`` names what
-    differs. Not compared: ``train.remat`` and ``train.seed``, which the
-    port's ``TrainConfig`` lacks; ``family`` (``model.family`` holds it)
-    and ``manifest_version``."""
+    differs. Not compared: ``train.seed``, which the port's
+    ``TrainConfig`` lacks; ``train.remat``, which neither package's round
+    reads (the reference's train CLI saves False, the port's default is
+    the reference's ``TrainConfig`` default, True); ``family``
+    (``model.family`` holds it) and ``manifest_version``."""
     man = os.path.join(os.path.dirname(os.path.abspath(path)), MANIFEST_NAME)
     if os.path.exists(man):
         with open(man) as f:

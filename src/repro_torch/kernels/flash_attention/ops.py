@@ -26,6 +26,7 @@ import torch
 from repro_torch.kernels.build import (
     batch_slices, divisor_block, load_library)
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.sharding import sharded_reshape
 
 _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}
@@ -193,9 +194,11 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     block_k = divisor_block(T, block_k)
     nq, nk = S // block_q, T // block_k
     # [n_blocks, B, Hkv, rep|-, block, D]
-    qb = q.reshape(B, nq, block_q, Hkv, rep, D).permute(1, 0, 3, 4, 2, 5)
-    kb = k.reshape(B, nk, block_k, Hkv, D).permute(1, 0, 3, 2, 4)
-    vb = v.reshape(B, nk, block_k, Hkv, D).permute(1, 0, 3, 2, 4)
+    # (sharded_reshape is reshape outside the dry-run's sharding rules)
+    qb = sharded_reshape(q, (B, nq, block_q, Hkv, rep, D)
+                         ).permute(1, 0, 3, 4, 2, 5)
+    kb = sharded_reshape(k, (B, nk, block_k, Hkv, D)).permute(1, 0, 3, 2, 4)
+    vb = sharded_reshape(v, (B, nk, block_k, Hkv, D)).permute(1, 0, 3, 2, 4)
     qpos_base = torch.arange(block_q, device=q.device) + q_offset
     kpos_base = torch.arange(block_k, device=q.device)
     outs = []

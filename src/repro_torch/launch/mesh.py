@@ -24,12 +24,24 @@ card 0 and every collective stages its tensors through host memory
 named mode (:attr:`RankGroup.transport`), chosen by the caller, never a
 fallback: the compute stays on the card.
 
-``make_production_mesh`` (the reference's TPU v5e layout, used only by
-its dry run) is not ported (ROADMAP.md queue 1 item 17).
+The dry-run's meshes (:func:`make_production_mesh`,
+:func:`make_host_mesh`, entered through :func:`fake_mesh`) are
+``DeviceMesh`` layouts over a ``"fake"`` process group of rank 0: no
+device and no peer exists, and DTensor's collectives return at once. The
+layout is the reference's chip counts and axis names on H100 nodes:
+
+* one pod: ``(data=32, model=8)``, 256 cards;
+* two pods: ``(pod=2, data=32, model=8)``, 512 cards.
+
+The ``model`` axis is one 8-card NVLink domain (a node), where the
+reference's ``(16, 16)`` is a TPU v5e torus; ``data`` and ``pod`` cross
+nodes.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
+import math
 import os
 import queue
 import tempfile
@@ -301,3 +313,43 @@ def run_ranks(fn: Callable, world_size: int, *args: Any,
         raise RuntimeError("\n".join(f"rank {r} failed:\n{msg}"
                                       for r, msg in sorted(failures.items())))
     return [done[r] for r in range(world_size)]
+
+
+# the dry-run's layouts: (shape, axis names), one pod and two
+PRODUCTION_MESHES = {False: ((32, 8), ("data", "model")),
+                     True: ((2, 32, 8), ("pod", "data", "model"))}
+
+
+@contextlib.contextmanager
+def fake_mesh(shape, axes):
+    """A ``DeviceMesh`` of ``shape`` and ``axes`` on the ``cpu`` device
+    over a ``"fake"`` process group of rank 0 and ``prod(shape)`` ranks.
+    The group is made here only if none exists (one of that size must
+    then), and destroyed on exit only if it was made here."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    n = math.prod(shape)
+    made = not dist.is_initialized()
+    if made:
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=n)
+    elif dist.get_world_size() != n:
+        raise RuntimeError(f"a process group of {dist.get_world_size()} "
+                           f"ranks exists; the mesh {shape} needs {n}")
+    try:
+        yield init_device_mesh("cpu", tuple(shape), mesh_dim_names=axes)
+    finally:
+        if made:
+            dist.destroy_process_group()
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The production mesh (see the module's docstring) as a context
+    manager: ``with make_production_mesh(multi_pod=True) as mesh``."""
+    return fake_mesh(*PRODUCTION_MESHES[multi_pod])
+
+
+def make_host_mesh(shape=(1, 1), axes=("data", "model")):
+    """One card's mesh (by default; a tiny mesh for tests), as a context
+    manager."""
+    return fake_mesh(shape, axes)

@@ -313,14 +313,14 @@ def build(args: argparse.Namespace, **overrides):
     lm = cfg.family in LM_FAMILIES
     if lm and cfg.family not in ROUND_LM_FAMILIES:
         raise SystemExit(
-            f"--arch {args.arch} ({cfg.family}) has no LM round yet "
-            "(ROADMAP.md queue 1 item 16's leftovers): the round batches "
-            "tokens alone, as the reference's RoundProgram.batchify does, "
-            "so it would give " + ("whisper no encoder frames"
-                                   if cfg.family == "encdec" else
-                                   "a vlm no patches and train its text "
-                                   "alone") + "; serve it with "
-            "repro_torch.launch.serve")
+            f"--arch {args.arch} ({cfg.family}) has no LM round (ROADMAP.md "
+            "queue 1 item 16's leftovers): "
+            + ("the reference's round fails for encdec: its forward_train "
+               "reads batch['frames'], which RoundProgram.batchify never "
+               "makes (it batches tokens alone)" if cfg.family == "encdec"
+               else "the reference's round batches tokens alone, so it "
+               "trains a vlm on its text without its patches")
+            + "; serve it with repro_torch.launch.serve")
     if lm != (args.dataset == "lm"):
         raise SystemExit(f"--arch {args.arch} ({cfg.family}) and --dataset "
                          f"{args.dataset} do not go together: the LMs take "

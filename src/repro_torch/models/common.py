@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.sharding import arange_like, is_sharded
+
 
 def dense_init(gen: torch.Generator, shape, in_axis: int = 0,
                dtype=torch.float32) -> torch.Tensor:
@@ -88,6 +90,27 @@ def sinusoidal_positions(seq: int, dim: int, device=None) -> torch.Tensor:
     return torch.cat([torch.sin(scaled), torch.cos(scaled)], dim=1)
 
 
+def gold_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``logits[..., labels]``: a gather, or on a DTensor under the
+    dry-run's rules (which cannot gather along a vocab sharded over the
+    mesh) the masked sum over the vocab."""
+    if is_sharded(logits):
+        hit = labels[..., None] == arange_like(logits)
+        return torch.where(hit, logits, 0.0).sum(-1)
+    return torch.gather(logits, -1, labels[..., None])[..., 0]
+
+
+def argmax_vocab(logits: torch.Tensor) -> torch.Tensor:
+    """``argmax`` over the last dimension; on a DTensor under the dry-run's
+    rules (no argmax along a sharded vocab) the least index holding the
+    maximum, which is what ``argmax`` returns."""
+    if is_sharded(logits):
+        top = logits.amax(dim=-1, keepdim=True)
+        return torch.where(logits == top, arange_like(logits),
+                           logits.shape[-1]).amin(dim=-1)
+    return torch.argmax(logits, dim=-1)
+
+
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                           ignore_index: int = -1) -> torch.Tensor:
     """Mean NLL over non-ignored labels, in fp32. logits [..., V]."""
@@ -96,7 +119,7 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     safe = torch.where(valid, labels, torch.zeros_like(labels))
     lf = logits.float()
     logz = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, safe[..., None])[..., 0]
+    gold = gold_logits(lf, safe)
     nll = (logz - gold) * valid
     return nll.sum() / valid.sum().clamp(min=1)
 
@@ -105,5 +128,5 @@ def token_accuracy(logits: torch.Tensor, labels: torch.Tensor,
                    ignore_index: int = -1) -> torch.Tensor:
     labels = labels.long()
     valid = labels != ignore_index
-    correct = (torch.argmax(logits, dim=-1) == labels) & valid
+    correct = (argmax_vocab(logits) == labels) & valid
     return correct.sum() / valid.sum().clamp(min=1)

@@ -24,13 +24,19 @@ step writes into the cache tensors in place (its KV row; each mamba
 layer's conv and ssm states, computed anew by ``ssm_decode`` and copied
 back) and returns the same tensors with ``length + 1``; the reference
 returns a new cache. Prefill routes the MoE by capacity unless asked for
-``moe_dropless``; decode is always dropless, as in the reference.
+``moe_dropless``; decode is always dropless, as in the reference. With
+``remat`` the full-sequence forward runs each layer under
+``torch.utils.checkpoint`` (one layer a checkpoint, its activations
+recomputed in the backward), the twin of the reference's checkpointed
+scan body.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.attention import (
     attention_decode, attention_full, attention_init, attention_specs)
@@ -39,6 +45,7 @@ from repro_torch.models.mlp import swiglu, swiglu_init, swiglu_shapes
 from repro_torch.models.moe import moe_apply, moe_init, moe_specs
 from repro_torch.models.ssm import (
     _dims, ssm_decode, ssm_full, ssm_init, ssm_specs)
+from repro_torch.sharding import full_hint, per_device, shard_hint
 from repro_torch.utils import tree_map
 
 
@@ -156,6 +163,14 @@ def layer_params(p, period: int, slot: int = 0):
     return tree_map(lambda a: a[period], p["layers"][f"slot_{slot}"])
 
 
+def unbound_layers(stack):
+    """A stacked layer tree ``{name: [L, ...]}`` as one tree of
+    L-tuples of views, for a pass that takes every layer: its backward
+    stacks the L grads once, where a slice a layer (``a[i]``) would fill a
+    zeroed ``[L, ...]`` grad for each layer (O(L^2) bytes)."""
+    return tree_map(lambda a: a.unbind(0), stack)
+
+
 def _ffn(p, cfg, x, *, moe_dropless: bool, moe_group_size: int):
     """The second half of a non-ssm layer: x + (MoE or SwiGLU) of its
     RMSNorm. Returns (x, aux)."""
@@ -221,31 +236,48 @@ def slot_apply_decode(p, cfg, x, positions, cache, *, sliding_window):
     return x, new_cache
 
 
+def lm_head(p, cfg) -> torch.Tensor:
+    """The ``[D, V]`` output projection (the embedding's transpose when
+    tied)."""
+    return p["embed"].T if cfg.tie_embeddings else p["lm_head"]
+
+
 def _logits(p, cfg, x):
     x = rms_norm(p["final_norm"], x, cfg.norm_eps)
-    if cfg.tie_embeddings:
-        return x @ p["embed"].T
-    return x @ p["lm_head"]
+    return shard_hint(x @ lm_head(p, cfg), ("batch", "seq", "vocab"))
+
+
+def _lookup(ids, table):
+    return table[ids.long()]
+
+
+def embed_lookup(table, ids):
+    """``table[ids]``; on the dry-run's DTensors, device by device: each
+    looks its own tokens up in the gathered table (DTensor's index
+    strategies do not take ids sharded over two mesh axes)."""
+    return per_device(_lookup, [(ids, 0, None), (table, None, None)],
+                      [(0, None)])
 
 
 def _embed_inputs(p, cfg, tokens, prefix_embeds=None):
     """Token embeddings [B,S,D], after ``prefix_embeds`` [B,P,D] when
     given: cast to the embeddings' dtype and, for a vlm, projected by
     ``patch_proj``."""
-    x = p["embed"][tokens.long()]
-    if prefix_embeds is None:
-        return x
-    pe = prefix_embeds.to(x.dtype)
-    if cfg.family == "vlm":
-        pe = pe @ p["patch_proj"]
-    return torch.cat([pe, x], dim=1)
+    x = embed_lookup(p["embed"], tokens)
+    if prefix_embeds is not None:
+        pe = prefix_embeds.to(x.dtype)
+        if cfg.family == "vlm":
+            pe = pe @ p["patch_proj"]
+        x = torch.cat([pe, x], dim=1)
+    return shard_hint(x, ("batch", "seq", "embed"))
 
 
 def decoder_forward(p, cfg, tokens, *, prefix_embeds=None,
                     want_cache: bool = False,
                     cache_len: int = 0, sliding_window: Optional[int] = None,
                     differentiable: bool = False, moe_dropless: bool = False,
-                    moe_group_size: int = 0
+                    moe_group_size: int = 0, remat: bool = False,
+                    return_hidden: bool = False
                     ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Dict]]:
     """Full-sequence forward (train / prefill). tokens [B,S], after
     ``prefix_embeds`` [B,P,D] where given (a vlm's patches) -> (logits
@@ -255,7 +287,9 @@ def decoder_forward(p, cfg, tokens, *, prefix_embeds=None,
     reference does. Each layer's attention or scan is the kernel op or,
     with ``differentiable``, its differentiable twin; the MoE routes by
     capacity over groups of ``moe_group_size`` or, with
-    ``moe_dropless``, dropless."""
+    ``moe_dropless``, dropless. ``remat`` checkpoints each layer (not with
+    ``want_cache``); ``return_hidden`` returns the final-normed hidden
+    states [B,P+S,D] in place of the logits."""
     x = _embed_inputs(p, cfg, tokens, prefix_embeds)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
@@ -264,14 +298,22 @@ def decoder_forward(p, cfg, tokens, *, prefix_embeds=None,
     cache = None
     if want_cache:
         cache = make_empty_cache(cfg, B, max(cache_len, S), x.dtype,
-                                 length=S, device=x.device)
+                                 length=S, device=x.device, like=x)
+    if remat and want_cache:
+        raise ValueError("remat is for training: it takes no cache")
+    layer = functools.partial(
+        slot_apply_full, cfg=cfg, positions=positions,
+        sliding_window=sliding_window, want_cache=want_cache,
+        differentiable=differentiable, moe_dropless=moe_dropless,
+        moe_group_size=moe_group_size)
+    slots = [unbound_layers(p["layers"][f"slot_{s}"]) for s in range(period)]
     for i in range(n_periods):
         for s in range(period):
-            x, c, a = slot_apply_full(
-                layer_params(p, i, s), cfg, x, positions,
-                sliding_window=sliding_window, want_cache=want_cache,
-                differentiable=differentiable, moe_dropless=moe_dropless,
-                moe_group_size=moe_group_size)
+            lp = tree_map(lambda views: views[i], slots[s])
+            if remat:
+                x, c, a = checkpoint(layer, lp, x=x, use_reentrant=False)
+            else:
+                x, c, a = layer(lp, x=x)
             if a is not None:
                 aux = aux + a
             if want_cache:
@@ -279,6 +321,8 @@ def decoder_forward(p, cfg, tokens, *, prefix_embeds=None,
                 slot = cache["layers"][f"slot_{s}"]
                 for name, val in c.items():
                     slot[name][i, :, :val.shape[1]] = val
+    if return_hidden:
+        return rms_norm(p["final_norm"], x, cfg.norm_eps), aux, None
     return _logits(p, cfg, x), aux, cache
 
 
@@ -308,27 +352,34 @@ def decoder_decode_step(p, cfg, cache, tokens, *,
 
 
 def make_empty_cache(cfg, batch: int, capacity: int, dtype,
-                     length: Optional[int] = None, device=None) -> Dict:
+                     length: Optional[int] = None, device=None,
+                     like=None) -> Dict:
     """Zeroed cache of ``capacity`` rows a sequence for each attention
     slot (a mamba slot's states take no capacity), ``length`` (default
-    0) rows marked filled."""
+    0) rows marked filled. Where ``like`` is a DTensor under the dry-run's
+    rules, the cache is made sharded as the rules lay it out."""
     period, n_periods = _periods(cfg)
+
+    def zeros(shape, axes, dt=dtype):
+        return full_hint(shape, 0, axes, dtype=dt, device=device, like=like)
+
+    kv_axes = (None, "batch", "kv_seq", "kv_heads", None)
     layers = {}
     for s in range(period):
         if cfg.uses_attention(s):
             shape = (n_periods, batch, capacity, cfg.num_kv_heads,
                      cfg.head_dim)
-            layers[f"slot_{s}"] = {
-                "k": torch.zeros(shape, dtype=dtype, device=device),
-                "v": torch.zeros(shape, dtype=dtype, device=device)}
+            layers[f"slot_{s}"] = {"k": zeros(shape, kv_axes),
+                                   "v": zeros(shape, kv_axes)}
         else:
             _, H, P, _, N, conv_dim = _dims(cfg)
             layers[f"slot_{s}"] = {
-                "conv": torch.zeros((n_periods, batch,
-                                     cfg.ssm_conv_width - 1, conv_dim),
-                                    dtype=dtype, device=device),
-                "ssm": torch.zeros((n_periods, batch, H, P, N),
-                                   dtype=torch.float32, device=device)}
+                "conv": zeros((n_periods, batch, cfg.ssm_conv_width - 1,
+                               conv_dim), (None, "batch", None, "mlp")),
+                "ssm": zeros((n_periods, batch, H, P, N),
+                             (None, "batch", "heads", None, None),
+                             torch.float32)}
     return {"layers": layers,
-            "length": torch.full((batch,), length or 0, dtype=torch.int32,
-                                 device=device)}
+            "length": full_hint((batch,), length or 0, ("batch",),
+                                dtype=torch.int32, device=device,
+                                like=like)}

@@ -33,13 +33,16 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.attention import (
     attention_decode, attention_full, attention_init, attention_specs,
     cross_attention_full, encode_memory_kv)
 from repro_torch.models.common import (
     embed_init, layer_norm, sinusoidal_positions)
+from repro_torch.models.decoder import embed_lookup, unbound_layers
 from repro_torch.models.mlp import gelu_mlp, gelu_mlp_init, gelu_mlp_specs
+from repro_torch.sharding import shard_hint
 from repro_torch.utils import tree_map
 
 
@@ -127,10 +130,12 @@ def encode(p, cfg, frames: torch.Tensor, *,
     D]: sinusoidal positions added in the frames' dtype, then the layers'
     non-causal attention without RoPE and GELU MLP."""
     B, T, D = frames.shape
-    x = frames + sinusoidal_positions(T, D, frames.device
-                                      ).to(frames.dtype)[None]
+    x = shard_hint(frames + sinusoidal_positions(T, D, frames.device
+                                                 ).to(frames.dtype)[None],
+                   ("batch", "seq", "embed"))
+    layers = unbound_layers(p["encoder"])
     for i in range(cfg.encoder_layers):
-        lp = _layer(p["encoder"], i)
+        lp = tree_map(lambda views: views[i], layers)
         h = layer_norm(lp["norm1"], x, cfg.norm_eps)
         x = x + attention_full(lp["attn"], cfg, h, None, causal=False,
                                use_rope=False, differentiable=differentiable)
@@ -140,46 +145,63 @@ def encode(p, cfg, frames: torch.Tensor, *,
 
 
 def _logits(p, cfg, x):
-    return layer_norm(p["dec_final_norm"], x, cfg.norm_eps) @ p["embed"].T
+    return shard_hint(
+        layer_norm(p["dec_final_norm"], x, cfg.norm_eps) @ p["embed"].T,
+        ("batch", "seq", "vocab"))
+
+
+def _decoder_layer(lp, cfg, x, enc_states, *, differentiable: bool):
+    """One decoder layer of the teacher-forced pass: (x, the self K/V,
+    the cross K/V)."""
+    h = layer_norm(lp["norm1"], x, cfg.norm_eps)
+    out, kv = attention_full(lp["self_attn"], cfg, h, None, causal=True,
+                             use_rope=False, return_kv=True,
+                             differentiable=differentiable)
+    x = x + out
+    h = layer_norm(lp["norm2"], x, cfg.norm_eps)
+    mem_kv = encode_memory_kv(lp["cross_attn"], cfg, enc_states)
+    x = x + cross_attention_full(lp["cross_attn"], cfg, h, mem_kv,
+                                 differentiable=differentiable)
+    h = layer_norm(lp["norm3"], x, cfg.norm_eps)
+    return x + gelu_mlp(lp["mlp"], h), kv, mem_kv
 
 
 def decode_full(p, cfg, tokens: torch.Tensor, enc_states: torch.Tensor, *,
                 want_cache: bool = False, cache_len: int = 0,
-                differentiable: bool = False
+                differentiable: bool = False, remat: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Dict]]:
     """Teacher-forced decoder pass (train / prefill). tokens [B,S] at
     positions 0..S-1 -> (logits [B,S,V], a zero f32 aux (no MoE), the
     cache or None). The cache holds ``max(cache_len, S)`` self-attention
-    rows a layer, its first S filled, and each layer's cross K/V."""
+    rows a layer, its first S filled, and each layer's cross K/V.
+    ``remat`` checkpoints each decoder layer (not with ``want_cache``)."""
     B, S = tokens.shape
     _check_positions(p, max(cache_len, S) if want_cache else S,
                      "the prompt" + (" and its cache" if want_cache else ""))
-    x = p["embed"][tokens.long()] + p["dec_pos"][:S]
+    if remat and want_cache:
+        raise ValueError("remat is for training: it takes no cache")
+    x = shard_hint(embed_lookup(p["embed"], tokens) + p["dec_pos"][:S],
+                   ("batch", "seq", "embed"))
     T = enc_states.shape[1]
     cache = None
     if want_cache:
         cache = _empty_cache(cfg, B, max(cache_len, S), T, x.dtype, S,
                              x.device)
+    layers = unbound_layers(p["decoder"])
     for i in range(cfg.num_layers):
-        lp = _layer(p["decoder"], i)
-        h = layer_norm(lp["norm1"], x, cfg.norm_eps)
-        out = attention_full(lp["self_attn"], cfg, h, None, causal=True,
-                             use_rope=False, return_kv=want_cache,
-                             differentiable=differentiable)
+        lp = tree_map(lambda views: views[i], layers)
+        if remat:
+            x, kv, mem_kv = checkpoint(
+                _decoder_layer, lp, cfg, x, enc_states, use_reentrant=False,
+                differentiable=differentiable)
+        else:
+            x, kv, mem_kv = _decoder_layer(lp, cfg, x, enc_states,
+                                           differentiable=differentiable)
         if want_cache:
-            out, (k, v) = out
-            cache["self"]["k"][i, :, :S] = k
-            cache["self"]["v"][i, :, :S] = v
-        x = x + out
-        h = layer_norm(lp["norm2"], x, cfg.norm_eps)
-        mem_kv = encode_memory_kv(lp["cross_attn"], cfg, enc_states)
-        x = x + cross_attention_full(lp["cross_attn"], cfg, h, mem_kv,
-                                     differentiable=differentiable)
-        if want_cache:
+            cache["self"]["k"][i, :, :S] = kv[0]
+            cache["self"]["v"][i, :, :S] = kv[1]
             cache["cross"]["k"][i] = mem_kv[0]
             cache["cross"]["v"][i] = mem_kv[1]
-        h = layer_norm(lp["norm3"], x, cfg.norm_eps)
-        x = x + gelu_mlp(lp["mlp"], h)
     return (_logits(p, cfg, x),
             torch.zeros((), dtype=torch.float32, device=x.device), cache)
 
@@ -194,7 +216,8 @@ def decode_step(p, cfg, cache, tokens: torch.Tensor
     its positions cannot all be placed."""
     _check_positions(p, cache["self"]["k"].shape[2], "the cache")
     positions = cache["length"]
-    x = p["embed"][tokens.long()] + p["dec_pos"][positions.long()][:, None]
+    x = (embed_lookup(p["embed"], tokens)
+         + embed_lookup(p["dec_pos"], positions)[:, None])
     for i in range(cfg.num_layers):
         lp = _layer(p["decoder"], i)
         h = layer_norm(lp["norm1"], x, cfg.norm_eps)

@@ -10,9 +10,9 @@ precomputed frame or patch embeddings of the right shape,
 
 and ``stub_embeddings`` draws deterministic stand-ins for them from an
 explicit ``torch.Generator``, so they differ from the reference's JAX
-draws (a test hands both packages the same numpy embeddings). The
-reference's ``stub_spec`` (a JAX ``ShapeDtypeStruct`` for its dry-runs)
-has no counterpart yet (ROADMAP.md queue 1 item 17).
+draws (a test hands both packages the same numpy embeddings).
+``stub_spec`` is the dry-run's stand-in, the twin of the reference's
+``ShapeDtypeStruct``: a fake tensor that allocates nothing.
 """
 from __future__ import annotations
 
@@ -25,6 +25,15 @@ def stub_shape(cfg, batch: int):
     if cfg.frontend == "vision":
         return (batch, cfg.num_patches, cfg.d_model)
     raise ValueError(f"{cfg.name} has no frontend stub")
+
+
+def stub_spec(cfg, batch: int, dtype=torch.bfloat16, *, mode=None):
+    """The frontend's activations as a shape-and-dtype stand-in: a fake
+    tensor on the ``cpu`` device of ``mode`` (a ``FakeTensorMode``; a
+    fresh one by default)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with mode or FakeTensorMode():
+        return torch.empty(stub_shape(cfg, batch), dtype=dtype, device="cpu")
 
 
 def stub_embeddings(cfg, batch: int, gen: torch.Generator,

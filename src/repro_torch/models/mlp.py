@@ -10,6 +10,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.cnn import _Slot
 from repro_torch.models.common import dense_init
+from repro_torch.sharding import shard_hint
 
 
 def swiglu_shapes(d_model: int, d_ff: int) -> Dict:
@@ -29,7 +30,8 @@ def swiglu(p, x: torch.Tensor) -> torch.Tensor:
     """SiLU of the gate in f32, cast back, times the up projection, then
     the down projection."""
     h = F.silu((x @ p["w_gate"]).float()).to(x.dtype)
-    return (h * (x @ p["w_up"])) @ p["w_down"]
+    h = shard_hint(h * (x @ p["w_up"]), ("batch", "seq", "mlp"))
+    return shard_hint(h @ p["w_down"], ("batch", "seq", "embed"))
 
 
 def gelu_mlp_specs(d_model: int, d_ff: int, dtype) -> Dict:
@@ -56,7 +58,8 @@ def gelu_mlp(p, x: torch.Tensor) -> torch.Tensor:
     projection. The GELU is the tanh approximation, ``jax.nn.gelu``'s
     default (torch's own default is the erf form)."""
     h = F.gelu((x @ p["w_in"] + p["b_in"]).float(), approximate="tanh")
-    return h.to(x.dtype) @ p["w_out"] + p["b_out"]
+    h = shard_hint(h.to(x.dtype), ("batch", "seq", "mlp"))
+    return shard_hint(h @ p["w_out"] + p["b_out"], ("batch", "seq", "embed"))
 
 
 def mlp_param_shapes(cfg) -> Dict:

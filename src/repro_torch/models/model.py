@@ -27,8 +27,11 @@ forward-only). cnn/mlp ignore it. A MoE layer (the ``moe`` and
 ``moe_group_size`` tokens (0: 512), or dropless with ``moe_dropless``;
 decode is always dropless. An LM's loss is ``nll + router_aux_coef *
 moe_aux``, the MoE load-balance loss summed over the layers (0 without
-MoE). An encdec's learned position table has ``max(
-decoder_max_position, max_target_positions)`` rows.
+MoE); ``loss(..., remat=True)`` checkpoints each layer, and a decoder
+LM's ``ce_chunk`` > 0 computes it in sequence chunks of that many rows,
+never holding the ``[B, S, V]`` f32 logits (``_chunked_ce``). An encdec's
+learned position table has ``max(decoder_max_position,
+max_target_positions)`` rows.
 """
 from __future__ import annotations
 
@@ -37,13 +40,15 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import LM_FAMILIES, ModelConfig
 from repro_torch.models import cnn as cnn_mod
 from repro_torch.models import decoder as dec_mod
 from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import mlp as mlp_mod
-from repro_torch.models.common import softmax_cross_entropy, token_accuracy
+from repro_torch.models.common import (
+    argmax_vocab, gold_logits, softmax_cross_entropy, token_accuracy)
 from repro_torch.utils import flat_names, tree_leaves, tree_map
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -58,6 +63,7 @@ class Model:
     moe_dropless: bool = False             # exact per-token routing
     moe_group_size: int = 0                # 0 = the MoE's default (512)
     max_target_positions: int = 0          # encdec learned-pos extension
+    ce_chunk: int = 0                      # >0: chunked cross-entropy
     # the classifier family's weightless module, driven through
     # functional_call (None for the LMs, which are plain functions)
     net: Optional[torch.nn.Module] = dataclasses.field(
@@ -136,19 +142,73 @@ class Model:
         return functional_call(self.net, flat_names(params),
                                (batch["images"],))
 
-    def loss(self, params, batch
+    @staticmethod
+    def _pad_labels(labels, rows: int):
+        """A vlm's text labels padded with -1 over its patch prefix."""
+        pad = rows - labels.shape[1]
+        if not pad:
+            return labels
+        return torch.cat([labels.new_full((labels.shape[0], pad), -1),
+                          labels], dim=1)
+
+    def _chunked_ce(self, params, batch, *, remat: bool):
+        """Sequence-chunked cross-entropy of a decoder LM: the head matmul
+        and the softmax run ``ce_chunk`` rows at a time (the whole
+        sequence where ``ce_chunk`` does not divide it), so the [B,S,V]
+        f32 logits are never held; with ``remat`` each chunk is
+        recomputed in the backward."""
+        cfg = self.cfg
+        hidden, aux, _ = dec_mod.decoder_forward(
+            params, cfg, batch["tokens"], prefix_embeds=batch.get("patches"),
+            sliding_window=self.sliding_window,
+            differentiable=self.differentiable,
+            moe_dropless=self.moe_dropless,
+            moe_group_size=self.moe_group_size, remat=remat,
+            return_hidden=True)
+        S = hidden.shape[1]
+        labels = self._pad_labels(batch["labels"], S).long()
+        head = dec_mod.lm_head(params, cfg)
+        C = self.ce_chunk
+        nc = S // C if S % C == 0 else 1
+        C = S // nc
+
+        def chunk(h, y):
+            logits = (h @ head).float()
+            valid = y != -1
+            safe = torch.where(valid, y, torch.zeros_like(y))
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = gold_logits(logits, safe)
+            correct = (argmax_vocab(logits) == y) & valid
+            return ((logz - gold) * valid).sum(), valid.sum(), correct.sum()
+
+        nll_sum = n_valid = n_correct = 0
+        for i in range(nc):
+            h, y = hidden[:, i * C:(i + 1) * C], labels[:, i * C:(i + 1) * C]
+            out = (checkpoint(chunk, h, y, use_reentrant=False) if remat
+                   else chunk(h, y))
+            nll_sum = nll_sum + out[0]
+            n_valid = n_valid + out[1]
+            n_correct = n_correct + out[2]
+        nll = nll_sum / n_valid.clamp(min=1)
+        acc = n_correct / n_valid.clamp(min=1)
+        return (nll + cfg.router_aux_coef * aux,
+                {"nll": nll, "accuracy": acc, "moe_aux": aux})
+
+    def loss(self, params, batch, *, remat: bool = False
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """A classifier's NLL; an LM's ``nll + router_aux_coef *
         moe_aux``, with ``moe_aux`` among its metrics. A vlm's text labels
-        are padded with -1 over the patch prefix."""
+        are padded with -1 over the patch prefix. ``remat`` checkpoints an
+        LM's layers; a decoder LM with ``ce_chunk`` takes
+        :meth:`_chunked_ce`."""
         lm = self._lm()
         labels = batch["labels"]
+        if lm and self.ce_chunk and self.cfg.family != "encdec":
+            return self._chunked_ce(params, batch, remat=remat)
         if lm:
-            logits, aux, _ = self._lm_forward(params, batch)
-            pad = logits.shape[1] - labels.shape[1]
-            if self.cfg.family == "vlm" and pad:
-                labels = torch.cat([labels.new_full(
-                    (labels.shape[0], pad), -1), labels], dim=1)
+            logits, aux, _ = self._lm_forward(params, batch, remat=remat)
+            if self.cfg.family == "vlm":
+                labels = self._pad_labels(labels, logits.shape[1])
         else:
             logits = self.forward_train(params, batch)
         nll = softmax_cross_entropy(logits, labels)

@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import dense_init
+from repro_torch.sharding import shard_hint, sharded_reshape
 
 DEFAULT_GROUP = 512
 CAPACITY_FACTOR = 1.25
@@ -99,7 +100,7 @@ def moe_dropless(p, cfg, x: torch.Tensor
     renormalised top-k gates. x [B, S, D] -> (y [B, S, D], aux)."""
     B, S, D = x.shape
     E, top_k = cfg.num_experts, cfg.num_experts_per_tok
-    xt = x.reshape(B * S, D)
+    xt = sharded_reshape(x, (B * S, D))
     probs, gate_vals, expert_idx = _route(p, cfg, xt)
     gates = torch.zeros_like(probs).scatter(-1, expert_idx, gate_vals)
     ye = _experts(p, xt.expand((E,) + xt.shape))            # [E, T, D]
@@ -108,7 +109,7 @@ def moe_dropless(p, cfg, x: torch.Tensor
     frac_tokens = (gates > 0).float().mean(0)
     frac_probs = probs.mean(0)
     aux = E * (frac_tokens * frac_probs).sum() * top_k
-    return y.reshape(B, S, D), aux
+    return sharded_reshape(y, (B, S, D)), aux
 
 
 def moe_apply(p, cfg, x: torch.Tensor, *, group_size: int = 0,
@@ -130,7 +131,7 @@ def moe_apply(p, cfg, x: torch.Tensor, *, group_size: int = 0,
     G = T // g
     C = _capacity(g, top_k, E)
 
-    xt = x.reshape(G, g, D)
+    xt = sharded_reshape(x, (G, g, D))
     probs, gate_vals, expert_idx = _route(p, cfg, xt)       # [G, g, k]
     onehot = (expert_idx[..., None]
               == torch.arange(E, device=x.device)).float()  # [G, g, k, E]
@@ -145,14 +146,18 @@ def moe_apply(p, cfg, x: torch.Tensor, *, group_size: int = 0,
     dispatch = torch.einsum("gtke,gtkc->gtec", onehot, slot_oh)
     combine = torch.einsum("gtke,gtkc->gtec", onehot * gate_vals[..., None],
                            slot_oh)
+    dispatch = shard_hint(dispatch, ("expert_group", None, "expert", None))
 
     # each expert's C slots a group, gathered by the one-hot dispatch
     xe = torch.bmm(dispatch.to(x.dtype).reshape(G, g, E * C).transpose(1, 2),
                    xt)                                      # [G, E*C, D]
-    xe = xe.reshape(G, E, C, D).transpose(0, 1).reshape(E, G * C, D)
-    ye = _experts(p, xe)
-    ye = ye.reshape(E, G, C, D).transpose(0, 1).reshape(G, E * C, D)
-    y = torch.bmm(combine.to(x.dtype).reshape(G, g, E * C), ye)
+    xe = shard_hint(xe.reshape(G, E, C, D),
+                    ("expert_group", "expert", None, None))
+    ye = _experts(p, xe.transpose(0, 1).reshape(E, G * C, D))
+    ye = shard_hint(ye.reshape(E, G, C, D).transpose(0, 1),
+                    ("expert_group", "expert", None, None))
+    y = torch.bmm(combine.to(x.dtype).reshape(G, g, E * C),
+                  ye.reshape(G, E * C, D))
 
     # Switch load-balance loss: E * sum_e f_e * P_e
     if top_k == 1:
@@ -161,4 +166,5 @@ def moe_apply(p, cfg, x: torch.Tensor, *, group_size: int = 0,
         frac_tokens = onehot.sum(2).mean((0, 1)) / top_k
     frac_probs = probs.mean((0, 1))
     aux = E * (frac_tokens * frac_probs).sum()
-    return y.reshape(B, S, D), aux
+    return shard_hint(sharded_reshape(y, (B, S, D)),
+                      ("batch", "seq", "embed")), aux

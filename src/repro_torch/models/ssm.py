@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_decode_ref, ssd_scan
 from repro_torch.models.common import dense_init, rms_norm
+from repro_torch.sharding import per_device, shard_hint, sharded_reshape
 
 
 def _dims(cfg):
@@ -100,13 +101,27 @@ def _split_conv_out(u: torch.Tensor, cfg):
     return x, Bm, Cm
 
 
-def _causal_conv_full(p, u: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv. u [B,S,C] -> [B,S,C]."""
-    W = p["conv_w"].shape[0]
+def _causal_conv(u: torch.Tensor, conv_w: torch.Tensor,
+                 conv_b: torch.Tensor) -> torch.Tensor:
+    W = conv_w.shape[0]
     S = u.shape[1]
     pad = F.pad(u, (0, 0, W - 1, 0))
-    out = sum(pad[:, i:i + S, :] * p["conv_w"][i] for i in range(W))
-    return out + p["conv_b"]
+    out = sum(pad[:, i:i + S, :] * conv_w[i] for i in range(W))
+    return out + conv_b
+
+
+def _causal_conv_full(p, u: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv. u [B,S,C] -> [B,S,C]; on the dry-run's
+    DTensors device by device over batch and channels."""
+    return per_device(_causal_conv, [(u, 0, 2), (p["conv_w"], None, 1),
+                                     (p["conv_b"], None, 0)], [(0, 2)])
+
+
+def _conv_tail(pre: torch.Tensor, W: int) -> torch.Tensor:
+    """The last W-1 rows of ``pre`` [B,S,C], zero-padded in front when
+    S < W-1."""
+    S = pre.shape[1]
+    return F.pad(pre, (0, 0, W - 1, 0))[:, S:S + W - 1]
 
 
 def _gate_out(p, cfg, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
@@ -134,12 +149,19 @@ def ssm_full(p, cfg, x: torch.Tensor, *, return_state: bool = False,
     dt = F.softplus(dt_raw.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
     scan = ssd_chunked if differentiable else ssd_scan
-    y, state = scan(xs.reshape(B, S, H, P), dt, A, Bm.reshape(B, S, G, N),
-                    Cm.reshape(B, S, G, N), p["D"], chunk=cfg.ssm_chunk)
-    out = _gate_out(p, cfg, y.reshape(B, S, d_in), z)
+    xs = shard_hint(sharded_reshape(xs, (B, S, H, P)),
+                    ("batch", "seq", "heads", None))
+    # on the dry-run's DTensors, device by device over batch and heads
+    y, state = per_device(
+        scan, [(xs, 0, 2), (dt, 0, 2), (A, None, 0),
+               (sharded_reshape(Bm, (B, S, G, N)), 0, None),
+               (sharded_reshape(Cm, (B, S, G, N)), 0, None),
+               (p["D"], None, 0)],
+        [(0, 2), (0, 1)], chunk=cfg.ssm_chunk)
+    out = shard_hint(_gate_out(p, cfg, sharded_reshape(y, (B, S, d_in)), z),
+                     ("batch", "seq", "embed"))
     if return_state:
-        # the last W-1 pre-conv rows, zero-padded in front when S < W-1
-        conv_state = F.pad(pre, (0, 0, W - 1, 0))[:, S:S + W - 1]
+        conv_state = per_device(_conv_tail, [(pre, 0, 2)], [(0, 2)], W=W)
         return out, (conv_state, state)
     return out
 
@@ -161,9 +183,13 @@ def ssm_decode(p, cfg, x: torch.Tensor, conv_state: torch.Tensor,
     xs, Bm, Cm = _split_conv_out(u, cfg)
     dt = F.softplus(dt_raw.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
-    y, ssm_state = ssd_decode_ref(
-        xs.reshape(B, H, P), dt, A, Bm.reshape(B, G, N), Cm.reshape(B, G, N),
-        p["D"], ssm_state)
-    out = _gate_out(p, cfg, y.reshape(B, d_in), z)[:, None, :]
+    # on the dry-run's DTensors, device by device over batch and heads
+    y, ssm_state = per_device(
+        ssd_decode_ref, [(sharded_reshape(xs, (B, H, P)), 0, 1), (dt, 0, 1),
+                         (A, None, 0), (sharded_reshape(Bm, (B, G, N)), 0, None),
+                         (sharded_reshape(Cm, (B, G, N)), 0, None),
+                         (p["D"], None, 0), (ssm_state, 0, 1)],
+        [(0, 1), (0, 1)])
+    out = _gate_out(p, cfg, sharded_reshape(y, (B, d_in)), z)[:, None, :]
     return out, (window[:, 1:], ssm_state)
 

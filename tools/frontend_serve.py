@@ -32,7 +32,7 @@ def main() -> int:
     import chip_smoke as cs
     t0 = time.perf_counter()
     card = cs.phase_environment(torch)
-    _, peaks = cs.card_peaks(torch.cuda.get_device_name(0))
+    _, peaks = cs.card_peaks(torch)
     cs.phase_build()
     cs.check_flash_attention(torch)
     cs.check_decode_attention(torch)
