@@ -75,8 +75,10 @@ toolkit (``nvcc``), and exits non-zero on the first phase that fails.
    from the cohort, at most 32 filled slots, the weights exactly 0 and
    the scores unchanged outside the cohort; each round's malicious
    weight is printed. Then phase R, the multi-round driver
-   (``--rounds-per-call``): each of A-F, from the trainer its phase ran
-   (built anew), 5 eager rounds from the seed (the second under
+   (``--rounds-per-call``): each of A-G, from the trainer its phase ran
+   (built anew), and G again with ``--attack random_weights`` (the
+   population round's keyed noise in the graph; G's replays' metrics
+   held to its eager rounds' as well), 5 eager rounds from the seed (the second under
    ``torch.cuda.set_sync_debug_mode("error")``) against 5 rounds at
    ``rounds_per_call`` = 4, one chunk of 4 replays of one CUDA graph of
    a round and one eager round (on A 9 rounds, two chunks on the same
@@ -109,6 +111,16 @@ toolkit (``nvcc``), and exits non-zero on the first phase that fails.
    with its client's own A and D). L's first 2 rounds then run again as
    one chunk of 2 replays of a graph of its round (the cache emptied
    first): bitwise equal, its peak and a replay's device time printed.
+   Then LP, L's round on the population tier (256 clients, a cohort of
+   4 a round, 2 testers from it, 64 ``random_weights`` attackers): a
+   cross-test launches flash twice a layer (the cohort's fold, then the
+   global model's column), the folded launch equal to its blocks, path
+   G's cohort checks, and its first 2 rounds as one chunk, bitwise. Then
+   VR, pixtral-12b's round on its text at its published widths with 1
+   of its 40 layers (3 users under SGD, 2 rounds; a ``reduced`` line
+   says why): the folded flash launch at D = 128 equal to its blocks,
+   ``weighted_aggregate`` once a table, and every client's trained
+   ``patch_proj`` (no gradient reaches it) bitwise the global one.
    Then the CI job itself as
    ``repro.launch.federated --population`` builds it (the CNN cut to
    (8, 16, 16) channels over a synthetic MNIST-like population, 12
@@ -120,9 +132,9 @@ toolkit (``nvcc``), and exits non-zero on the first phase that fails.
    drawn on gather), ``fedtest-cnn`` at full width, a cohort of 64, 8
    testers from it, cross-testing in tiles of 16, ``random_weights``
    from 20 % of the clients, 3 rounds at N = 1,000 and at N = 100,000:
-   the checks of G, noise drawn for the cohort's malicious members
-   only, and the allocator's peak at N = 100,000 less than 1 GiB above
-   the peak at N = 1,000; then int8 at N = 10,000: ``dequant_aggregate``
+   the checks of G (every honest member's slot left bitwise by the
+   attack, every malicious member's corrupted), and the allocator's peak
+   at N = 100,000 less than 1 GiB above the peak at N = 1,000; then int8 at N = 10,000: ``dequant_aggregate``
    once a round and no other kernel, and 1,000 error-feedback rows of
    clients outside each round's cohort unchanged, bitwise. Then phase P,
    the pod round (one client a rank of a ``torch.distributed`` group; 4
@@ -360,6 +372,22 @@ LM_ARGS = ["--device", "cuda", "--dataset", "lm", "--users", "4",
            "random_weights", "--local-steps", "8", "--batch", "16",
            "--optimizer", "adamw", "--lr", "2e-3", "--rounds",
            str(LM_ROUNDS)]
+# LP: phase L's round on the population tier, a cohort of 4 from 256
+# clients (testers from the cohort, a quarter of them random_weights),
+# otherwise LM_ARGS; VR: pixtral-12b's round on its text at its published
+# widths with VR_LAYERS of its 40 layers, 3 users under SGD, 2 rounds
+LP_ARGS = (["--arch", "qwen2-0.5b"]
+           + [a for i, a in enumerate(LM_ARGS)
+              if a not in ("--users", "--testers", "--malicious")
+              and LM_ARGS[i - 1] not in ("--users", "--testers",
+                                         "--malicious")]
+           + ["--population", "256", "--cohort", "4", "--testers", "2",
+              "--testers-from-cohort", "--malicious", "64"])
+VR_LAYERS, VR_ROUNDS, VLM_KV_HEADS = 1, 2, 8
+VR_ARGS = ["--arch", "pixtral-12b", "--device", "cuda", "--dataset", "lm",
+           "--users", "3", "--testers", "2", "--malicious", "1", "--attack",
+           "random_weights", "--local-steps", "4", "--batch", "16",
+           "--optimizer", "sgd", "--rounds", str(VR_ROUNDS)]
 M_LAYERS = 8
 LM_PHASES = (("L", ["--arch", "qwen2-0.5b"] + LM_ARGS, "flash_attention",
               {}),
@@ -372,7 +400,9 @@ LM_PHASES = (("L", ["--arch", "qwen2-0.5b"] + LM_ARGS, "flash_attention",
 # rounds from the same seed; the kernel each path's graph launches, by
 # the name a profiler trace gives it. Phase L's chunk: RPC_LM rounds
 RPC, RPC_LM, RPC_REUSE = 4, 2, "A"
-RPC_PATHS = ("A", "B", "C", "D", "E", "F")
+RPC_PATHS = ("A", "B", "C", "D", "E", "F", "G")
+# G again with the keyed noise of random_weights in its graph
+G_NOISE_ARGS = G_ARGS + ["--attack", "random_weights"]
 # phase R's seams, each a reader of the round index or of a per-round
 # host value, on a small MLP: SEAM_ROUNDS eager rounds against a trainer
 # that runs SEAM_SPLIT rounds (a chunk) and checkpoints, and a second
@@ -1782,7 +1812,8 @@ def phase_fold_times(torch, peaks, lm):
     Hq=14, Hkv=2, D=64, causal) beside ``F.scaled_dot_product_attention``;
     ``ssd_scan`` at phase M's (S=64, H=80, P=64, G=1, N=128, chunk 256:
     one ragged chunk) with A and D a row a batch row, as the fold hands
-    them on, eight clients' values over the batch."""
+    them on, eight clients' values over the batch; flash again at phase
+    VR's folded batch (pixtral-12b's Hq=32, Hkv=8, D=128)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import (
@@ -1832,14 +1863,20 @@ def phase_fold_times(torch, peaks, lm):
             "kernel": lambda *a: ssd_scan(*a, chunk=chunk), "plain": ssd_ref},
         make_ssd, err, *ssd_work(Bt, S, H, P, G, N, chunk, 2, ad_rows=Bt),
         (hbm, bf16_peak), iters={"kernel": 20, "plain": 1})
-    for r in (flash, ssd):
+    # phase VR's fold: pixtral-12b's heads (32 / 8 of 128), the mma.sync
+    # instance
+    B, S, Hq, D = lm["VR"]["folded_shape"]
+    vlm = flash_row(torch, gen, peaks, B, S, S, Hq, VLM_KV_HEADS, D, True,
+                    iters={"kernel": 50, "plain": 5, "library": 50})
+    for r in (flash, vlm, ssd):
         print(f"{r['name']} folded {r['shape']}: device {r['kernel_ms']:.5f}"
               f" ms (eager {r['kernel_eager_ms']:.5f}), plain "
               f"{r['plain_ms']:.3f}, library "
               f"{r.get('library_ms', float('nan')):.5f}, bound "
               f"{r['bound_ms']:.5f} ({r['bound_by']}), max |err| "
               f"{r['max_abs_err']:.3g}")
-    return {"flash_attention_fold": [flash], "ssd_scan_fold": [ssd]}
+    return {"flash_attention_fold": [flash], "ssd_scan_fold": [ssd],
+            "flash_attention_fold V": [vlm]}
 
 
 def phase_path(torch, path, argv, op_name, rounds):
@@ -1967,8 +2004,10 @@ def phase_path(torch, path, argv, op_name, rounds):
             # id mod the cohort's size) need not be distinct
             cohort = seen["draws"].cohort.ids
             bad = program.attack.malicious_set(fed.num_users)
+            (_, _, models, *_), attacked = seen["attack"]
             check_cohort_round(torch, path, trainer, seen["draws"], before,
-                               metrics)
+                               metrics, slot_unchanged(torch, models,
+                                                       attacked))
             check(len(ids) == fed.num_testers and set(ids) <= set(cohort),
                   f"path {path}: {fed.num_testers} tester ids from the "
                   f"cohort, got {ids}")
@@ -2105,15 +2144,17 @@ def phase_rounds_per_call(torch, card, path, built, op_name):
         return out, (time.perf_counter() - t) * 1e3
 
     t0 = time.perf_counter()
-    state, eager_ms = eager.init(), []
+    state, eager_ms, eager_metrics = eager.init(), [], []
     for r in range(rounds):
         if r == 1:
             torch.cuda.set_sync_debug_mode("error")
         try:
-            (state, _), ms = timed(lambda: eager.run_round(state, data))
+            (state, metrics), ms = timed(lambda: eager.run_round(state,
+                                                                 data))
         finally:
             torch.cuda.set_sync_debug_mode("default")
         eager_ms.append(ms)
+        eager_metrics.append(metrics)
     sizes = [p.numel() for p in tree_leaves(state.global_params)]
     per_round = (len(plan_launches(sizes, [True] * len(sizes), 4))
                  if op_name == "weighted_aggregate" else 1)
@@ -2140,6 +2181,15 @@ def phase_rounds_per_call(torch, card, path, built, op_name):
     check(bool(torch.isfinite(stacked["weights"]).all())
           and stacked["weights"].shape == (RPC, eager.fed.num_users),
           f"path {path}: a chunk's weights finite and stacked [R, N]")
+    if eager.fed.cohort:
+        # the population tier: the history too, each replay's metrics
+        # against its eager round's
+        first = (chunks - 1) * RPC
+        differ = sorted({k for k, v in stacked.items() for i in range(RPC)
+                         if not torch.equal(_bits(torch, v[i]), _bits(
+                             torch, eager_metrics[first + i][k]))})
+        check(not differ, f"path {path}: the chunk's {RPC} rounds of "
+              f"metrics bitwise the eager rounds' (differ: {differ})")
 
     # RPC replays back to back: CUDA events around each (the device's
     # time of a round), the host clock around them all (graphed)
@@ -2378,7 +2428,8 @@ ALLOC_KEYS = ("num_alloc_retries", "num_device_alloc", "num_device_free")
 
 
 def phase_lm(torch, card, label, argv, op_name, overrides=None,
-             reduced_why=None, chunk=False):
+             reduced_why=None, chunk=False, rounds=LM_ROUNDS,
+             frozen_leaf=None):
     """The LM federated round through the train launcher's code path
     (``build(parse_args(argv), **overrides)``, the overrides cutting the
     depth):
@@ -2393,6 +2444,12 @@ def phase_lm(torch, card, label, argv, op_name, overrides=None,
     ``reduced_why`` replaces the ``reduced`` line's reckoning. With
     ``chunk``, the state after the first ``RPC_LM`` rounds is kept on the
     host and :func:`lm_chunk` runs them again as one chunk of replays.
+    On the population tier (``--population``, phase LP) a cross-test
+    launches twice a layer (the cohort's K x C x rows fold, then the
+    global model's column, K x rows) and each round is held as path G's
+    (:func:`check_cohort_round`). ``frozen_leaf`` names a leaf no
+    gradient reaches (the vlm's ``patch_proj`` on its text): under SGD
+    every client's trained copy must equal the global one bitwise.
     Returns the numbers printed."""
     import repro_torch.kernels.flash_attention.ops as flash_ops
     import repro_torch.kernels.ssd_scan.ops as ssd_ops
@@ -2410,6 +2467,10 @@ def phase_lm(torch, card, label, argv, op_name, overrides=None,
     state = trainer.init()
     torch.cuda.synchronize()
     fed, model = trainer.fed, trainer.model
+    population = fed.cohort > 0
+    clients = trainer.capacity if population else fed.num_users
+    # the population tier's provider wraps the dense dataset
+    dense = data.dense if population else data
     n_params = model.param_count(state.global_params)
     full = get_config(args.arch)
     check(n_params == model.param_count() and cfg.d_model == full.d_model
@@ -2428,12 +2489,15 @@ def phase_lm(torch, card, label, argv, op_name, overrides=None,
               f"{full_params:,} params, widths unchanged): {why}")
     print(f"phase {label}: {cfg.name} ({n_params:,} params, {cfg.num_layers}"
           f" layers, d_model {cfg.d_model}, vocab {cfg.vocab_size}, "
-          f"{cfg.dtype}), {fed.num_users} users, {fed.num_testers} testers, "
-          f"malicious {list(trainer.attack.malicious_indices(fed.num_users))}"
+          f"{cfg.dtype}), {fed.num_users} users"
+          + (f" (a cohort of {clients} a round, testers from it "
+             f"{trainer.testers_from_cohort})" if population else "")
+          + f", {fed.num_testers} testers, malicious "
+          f"{_ids(trainer.attack.malicious_indices(fed.num_users))}"
           f" ({fed.attack}), {fed.local_steps} steps of batch "
           f"{trainer.train.batch_size}, {trainer.train.optimizer} at lr "
-          f"{trainer.train.lr}; train {tuple(data.train.xs.shape)}, eval "
-          f"rows {min(trainer.eval_batch, data.test.xs.shape[1])} a tester, "
+          f"{trainer.train.lr}; train {tuple(dense.train.xs.shape)}, eval "
+          f"rows {min(trainer.eval_batch, dense.test.xs.shape[1])} a tester, "
           f"global {tuple(data.global_x.shape)}; set-up "
           f"{time.perf_counter() - t0:.1f} s")
 
@@ -2458,6 +2522,33 @@ def phase_lm(torch, card, label, argv, op_name, overrides=None,
                          ("aggregate", "weighted_sum")):
         setattr(backend, method, counted(step, getattr(backend, method)))
     global_eval = counted("global_eval", trainer.global_accuracy)
+    frozen = []
+    if frozen_leaf is not None:
+        train = backend.train
+
+        def train_frozen(local_train, global_params, bx, by):
+            models, losses = train(local_train, global_params, bx, by)
+            g, stack = global_params[frozen_leaf], models[frozen_leaf]
+            frozen.append(all(torch.equal(_bits(torch, stack[c]),
+                                          _bits(torch, g))
+                              for c in range(stack.shape[0])))
+            return models, losses
+        backend.train = train_frozen
+    seen = {}
+    if population:
+        # each round's draws and its attack's slots (a flag a slot, so no
+        # cohort stack outlives the round)
+        draw, apply_attack = trainer.draw, backend.apply_attack
+
+        def keep_draws(*a, **k):
+            seen["draws"] = draw(*a, **k)
+            return seen["draws"]
+
+        def witness(attack, noise, models, *rest):
+            out = apply_attack(attack, noise, models, *rest)
+            seen["unchanged"] = slot_unchanged(torch, models, out)
+            return out
+        trainer.draw, backend.apply_attack = keep_draws, witness
 
     # the last round's cross-test: keep the first folded launch's inputs
     # and output (the first layer's)
@@ -2473,7 +2564,7 @@ def phase_lm(torch, card, label, argv, op_name, overrides=None,
 
     def arming(*a):
         testers.append(a[4].tolist())
-        armed[0] = len(walls) == LM_ROUNDS - 1
+        armed[0] = len(walls) == rounds - 1
         try:
             return cross_test(*a)
         finally:
@@ -2485,7 +2576,8 @@ def phase_lm(torch, card, label, argv, op_name, overrides=None,
     by_dtype = collections.Counter(
         p.dtype for p in tree_leaves(state.global_params))
     aggregates = sum(-(-n // TABLE) for n in by_dtype.values())
-    want_step = {"train": {}, "cross_test": {op_name: cfg.num_layers},
+    per_test = cfg.num_layers * (2 if population else 1)
+    want_step = {"train": {}, "cross_test": {op_name: per_test},
                  "global_eval": {op_name: cfg.num_layers},
                  "aggregate": {"weighted_aggregate": aggregates}}
     walls, rows = [], []
@@ -2493,8 +2585,9 @@ def phase_lm(torch, card, label, argv, op_name, overrides=None,
     reset_counts(kernel_ops)
     module._launch = capturing
     try:
-        for _ in range(LM_ROUNDS):
+        for _ in range(rounds):
             step_ms.clear()
+            entering = state.scores.scores
             before = torch.cuda.memory_stats()
             t = time.perf_counter()
             state, metrics = trainer.run_round(state, data)
@@ -2517,10 +2610,26 @@ def phase_lm(torch, card, label, argv, op_name, overrides=None,
             check(all(bool(torch.isfinite(p).all())
                       for p in tree_leaves(state.global_params)),
                   f"phase {label}: finite global params")
-            check(len(set(testers[-1])) == fed.num_testers
-                  and all(0 <= i < fed.num_users for i in testers[-1]),
-                  f"phase {label}: {fed.num_testers} distinct testers, got "
-                  f"{testers[-1]}")
+            if population:
+                cohort = seen["draws"].cohort.ids
+                corrupted = check_cohort_round(
+                    torch, f"phase {label}", trainer, seen["draws"],
+                    entering, metrics, seen["unchanged"])
+                check(len(testers[-1]) == fed.num_testers
+                      and set(testers[-1]) <= set(cohort),
+                      f"phase {label}: {fed.num_testers} testers from the "
+                      f"cohort {cohort}, got {testers[-1]}")
+                print(f"phase {label} round {state.round_idx}: cohort "
+                      f"{list(cohort)}, {corrupted} slot(s) corrupted")
+            else:
+                check(len(set(testers[-1])) == fed.num_testers
+                      and all(0 <= i < fed.num_users for i in testers[-1]),
+                      f"phase {label}: {fed.num_testers} distinct testers, "
+                      f"got {testers[-1]}")
+            if frozen_leaf is not None:
+                check(frozen[-1], f"phase {label}: every client's trained "
+                      f"{frozen_leaf} equals the global one bitwise (no "
+                      f"gradient reaches it; {trainer.train.optimizer})")
             for step, want in want_step.items():
                 got = {n: c for n, c in deltas[step].items() if c}
                 check(got == want, f"phase {label} round "
@@ -2544,26 +2653,28 @@ def phase_lm(torch, card, label, argv, op_name, overrides=None,
         module._launch = launch
     counts = {n: op.launches for n, op in kernel_ops.items()}
     want = {n: 0 for n in kernel_ops}
-    want[op_name] = 2 * cfg.num_layers * LM_ROUNDS
-    want["weighted_aggregate"] = aggregates * LM_ROUNDS
+    want[op_name] = (per_test + cfg.num_layers) * rounds
+    want["weighted_aggregate"] = aggregates * rounds
     check(counts == want
           and kernel_ops["decode_attention"].merge_launches == 0,
           f"phase {label} launches {counts}, want {want}")
     peak = torch.cuda.max_memory_allocated()
-    print(f"phase {label} launches: {counts} ({cfg.num_layers} {op_name} a "
-          f"cross-test and a global eval, {aggregates} weighted_aggregate "
-          f"a round ({dict((str(k), v) for k, v in by_dtype.items())} "
-          f"leaves), x "
-          f"{LM_ROUNDS} rounds; none in local training); allocator peak "
+    print(f"phase {label} launches: {counts} ({per_test} {op_name} a "
+          f"cross-test, {cfg.num_layers} a global eval, {aggregates} "
+          f"weighted_aggregate a round "
+          f"({dict((str(k), v) for k, v in by_dtype.items())} leaves), x "
+          f"{rounds} rounds; none in local training); allocator peak "
           f"{peak / 2**30:.3f} GiB; {card}")
     check(len(captured) == 1, f"phase {label}: the folded launch captured")
-    rows_per = min(trainer.eval_batch, data.test.xs.shape[1])
+    rows_per = min(trainer.eval_batch, dense.test.xs.shape[1])
     err = lm_fold_check(torch, label, op_name, captured[0], fed.num_testers,
-                        fed.num_users, rows_per)
+                        clients, rows_per)
     folded = tuple(captured[0][0][0].shape)
     del captured
     out = {"wall_ms": walls, "malicious_weight": rows,
-           "launches": counts[op_name], "peak_bytes": peak,
+           "launches": counts[op_name],
+           "weighted_aggregate_launches": counts["weighted_aggregate"],
+           "peak_bytes": peak,
            "params": n_params, "layers": cfg.num_layers,
            "folded_shape": folded, "fold_max_abs_err": err}
     if cfg.has_moe:
@@ -2614,22 +2725,37 @@ def slot_weights(plan, weights):
     return weights[plan.idx.clamp(max=n - 1)] * plan.valid
 
 
-def check_cohort_round(torch, label, trainer, draws, before, metrics):
-    """A population round against its draws: at most C filled slots,
-    noise drawn for at most C clients (the cohort's malicious members),
-    the weights finite, summing to 1 and exactly 0 outside the honoured
-    cohort, and the scores outside it bitwise as they entered."""
+def slot_unchanged(torch, models, attacked):
+    """Whether each slot of a population round's cohort stack came out of
+    step 3 bitwise as it went in (``models`` and ``attacked`` are its
+    ``CohortModels`` before and after the attack): a list of host
+    bools."""
+    from repro_torch.utils import tree_leaves
+    pairs = list(zip(tree_leaves(models.stack), tree_leaves(attacked.stack)))
+    return [all(torch.equal(_bits(torch, a[s]), _bits(torch, b[s]))
+                for a, b in pairs)
+            for s in range(pairs[0][0].shape[0])]
+
+
+def check_cohort_round(torch, label, trainer, draws, before, metrics,
+                       unchanged):
+    """A population round against its draws: at most C filled slots;
+    every filled slot of an honest client leaves the attack bitwise its
+    trained model and every filled slot of a malicious one differs from
+    it (``unchanged``: :func:`slot_unchanged` of the round's step 3); the
+    weights finite, summing to 1 and exactly 0 outside the honoured
+    cohort, and the scores outside it bitwise as they entered. Returns
+    the number of slots the attack corrupted."""
     n, cap = trainer.fed.num_users, trainer.capacity
     cohort = draws.cohort.ids
     check(len(cohort) <= cap and list(cohort) == sorted(set(cohort)),
           f"{label}: {len(cohort)} filled slots of {cap}")
-    noise = draws.noise or {}
-    attack = trainer.program.attack
-    bad = attack.malicious_set(n) if attack.needs_noise else ()
-    check(len(noise) <= cap and set(noise) == {c for c in cohort
-                                               if c in bad},
-          f"{label}: noise for {len(noise)} clients, the cohort's "
-          f"malicious members")
+    bad = trainer.program.attack.malicious_set(n)
+    want = [c not in bad for c in cohort]
+    check(unchanged[:len(cohort)] == want,
+          f"{label}: slots left bitwise by the attack "
+          f"{unchanged[:len(cohort)]}, want the honest members' {want} "
+          f"(cohort {_ids(cohort)})")
     w, scores = metrics["weights"], metrics["scores"]
     inside = torch.zeros((n,), dtype=torch.bool, device=w.device)
     inside[list(cohort)] = True
@@ -2641,7 +2767,7 @@ def check_cohort_round(torch, label, trainer, draws, before, metrics):
           f"{float(w[~inside].abs().sum())}")
     check(torch.equal(scores[~inside], before[~inside]),
           f"{label}: the scores outside the cohort are unchanged")
-    return len(noise)
+    return want.count(False)
 
 
 def check_adversary_round(torch, path, program, draws, round_idx, before,
@@ -3462,7 +3588,7 @@ def phase_population(torch, card, n, compressor="identity"):
     rng = np.random.default_rng(0)
     torch.cuda.synchronize()
     reset_counts(kernel_ops)
-    walls, noise, rows = [], [], []
+    walls, corrupted, rows = [], [], []
     for _ in range(POP_ROUNDS):
         step_ms.clear()
         before = state.scores.scores
@@ -3477,8 +3603,10 @@ def phase_population(torch, card, n, compressor="identity"):
         state, metrics = trainer.run_round(state, data, draws=draws)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t) * 1e3)
-        noise.append(check_cohort_round(torch, label, trainer, draws,
-                                        before, metrics))
+        (_, _, models, *_), attacked = seen["attack"]
+        corrupted.append(check_cohort_round(
+            torch, label, trainer, draws, before, metrics,
+            slot_unchanged(torch, models, attacked)))
         if compressor != "identity":
             check(torch.equal(state.comp_state[outside], kept_rows),
                   f"{label}: {len(outside)} error-feedback rows outside "
@@ -3491,12 +3619,13 @@ def phase_population(torch, card, n, compressor="identity"):
               f"{label}: finite loss, malicious weight and params")
         rest = walls[-1] - sum(step_ms.values())
         rows.append({"round": state.round_idx, "wall_ms": walls[-1],
-                     "cohort": len(draws.cohort.ids), "noise": noise[-1],
+                     "cohort": len(draws.cohort.ids),
+                     "corrupted": corrupted[-1],
                      "malicious_weight": values[1], "steps_ms": dict(
                          step_ms, rest=rest)})
         print(f"{label} round {state.round_idx}: wall {walls[-1]:.3f} ms, "
-              f"cohort {len(draws.cohort.ids)}, noise for {noise[-1]} "
-              f"clients, "
+              f"cohort {len(draws.cohort.ids)}, {corrupted[-1]} slots "
+              f"corrupted, "
               f"local_loss {values[0]:.4f}, malicious_weight "
               f"{values[1]:.5f}; steps ms: " + "  ".join(
                   f"{k} {v:.3f}" for k, v in step_ms.items())
@@ -4722,6 +4851,61 @@ def adamw_round_bytes(cfg, users: int) -> int:
     return users * (22 * n + 8 * largest) + 2 * n
 
 
+def sgd_round_bytes(cfg, users: int) -> int:
+    """Bytes the LM round's local phase holds at an SGD step, about: each
+    client's bf16 weights, gradients and new weights (6 bytes a param)
+    and two f32 copies of its largest leaf (the step's f32 update and
+    the f32 copy of the weights); beside them the global bf16 weights."""
+    from repro_torch.models import build_model
+    from repro_torch.utils import tree_leaves
+
+    n = cfg.param_count()
+    largest = max(math.prod(s) for s in
+                  tree_leaves(build_model(cfg).param_shapes()))
+    return users * (6 * n + 8 * largest) + 2 * n
+
+
+def phase_lm_population(torch, card):
+    """Phase LP: phase L's round on the population tier through the train
+    launcher (``LP_ARGS``: qwen2-0.5b whole, 256 clients, a cohort of 4,
+    2 testers from it, 64 ``random_weights`` attackers), checked as
+    ``phase_lm`` checks L (its cross-test twice a layer: the cohort's
+    fold and the global model's column) and as path G (at most 4 filled
+    slots, honest slots left bitwise by the attack, weights 0 and scores
+    unchanged outside the cohort); its first 2 rounds again as one chunk
+    of 2 replays, bitwise."""
+    return phase_lm(torch, card, "LP", LP_ARGS, "flash_attention",
+                    chunk=True)
+
+
+def phase_vlm_round(torch, card):
+    """Phase VR: pixtral-12b's round on its text (``VR_ARGS``) at its
+    published widths with ``VR_LAYERS`` of its 40 layers, checked as
+    ``phase_lm`` checks L (the folded flash launch at D = 128 equal to
+    its blocks bitwise, ``weighted_aggregate`` once a table), and every
+    client's trained ``patch_proj`` bitwise the global one: no gradient
+    reaches it from a text batch, and SGD moves no leaf without one. The
+    SGD reckoning is printed before the phase, beside AdamW's."""
+    from repro_torch.configs import get_config
+
+    users = int(VR_ARGS[VR_ARGS.index("--users") + 1])
+    full = get_config("pixtral-12b")
+    cut = full.replace(num_layers=VR_LAYERS)
+    why = (f"{users} clients at an SGD step hold about "
+           f"{sgd_round_bytes(full, users) / 2**30:.1f} GiB at full depth "
+           f"(bf16 weights, gradients and new weights: 6 bytes a param; "
+           f"two f32 temporaries of the largest leaf, the "
+           f"{full.vocab_size:,} x {full.d_model:,} embedding; the global "
+           f"weights), over the card's 80 GB; {VR_LAYERS} layer holds "
+           f"about {sgd_round_bytes(cut, users) / 2**30:.1f} GiB (AdamW "
+           f"would hold {adamw_round_bytes(cut, users) / 2**30:.1f} GiB "
+           f"even here; the allocator peak below adds the activations)")
+    print(f"phase VR: {why}")
+    return phase_lm(torch, card, "VR", VR_ARGS, "flash_attention",
+                    {"num_layers": VR_LAYERS}, reduced_why=why,
+                    rounds=VR_ROUNDS, frozen_leaf="patch_proj")
+
+
 def phase_moe_round(torch, card):
     """The LM round on granite-moe-1b-a400m (phase N): phase L's flags
     through the train launcher with ``N_LAYERS`` of its 24 layers, checked
@@ -4899,6 +5083,7 @@ def run_phases(torch, card, t_start, dryruns, dry_dir) -> int:
     running in the background."""
     from repro_torch.configs import get_config
     from repro_torch.core.engine import flat_update_dim
+    from repro_torch.launch.train import build, parse_args
     from repro_torch.models import build_model
     from repro_torch.strategies import COMPRESSORS
     from repro_torch.utils import tree_leaves
@@ -4945,12 +5130,22 @@ def run_phases(torch, card, t_start, dryruns, dry_dir) -> int:
     chunked = {path: phase_rounds_per_call(torch, card, path,
                                            built.pop(path), op_name)
                for path, _, op_name, _ in PATHS if path in RPC_PATHS}
+    g_noise = build(parse_args(G_NOISE_ARGS))
+    chunked["G random_weights"] = phase_rounds_per_call(
+        torch, card, "G random_weights", g_noise[:2], "weighted_aggregate")
+    del g_noise
     seams = phase_rpc_seams(torch, card)
     # the LM round, after path G: qwen2-0.5b (L, its first rounds again as
     # one chunk of replays), then Mamba2 (M)
     lm = {label: phase_lm(torch, card, label, argv, op_name, overrides,
                           chunk=label == "L")
           for label, argv, op_name, overrides in LM_PHASES}
+    # slice 17: the LM round on the population tier, then the vlm's
+    lm["LP"] = phase_lm_population(torch, card)
+    lm["VR"] = phase_vlm_round(torch, card)
+    for label in ("LP", "VR"):
+        launches["weighted_aggregate"] += (
+            lm[label]["weighted_aggregate_launches"])
     rows.update(phase_fold_times(torch, peaks, lm))
     population["ci"] = phase_population_ci(torch, card)
     launches["weighted_aggregate"] += population["ci"]["launches"]
@@ -5071,11 +5266,18 @@ def run_phases(torch, card, t_start, dryruns, dry_dir) -> int:
               "bf16"),
         # one call (one layer) of the LM round's cross-test, its testers,
         # clients and eval rows folded into the batch; launches: phase L's
-        # and M's rounds (cross-tests and global evals)
+        # and LP's rounds (cross-tests, LP's global columns and global
+        # evals)
         entry("flash_attention", rows["flash_attention_fold"],
               "one folded cross-test call: B={}, S=T=64, Hq=14, Hkv=2, "
               "D=64, bf16, causal".format(lm["L"]["folded_shape"][0]),
-              n=lm["L"]["launches"]),
+              n=lm["L"]["launches"] + lm["LP"]["launches"]),
+        # phase VR's: pixtral-12b's text round, its 2 testers x 3 clients
+        # x 64 rows folded
+        entry("flash_attention", rows["flash_attention_fold V"],
+              "one folded cross-test call: B={}, S=T=64, Hq=32, Hkv=8, "
+              "D=128, bf16, causal".format(lm["VR"]["folded_shape"][0]),
+              n=lm["VR"]["launches"]),
         entry("ssd_scan", rows["ssd_scan_fold"],
               "one folded cross-test call: Bt={}, S=64, H=80, P=64, G=1, "
               "N=128, chunk 256, A and D [Bt, H], bf16".format(

@@ -25,10 +25,10 @@ def _require(cond: bool, msg: str) -> None:
 # the LM families the port serves (``Model.prefill`` / ``decode_step``)
 LM_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 # those the LM round trains (``--dataset lm``). The reference's round
-# batches tokens alone: for encdec it fails (its forward_train reads
-# batch["frames"], which batchify never makes), and it trains a vlm on
-# its text without patches (ROADMAP.md queue 1 item 16's leftovers)
-ROUND_LM_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+# batches tokens alone: it trains a vlm on its text without patches (its
+# patch_proj gets a zero gradient), and for encdec it fails (its
+# forward_train reads batch["frames"], which batchify never makes)
+ROUND_LM_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 
 
 @dataclasses.dataclass(frozen=True)

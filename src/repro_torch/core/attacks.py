@@ -7,7 +7,12 @@ leaf in ``tree_leaves`` order, taken from the round's draws.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.utils import tree_map
+
+# the most noise elements the slot-wise attack draws at once
+NOISE_SLICE = 1 << 24
 
 
 def _random_weights(noise, trained, reference, scale):
@@ -24,6 +29,38 @@ def _random_weights(noise, trained, reference, scale):
         return (next(draws) * std * scale).to(t.dtype)
 
     return tree_map(leaf, trained)
+
+
+def _random_weights_slots(noise, stack, scale, clients, slots):
+    """:func:`_random_weights` for every slot of a ``[S, ...]`` stack at
+    once, bitwise slot by slot: each slot's std over its own leaf, and the
+    noise drawn by ``noise.block`` (the population tier's
+    ``KeyedNoise`` / ``RecordedNoise``) a leaf at a time in blocks of at
+    most ``NOISE_SLICE`` elements (whole rows when a row fits), each used
+    at once, so no ``[S, D]`` noise tensor exists."""
+    if noise is None:
+        raise ValueError("random_weights needs the round's noise draws "
+                         "(RoundDraws.noise)")
+    leaves = iter(range(1 << 30))        # tree_map walks tree_leaves' order
+
+    def one(t):
+        leaf = next(leaves)
+        rows, n = t.shape[0], t[0].numel()
+        flat = t.reshape(rows, n)
+        std = torch.stack([t[s].float().std(correction=0)
+                           for s in range(rows)]) + 1e-6
+        res = torch.empty_like(flat)
+        per = max(1, NOISE_SLICE // n)           # rows a block
+        width = min(n, NOISE_SLICE)
+        for r0 in range(0, rows, per):
+            r1 = min(rows, r0 + per)
+            for lo in range(0, n, width):
+                hi = min(n, lo + width)
+                z = noise.block(leaf, slots[r0:r1], clients[r0:r1], lo, hi)
+                res[r0:r1, lo:hi] = (z * std[r0:r1, None] * scale
+                                     ).to(t.dtype)
+        return res.reshape(t.shape)
+    return tree_map(one, stack)
 
 
 def _sign_flip(noise, trained, reference, scale):

@@ -24,11 +24,11 @@ do. A failed capture raises: there is no eager fallback on ``cuda``. On
 the CPU the same round runs R times in a loop. Either way the states,
 the generator and the history are those of R single rounds, bitwise.
 The host prepares what the graph reads before a chunk (the ``coverage``
-selector's permutations, :meth:`Selector.schedule`) and before a replay
-whose eval bucket is new (its eval rows); the population tier's cohort
-plan is read to the host every round, so it refuses ``rounds_per_call >
-1`` (``core/engine/population.py``). A kernel op's ``launches`` count
-sees the capture's one call, not the replays.
+selector's permutations, :meth:`Selector.schedule`; the population tier's
+noise key of the seed, ``_load_seed``) and before a replay whose eval
+bucket is new (its eval rows). The population tier plays its own round
+body (``PopulationTrainer._chunk_round``) on the same buffers. A kernel
+op's ``launches`` count sees the capture's one call, not the replays.
 
 Durability (DESIGN.md §9): :meth:`FederatedTrainer.state_dict` copies a
 round state to host arrays, the generator's ``get_state()`` bytes
@@ -128,6 +128,8 @@ class ChunkBuffers:
     bucket: Any = None              # the (seed, eval bucket) eval_idx holds
     graph: Any = None               # torch.cuda.CUDAGraph on the card
     metrics: Any = None             # the captured round's metric outputs
+    # [2] int64: the population tier's noise key of the seed
+    key: Optional[torch.Tensor] = None
 
     def tensors(self):
         """The static round state (params, scores, error feedback) in
@@ -373,6 +375,7 @@ class FederatedTrainer:
         buf.counter.fill_(state.round_idx)
         buf.gen.set_state(state.gen.get_state())
         buf.seed = state.seed
+        self._load_seed(buf)
         self.selector.schedule(state.round_idx, self.rounds_per_call,
                                self.fed.num_users, self.fed.num_testers,
                                self.device)
@@ -382,6 +385,11 @@ class FederatedTrainer:
                 self._capture(buf)
             self.chunk = buf
         return buf
+
+    def _load_seed(self, buf: ChunkBuffers) -> None:
+        """Load what the round derives from ``buf.seed`` into the buffers
+        (the population tier's noise key); nothing on the dense
+        engine."""
 
     def _load_eval_rows(self, buf: ChunkBuffers, round_idx: int) -> None:
         """Under eval resampling, write the eval rows of ``round_idx``'s

@@ -43,36 +43,48 @@ and the weights exactly, the params to the last bits.
 
 The sentinel N marks an unfilled slot. torch has no ``mode="drop"``
 scatter, and an out-of-range index is a device-side assert on the card,
-so no tensor is ever indexed with it: gathers clamp it to N - 1 and
-scatters write the filled slots only.
+so no tensor is ever indexed with it: gathers clamp it to N - 1, and a
+scatter writes into its base widened by one row at index N, which the
+sentinel slots hit and which is then dropped.
+
+**No host read.** The round reads nothing to the host: the cohort plan
+stays on the device (``CohortPlan.ids`` is for checks outside the round),
+the attack picks its slots with ``torch.where`` (``Attack.apply_slots``),
+and ``random_weights``' noise is :class:`KeyedNoise`, a counter-based
+draw keyed on (run seed, round, client) and made where it is used. So
+``rounds_per_call`` > 1 runs the driver's chunk on this round: one CUDA
+graph on the card, R replays bitwise R eager rounds.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, NamedTuple, Tuple
+from typing import Any, Mapping, NamedTuple, Sequence, Tuple
 
 import torch
 from torch.func import vmap
 
 from repro_torch.core.cross_testing import CROSSTEST_IMPLS, cross_test_tiled
 from repro_torch.core.engine.backends import _flatten_updates
-from repro_torch.core.engine.driver import FederatedTrainer, RoundState
+from repro_torch.core.engine.driver import (
+    ChunkBuffers, FederatedTrainer, RoundState, _flat_state)
 from repro_torch.core.engine.program import RoundDraws
 from repro_torch.data.pipeline import batch_indices_from_uniforms
+from repro_torch.data.population import SyntheticPopulation
 from repro_torch.kernels.weighted_aggregate import aggregate_pytree
-from repro_torch.utils import (
-    derived_seed, tree_add_vector, tree_leaves, tree_map)
+from repro_torch.utils import tree_add_vector, tree_map
+from repro_torch.utils.seeding import keyed_normal, philox_key
 
 # the attack-noise stream's constant: a malicious cohort member's noise is
 # drawn from (run seed, NOISE_STREAM, round, client) alone
 NOISE_STREAM = 12
 
-# why the population tier runs no chunk of rounds (rounds_per_call > 1)
-CHUNK_REFUSAL = (
-    "the population tier reads its cohort plan to the host once a round "
-    "(PopulationTrainer.draw: the ids that the attack and the noise "
-    "name), so its round cannot be one CUDA graph; rounds_per_call > 1 "
-    "runs on the dense engine only")
+# why a chunk refuses a provider that draws its shards on the host
+SYNTHETIC_CHUNK_REFUSAL = (
+    "a SyntheticPopulation draws each gathered client's shard from a "
+    "torch.Generator seeded on the host from derived_seed(seed, stream, "
+    "client), so its gather reads the cohort's ids to the host and cannot "
+    "be part of a CUDA graph; run it with rounds_per_call=1, or wrap a "
+    "materialised dataset in DensePopulationData")
 
 
 def cohort_from_mask(part_mask: torch.Tensor, capacity: int
@@ -98,35 +110,85 @@ def cohort_from_mask(part_mask: torch.Tensor, capacity: int
 
 
 def recruit_testers(tester_ids: torch.Tensor, idx: torch.Tensor,
-                    count: int, num_users: int) -> torch.Tensor:
+                    valid: torch.Tensor, num_users: int) -> torch.Tensor:
     """``testers_from_cohort``: the selector's ``[K]`` ids remapped onto
-    the cohort, ``idx[id mod count]`` (``count`` filled slots, at least
-    1), clamped below N as the reference clamps them; int32."""
-    slot = tester_ids.long() % max(count, 1)
+    the cohort, ``idx[id mod count]``, ``count`` the filled slots of
+    ``valid`` (at least 1, the reference's ``jnp.maximum(jnp.sum(valid),
+    1)``) counted on the device, clamped below N as the reference clamps
+    them; int32."""
+    count = valid.sum().long().clamp(min=1)
+    slot = tester_ids.long() % count
     return torch.clamp(idx[slot], max=num_users - 1).to(torch.int32)
 
 
+class KeyedNoise(NamedTuple):
+    """``random_weights``' draws for the population tier, made where they
+    are used (:meth:`block`), never stored: client c's noise for leaf l
+    in round r is :func:`~repro_torch.utils.seeding.keyed_normal` under
+    ``key`` at counter ``(element // 4, l, c, r)``, so it is a function of
+    (run seed, ``NOISE_STREAM``, round, client) alone, whichever other
+    clients are sampled, and the round reads no id to the host."""
+
+    key: Any            # (k0, k1): host ints, or a chunk's [2] int64 buffer
+    round_idx: Any      # the host int, or a chunk's 0-d device counter
+
+    def block(self, leaf: int, slots: range, clients: torch.Tensor,
+              lo: int, hi: int) -> torch.Tensor:
+        """Elements ``lo..hi`` of leaf ``leaf``'s noise for ``clients``
+        (``[rows]`` int64, the clients of ``slots``): ``[rows, hi - lo]``
+        f32."""
+        return keyed_normal(self.key, (leaf, clients[:, None],
+                                       self.round_idx), lo, hi)
+
+
+class RecordedNoise(NamedTuple):
+    """Noise given by slot: ``by_slot`` maps a slot to its client's
+    draws, one tensor a leaf in ``tree_leaves`` order; a slot it lacks
+    reads zeros. The parity tests replay the reference's per-client noise
+    through it."""
+
+    by_slot: Mapping[int, Sequence[torch.Tensor]]
+
+    def block(self, leaf: int, slots: range, clients: torch.Tensor,
+              lo: int, hi: int) -> torch.Tensor:
+        rows = [self.by_slot[s][leaf].reshape(-1)[lo:hi].float()
+                if s in self.by_slot else
+                torch.zeros((hi - lo,), device=clients.device)
+                for s in slots]
+        return torch.stack(rows)
+
+
+def noise_key(seed: int) -> Tuple[int, int]:
+    """The Philox key of a run's attack noise."""
+    return philox_key(seed, NOISE_STREAM)
+
+
 def client_noise(seed: int, round_idx: int, client: int, leaves):
-    """``random_weights``' draws for one client in one round: a standard
-    normal like each of ``leaves``, from a generator seeded from
-    ``(seed, NOISE_STREAM, round_idx, client)`` alone, so a client's noise
-    is the same whichever other clients are sampled."""
-    dev = leaves[0].device
-    gen = torch.Generator(device=dev).manual_seed(
-        derived_seed(seed, NOISE_STREAM, round_idx, client))
-    return [torch.randn(leaf.shape, generator=gen, device=dev)
-            for leaf in leaves]
+    """``random_weights``' draws for one client in one round, a standard
+    normal like each of ``leaves``: the values :class:`KeyedNoise` makes
+    for that client's slot, bitwise. A dense engine given them plays the
+    population tier's noise."""
+    # one Philox key for every leaf: the leaf index is a counter word
+    words, dev = noise_key(seed), leaves[0].device
+    return [keyed_normal(words, (i, client, round_idx), 0, leaf.numel(),
+                         device=dev)[0].reshape(leaf.shape)
+            for i, leaf in enumerate(leaves)]
 
 
 class CohortPlan(NamedTuple):
     """The round's cohort, drawn once (``PopulationTrainer.draw``) and
     carried in ``RoundDraws.cohort``: ``idx`` maps slots to clients
-    (sentinel N: unfilled), ``valid`` flags the filled slots, and ``ids``
-    are the filled slots' clients as host ints."""
+    (sentinel N: unfilled) and ``valid`` flags the filled slots. Both
+    stay on the device: the round reads neither to the host."""
 
     idx: torch.Tensor          # [C] int64 (N: unfilled)
     valid: torch.Tensor        # [C] f32 1/0
-    ids: Tuple[int, ...]       # clients of the filled slots, ascending
+
+    @property
+    def ids(self) -> Tuple[int, ...]:
+        """The filled slots' clients as host ints, ascending: a read to
+        the host, for checks and logs outside the round."""
+        return tuple(int(i) for i in self.idx[self.valid > 0].tolist())
 
 
 class CohortModels(NamedTuple):
@@ -197,13 +259,21 @@ class PopulationBackend:
         return weights[self._safe_idx(plan)] * plan.valid
 
     @staticmethod
-    def _scatter(base: torch.Tensor, plan: CohortPlan,
-                 values: torch.Tensor) -> torch.Tensor:
+    def _scatter(base: torch.Tensor, plan: CohortPlan, values: torch.Tensor,
+                 dim: int = -1) -> torch.Tensor:
         """``base`` with the filled slots' ``values`` written at their
-        clients along the last axis."""
-        count = len(plan.ids)
-        return base.index_copy(base.dim() - 1, plan.idx[:count],
-                               values[..., :count].to(base.dtype))
+        clients along ``dim``, with no host count: the write goes into
+        ``base`` widened by one row at index N, which every sentinel slot
+        hits and which is then dropped, so no kept row is written twice
+        (``index_copy`` leaves the winner of a duplicate undefined on the
+        card)."""
+        dim = dim % base.dim()
+        n = base.shape[dim]
+        pad = list(base.shape)
+        pad[dim] = 1
+        wide = torch.cat([base, base.new_zeros(pad)], dim)
+        wide.index_copy_(dim, plan.idx, values.to(base.dtype))
+        return wide.narrow(dim, 0, n).contiguous()
 
     # ------------------------------------------------------ backend protocol
     def train(self, local_train, global_params, bx, by):
@@ -225,10 +295,16 @@ class PopulationBackend:
         return models, losses
 
     def apply_attack(self, attack, noise, models, global_params, actx):
-        """Step 3 on this rank's filled slots, each corrupted as its
-        client."""
-        stack = attack.apply(noise, models.stack, global_params, actx,
-                             client_ids=self._own(models.plan.ids))
+        """Step 3 on this rank's slots, on the device: a slot is corrupted
+        as its client where that client is malicious and the slot is
+        filled (:meth:`Attack.apply_slots`)."""
+        plan = models.plan
+        clients = self._own(self._safe_idx(plan))
+        bad = (attack.malicious_mask(self.num_users, clients.device)[clients]
+               * self._own(plan.valid)) > 0
+        stack = attack.apply_slots(noise, models.stack, global_params, actx,
+                                   clients, bad,
+                                   range(self.lo, self.lo + self.shard))
         return models._replace(stack=stack)
 
     def mask_models(self, models, global_params, part_mask):
@@ -296,9 +372,7 @@ class PopulationBackend:
         keep = (eff > 0)[:, None]
         new_rows = self._gather(torch.where(keep, new_rows, state_rows))
         decoded = torch.where(keep, decoded, 0.0)
-        count = len(plan.ids)
-        new_state = comp_state.index_copy(0, plan.idx[:count],
-                                          new_rows[:count])
+        new_state = self._scatter(comp_state, plan, new_rows, dim=0)
         stack = tree_add_vector(global_params, decoded)
         return (models._replace(stack=stack), (plan, payloads), decoded,
                 new_state)
@@ -322,10 +396,18 @@ class PopulationTrainer(FederatedTrainer):
     same order (selector, participation, the ``[N, steps, batch]`` batch
     uniforms, then faults and lies), so with a noise-free attack a small
     run is the dense run; only the cohort's rows of the batch data are
-    read. Noise is drawn for the cohort's malicious members only, each
-    from :func:`client_noise`, never from the round's generator. The
-    round state is the dense :class:`RoundState`, so checkpoints,
-    manifests and bitwise resume are inherited.
+    read. A malicious slot's noise is :class:`KeyedNoise`, made leaf by
+    leaf where the attack uses it, never from the round's generator. The
+    round reads nothing to the host: the cohort plan, the attack's slots,
+    the noise's counters and every metric stay on the device. The round
+    state is the dense :class:`RoundState`, so checkpoints, manifests and
+    bitwise resume are inherited.
+
+    ``rounds_per_call`` = R > 1 runs the inherited chunk driver on
+    :meth:`_chunk_round`, this tier's round on the static buffers (one
+    CUDA graph of it on the card, replayed R times), bitwise R
+    :meth:`run_round` calls. A chunk refuses a ``SyntheticPopulation``
+    (its gather seeds generators on the host) and a ``group``.
 
     ``fed.cohort`` (0: ``fed.num_users``) is the slot capacity C, which
     ``FedConfig`` checks; ``crosstest_block`` tiles the tester eval in ``[K,
@@ -349,9 +431,13 @@ class PopulationTrainer(FederatedTrainer):
                 "eval_resample_every is a dense-driver feature (it draws "
                 "[N, eval_batch] gather indices); the population tier "
                 "gathers tester rows directly")
-        if self.rounds_per_call > 1:
-            raise ValueError(CHUNK_REFUSAL)
         if self.group is not None:
+            if self.rounds_per_call > 1:
+                raise ValueError(
+                    "the sharded population tier runs one round a call "
+                    "(its round gathers over the group's ranks, as the "
+                    "pod round does); rounds_per_call > 1 runs on one "
+                    "device")
             self.device = self.group.device
         super().__post_init__()
         if self.program.needs_updates:
@@ -366,21 +452,18 @@ class PopulationTrainer(FederatedTrainer):
                                  block=self.crosstest_block,
                                  group=self.group)
 
-    def draw(self, state: RoundState, data) -> RoundDraws:
+    def draw(self, state: RoundState, data, key=None) -> RoundDraws:
         """The round's draws: the dense engine's stream, the batch
         uniforms gathered to the cohort's rows before any index is made,
-        and noise for the cohort's malicious members alone."""
+        and the attack's :class:`KeyedNoise` under ``key`` (default: the
+        run seed's :func:`noise_key`; a chunk passes its buffer)."""
         fed, program = self.fed, self.program
         n, gen = fed.num_users, state.gen
         tester_ids, part_mask = program.draw_selection(
             gen, state.round_idx, state.scores.scores)
         idx, valid, eff_mask = cohort_from_mask(part_mask, self.capacity)
-        # the round's one read of the cohort plan to the host: the attack
-        # and the noise name their clients there. It keeps the round out
-        # of a CUDA graph (CHUNK_REFUSAL)
-        ids = tuple(i for i in idx.tolist() if i < n)
         if self.testers_from_cohort:
-            tester_ids = recruit_testers(tester_ids, idx, len(ids), n)
+            tester_ids = recruit_testers(tester_ids, idx, valid, n)
         safe = idx.clamp(max=n - 1)
         u = torch.rand((n, fed.local_steps, self.train.batch_size),
                        generator=gen, device=gen.device)
@@ -388,14 +471,29 @@ class PopulationTrainer(FederatedTrainer):
                                                 data.train_counts[safe])
         noise = None
         if program.attack.needs_noise:
-            bad = program.attack.malicious_set(n)
-            leaves = tree_leaves(state.global_params)
-            noise = {c: client_noise(state.seed, state.round_idx, c, leaves)
-                     for c in ids if c in bad}
+            noise = KeyedNoise(noise_key(state.seed) if key is None else key,
+                               state.round_idx)
         fault_draws, lies = program.draw_seams(gen)
         return RoundDraws(batch_idx, tester_ids, eff_mask, noise,
                           fault_draws=fault_draws, lies=lies,
-                          cohort=CohortPlan(idx, valid, ids))
+                          cohort=CohortPlan(idx, valid))
+
+    def _play_cohort(self, global_params, scores, comp_state, round_idx,
+                     data, draws: RoundDraws):
+        """Steps 1-7 on the round's cohort; ``round_idx`` is the host int
+        or the chunk's device counter."""
+        plan = draws.cohort
+        cx, cy = data.cohort_train(plan.idx.clamp(max=self.fed.num_users - 1))
+        rows = torch.arange(self.capacity,
+                            device=plan.idx.device)[:, None, None]
+        bx, by = cx[rows, draws.batch_idx], cy[rows, draws.batch_idx]
+        tx, ty = data.tester_batches(draws.tester_ids, self.eval_batch)
+        return self.program.run(
+            self.backend, global_params, scores,
+            bx=(plan, bx), by=by, tx=tx, ty=ty, draws=draws,
+            round_idx=round_idx, counts=data.train_counts,
+            server_data=data.server_batch(self.eval_batch),
+            comp_state=comp_state)
 
     def run_round(self, state: RoundState, data, draws=None):
         """One round on the cohort; ``draws`` replaces the round's own
@@ -403,18 +501,40 @@ class PopulationTrainer(FederatedTrainer):
         honoured mask, its ``cohort`` that mask's :class:`CohortPlan`)."""
         if draws is None:
             draws = self.draw(state, data)
-        plan = draws.cohort
-        cx, cy = data.cohort_train(plan.idx.clamp(max=self.fed.num_users - 1))
-        rows = torch.arange(self.capacity,
-                            device=plan.idx.device)[:, None, None]
-        bx, by = cx[rows, draws.batch_idx], cy[rows, draws.batch_idx]
-        tx, ty = data.tester_batches(draws.tester_ids, self.eval_batch)
-        new_global, new_scores, new_comp, metrics = self.program.run(
-            self.backend, state.global_params, state.scores,
-            bx=(plan, bx), by=by, tx=tx, ty=ty, draws=draws,
-            round_idx=state.round_idx, counts=data.train_counts,
-            server_data=data.server_batch(self.eval_batch),
-            comp_state=state.comp_state)
+        new_global, new_scores, new_comp, metrics = self._play_cohort(
+            state.global_params, state.scores, state.comp_state,
+            state.round_idx, data, draws)
         return state._replace(global_params=new_global, scores=new_scores,
                               round_idx=state.round_idx + 1,
                               comp_state=new_comp), metrics
+
+    # ------------------------------------------------------ the chunk body
+    def _chunk_round(self, buf: ChunkBuffers):
+        """This tier's round on the static buffers, its results written
+        back into them and the counter advanced: the body a chunk
+        captures. It reads the provider, the round counter, the buffers'
+        generator and their noise key."""
+        state = RoundState(buf.params, buf.scores, buf.counter, buf.gen,
+                           buf.comp, buf.seed)
+        draws = self.draw(state, buf.data, key=(buf.key[0], buf.key[1]))
+        new_global, new_scores, new_comp, metrics = self._play_cohort(
+            buf.params, buf.scores, buf.comp, buf.counter, buf.data, draws)
+        for dst, src in zip(buf.tensors(),
+                            _flat_state(new_global, new_scores, new_comp)):
+            dst.copy_(src)
+        buf.counter.add_(1)
+        return metrics
+
+    def _load_chunk(self, state: RoundState, data) -> ChunkBuffers:
+        if isinstance(data, SyntheticPopulation):
+            raise ValueError(SYNTHETIC_CHUNK_REFUSAL)
+        return super()._load_chunk(state, data)
+
+    def _load_seed(self, buf: ChunkBuffers) -> None:
+        """The noise key of ``buf.seed`` into the buffers' own, which the
+        captured round reads."""
+        key = torch.tensor(noise_key(buf.seed), dtype=torch.int64)
+        if buf.key is None:
+            buf.key = key.to(self.device)
+        else:
+            buf.key.copy_(key)

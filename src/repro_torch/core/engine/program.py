@@ -69,9 +69,10 @@ class RoundDraws(NamedTuple):
     # mask its cohort honours (cohort_from_mask's eff_mask)
     part_mask: torch.Tensor
     # malicious client -> one standard normal per param leaf (tree_leaves
-    # order); None when the attack draws no noise. The population tier
-    # holds only its cohort's malicious members
-    noise: Optional[Dict[int, List[torch.Tensor]]] = None
+    # order); None when the attack draws no noise. The population tier's
+    # is a source its attack draws from by slot (population.KeyedNoise,
+    # or a RecordedNoise replaying given draws)
+    noise: Optional[Any] = None
     # [N, eval_batch] int64 tester eval rows under eval resampling
     # (cross_testing.eval_batch_indices); None keeps the fixed prefix
     eval_idx: Optional[torch.Tensor] = None
@@ -81,8 +82,8 @@ class RoundDraws(NamedTuple):
     # [K, N] uniform reports of the lying testers; None without liars
     lies: Optional[torch.Tensor] = None
     # the population tier's cohort (population.CohortPlan: its slots and
-    # their clients, derived from part_mask and read to the host once a
-    # round); None on the dense engine
+    # their clients on the device, derived from part_mask); None on the
+    # dense engine
     cohort: Optional[Any] = None
 
 

@@ -23,7 +23,7 @@ Runs the FedTest round on the card by default:
   PYTHONPATH=src python -m repro_torch.launch.train --population 4096 \\
       --cohort 32 --testers 8 --testers-from-cohort --rounds 12
 
-  # an LM round (the dense, moe, ssm or hybrid family) on synthetic
+  # an LM round (the dense, moe, ssm, hybrid or vlm family) on synthetic
   # topic-skewed token shards; local training differentiates the
   # kernels' twins, cross-testing runs flash_attention / ssd_scan
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
@@ -36,13 +36,32 @@ Runs the FedTest round on the card by default:
   PYTHONPATH=src python -m repro_torch.launch.train --rounds-per-call 4 \\
       --rounds 10
 
-``--device cpu`` runs on the CPU; ``--device cuda`` without a card
-raises. The flags are ``repro.launch.train``'s, with its defaults, plus
-``--device`` and ``--participation``. ``--population`` runs
-``PopulationTrainer`` over the dense dataset through
-``DensePopulationData``; it does not take ``--dataset lm`` yet (ROADMAP.md
-queue 1), nor ``--rounds-per-call`` above 1 (its round reads the cohort
-plan to the host).
+  # the population tier in chunks of 4 rounds (one CUDA graph of its
+  # round: the cohort plan, the attack's slots and the keyed noise stay
+  # on the card), and its LM round, the cohort of 4 sampled from 256
+  PYTHONPATH=src python -m repro_torch.launch.train --population 4096 \\
+      --cohort 32 --testers 8 --testers-from-cohort --rounds-per-call 4 \\
+      --attack random_weights --rounds 12
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
+      --dataset lm --population 256 --cohort 4 --testers 2 \\
+      --testers-from-cohort --malicious 64 --local-steps 8 --batch 16 \\
+      --optimizer adamw --lr 2e-3 --rounds 3
+
+  # the vlm's round on its text (the reference batches tokens alone, so
+  # patch_proj gets a zero gradient; reduced here: 12B params a client
+  # do not fit one card), and the CI's suppression gate
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu --smoke \\
+      --arch pixtral-12b --dataset lm --users 3 --testers 2 --malicious 1 \\
+      --rounds 2
+  PYTHONPATH=src python -m repro_torch.launch.train --dataset mnist_like \\
+      --fault dropout --malicious 2 --rounds 6 --assert-malicious-below 0.2
+
+``--device cpu`` runs on the CPU (add ``--smoke`` for the reduced
+configs); ``--device cuda`` without a card raises. The flags are
+``repro.launch.train``'s, with its defaults, plus ``--device`` and
+``--participation``. ``--population`` runs ``PopulationTrainer`` over the
+dense dataset (images or LM tokens) through ``DensePopulationData``. The
+encdec family has no LM round (the reference's fails).
 """
 from __future__ import annotations
 
@@ -65,7 +84,6 @@ from repro_torch.configs import (
     scenario_for_population)
 from repro_torch.core import CROSSTEST_IMPLS, FederatedTrainer
 from repro_torch.core.engine import PopulationTrainer, resolve_device
-from repro_torch.core.engine.population import CHUNK_REFUSAL
 from repro_torch.data import (
     CIFAR_LIKE, MNIST_LIKE, DensePopulationData, FederatedDataset,
     build_client_arrays, make_federated_image_dataset, make_token_stream,
@@ -237,6 +255,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--ckpt-every", type=int, default=0,
                     help="save the whole round state every N completed "
                          "rounds (0: the final save only)")
+    ap.add_argument("--assert-malicious-below", type=float, default=None,
+                    help="exit non-zero unless the final round's "
+                         "malicious_weight is below this bar (the CI "
+                         "dropout-suppression gate)")
     ap.add_argument("--resume", action="store_true",
                     help="restore the newest checkpoint from --ckpt-dir "
                          "and continue to --rounds; refuses another run's "
@@ -314,23 +336,14 @@ def build(args: argparse.Namespace, **overrides):
     if lm and cfg.family not in ROUND_LM_FAMILIES:
         raise SystemExit(
             f"--arch {args.arch} ({cfg.family}) has no LM round (ROADMAP.md "
-            "queue 1 item 16's leftovers): "
-            + ("the reference's round fails for encdec: its forward_train "
-               "reads batch['frames'], which RoundProgram.batchify never "
-               "makes (it batches tokens alone)" if cfg.family == "encdec"
-               else "the reference's round batches tokens alone, so it "
-               "trains a vlm on its text without its patches")
-            + "; serve it with repro_torch.launch.serve")
+            "queue 1 item 16's leftovers): the reference's round fails for "
+            "encdec: its forward_train reads batch['frames'], which "
+            "RoundProgram.batchify never makes (it batches tokens alone); "
+            "serve it with repro_torch.launch.serve")
     if lm != (args.dataset == "lm"):
         raise SystemExit(f"--arch {args.arch} ({cfg.family}) and --dataset "
                          f"{args.dataset} do not go together: the LMs take "
                          "--dataset lm, the classifiers an image dataset")
-    if lm and args.population is not None:
-        raise SystemExit("--population does not take --dataset lm yet "
-                         "(ROADMAP.md queue 1)")
-    if args.population is not None and args.rounds_per_call > 1:
-        raise SystemExit(f"--rounds-per-call {args.rounds_per_call} with "
-                         f"--population: {CHUNK_REFUSAL}")
     fed = fed_config(args)
     tc = TrainConfig(optimizer=args.optimizer, lr=args.lr,
                      schedule="constant", batch_size=args.batch,
@@ -346,6 +359,7 @@ def build(args: argparse.Namespace, **overrides):
     if args.population is not None:
         trainer = PopulationTrainer(
             build_model(cfg), fed, tc, device=device,
+            rounds_per_call=args.rounds_per_call,
             testers_from_cohort=args.testers_from_cohort)
         return trainer, DensePopulationData(data), cfg
     trainer = FederatedTrainer(build_model(cfg), fed, tc, device=device,
@@ -423,6 +437,16 @@ def main(argv=None):
               f"({history['wall_s']:.0f}s) -> {args.out}/{tag}.json")
     else:   # resumed at or past the target: nothing ran
         print(f"no rounds to run (already at {completed}/{fed.rounds})")
+
+    if args.assert_malicious_below is not None:
+        final = history["malicious_weight"][-1]
+        if not final < args.assert_malicious_below:
+            raise SystemExit(
+                f"malicious_weight={final:.4f} did not drop below "
+                f"{args.assert_malicious_below} after {completed} "
+                "rounds")
+        print(f"assert ok: malicious_weight={final:.4f} < "
+              f"{args.assert_malicious_below}")
 
 
 if __name__ == "__main__":

@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.attacks import (
-    _random_weights, _scaled_update, _sign_flip)
+    _random_weights, _random_weights_slots, _scaled_update, _sign_flip)
 from repro_torch.strategies.base import ATTACKS, Attack, register
 from repro_torch.utils import tree_map
 
@@ -46,6 +46,11 @@ class RandomWeights(Attack):
     def corrupt(self, key, trained, global_params, ctx=None,
                 client_idx=None):
         return _random_weights(key, trained, global_params, self.scale)
+
+    def corrupt_slots(self, noise, stack, global_params, ctx, clients,
+                      slots):
+        return _random_weights_slots(noise, stack, self.scale, clients,
+                                     slots)
 
 
 @register(ATTACKS, "sign_flip")
@@ -128,7 +133,12 @@ class AdaptiveScale(Attack):
         bad = _sign_flip(key, trained, global_params, self.scale)
         if ctx is None or client_idx is None:
             return bad
+        # a host int, or the population tier's [S] slot clients
         engaged = (ctx.weights[client_idx]
                    >= self.weight_threshold / ctx.num_users)
-        return tree_map(lambda t, b: torch.where(engaged, b.to(t.dtype), t),
-                        trained, bad)
+
+        def pick(t, b):
+            on = engaged.reshape(engaged.shape
+                                 + (1,) * (t.dim() - engaged.dim()))
+            return torch.where(on, b.to(t.dtype), t)
+        return tree_map(pick, trained, bad)

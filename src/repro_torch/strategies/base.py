@@ -262,36 +262,55 @@ class Attack:
             sets[num_users] = frozenset(self.malicious_indices(num_users))
         return sets[num_users]
 
-    def apply(self, noise, stacked_params, global_params, ctx=None,
-              client_ids=None):
-        """Swap corrupted models into the malicious slots of the stack.
-        ``noise`` maps a malicious client index to its draws.
-
-        ``client_ids`` (the population tier) names the client of each of
-        the stack's first ``len(client_ids)`` slots, in a population of
-        ``ctx.num_users``; None: slot c is client c, and N is the stack's
-        length."""
-        if client_ids is None:
-            num_users = tree_leaves(stacked_params)[0].shape[0]
-            slots = [(c, c) for c in self.malicious_indices(num_users)]
-        else:
-            bad_ids = self.malicious_set(ctx.num_users)
-            slots = [(s, c) for s, c in enumerate(client_ids)
-                     if c in bad_ids]
+    def apply(self, noise, stacked_params, global_params, ctx=None):
+        """Swap corrupted models into the malicious slots of the dense
+        stack, slot c holding client c. ``noise`` maps a malicious client
+        index to its draws."""
+        num_users = tree_leaves(stacked_params)[0].shape[0]
+        slots = self.malicious_indices(num_users)
         if not slots:
             return stacked_params
         bad = [self.corrupt(noise[c] if noise is not None else None,
-                            tree_map(lambda a, _s=s: a[_s], stacked_params),
+                            tree_map(lambda a, _c=c: a[_c], stacked_params),
                             global_params, ctx, c)
-               for s, c in slots]
+               for c in slots]
 
         def merge(stack, *bad_leaves):
             out = stack.clone()
-            for (s, _), bl in zip(slots, bad_leaves):
+            for s, bl in zip(slots, bad_leaves):
                 out[s] = bl
             return out
 
         return tree_map(merge, stacked_params, *bad)
+
+    def apply_slots(self, noise, stack, global_params, ctx, clients, bad,
+                    slots):
+        """Step 3 slot-wise, on the device (the population tier): every
+        slot's corrupted model (:meth:`corrupt_slots`), kept where ``bad``
+        and the trained model elsewhere, ``torch.where(bad, corrupted,
+        trained)``. ``clients [S]`` int64 names each slot's client (as a
+        device tensor, so nothing is read to the host), ``bad [S]`` bool
+        flags a filled slot of a malicious client, and ``slots`` is the
+        slots' host range in the cohort (a :class:`RecordedNoise` reads
+        by it). A slot is corrupted bitwise as :meth:`apply` corrupts its
+        client."""
+        if not self.malicious_indices(ctx.num_users):
+            return stack
+        corrupted = self.corrupt_slots(noise, stack, global_params, ctx,
+                                       clients, slots)
+
+        def pick(t, b):
+            keep = bad.reshape((-1,) + (1,) * (t.dim() - 1))
+            return torch.where(keep, b.to(t.dtype), t)
+        return tree_map(pick, stack, corrupted)
+
+    def corrupt_slots(self, noise, stack, global_params, ctx, clients,
+                      slots):
+        """Every slot's corrupted model, leaves ``[S, ...]``. ``corrupt``
+        is elementwise over the tree for every attack without noise, so
+        it broadcasts over the slot axis with ``clients`` as the client
+        index; an attack with noise overrides this."""
+        return self.corrupt(None, stack, global_params, ctx, clients)
 
     def apply_local(self, noise, params, global_params, client_idx: int,
                     num_users: int, ctx=None):

@@ -29,6 +29,7 @@ import torch
 from repro_torch.strategies.base import (
     ATTACKS, Attack, AttackContext, COALITIONS, normalize_placement,
     placement_mask, register, resolve_placement)
+from repro_torch.utils import tree_map
 
 
 class Coalition:
@@ -83,8 +84,9 @@ class CoalitionAttack(Attack):
 
     ``corrupt`` routes each client: the coalition's model attack on
     members (when it has one), the base attack on its own malicious set
-    otherwise. The port's ``Attack.apply`` hands ``client_idx`` as a host
-    int, so the routing is a Python choice. Members of a report-only
+    otherwise. The dense ``Attack.apply`` hands ``client_idx`` as a host
+    int, so the routing is a Python choice; the population tier's
+    :meth:`corrupt_slots` routes its slots by ``torch.where``. Members of a report-only
     coalition keep their honest model but count as malicious."""
 
     name = "coalition"
@@ -118,6 +120,29 @@ class CoalitionAttack(Attack):
             return self.base.corrupt(key, trained, global_params, ctx,
                                      client_idx)
         return trained
+
+    def corrupt_slots(self, noise, stack, global_params, ctx, clients,
+                      slots):
+        """:meth:`corrupt`'s routing on the device: the coalition's model
+        attack on a member's slot, the base attack on one of its own
+        malicious clients, the trained model elsewhere."""
+        def route(mask, corrupted, out):
+            keep = mask(self.num_users, clients.device)[clients] > 0
+            return tree_map(lambda t, b: torch.where(
+                keep.reshape((-1,) + (1,) * (t.dim() - 1)), b.to(t.dtype),
+                t), out, corrupted)
+
+        out = stack
+        if self._base_ids:
+            out = route(self.base.malicious_mask,
+                        self.base.corrupt_slots(noise, stack, global_params,
+                                                ctx, clients, slots), out)
+        if self.coal_attack is not None:
+            out = route(self.coalition.member_mask,
+                        self.coal_attack.corrupt_slots(
+                            noise, stack, global_params, ctx, clients,
+                            slots), out)
+        return out
 
     def __repr__(self) -> str:
         return (f"<attack coalition {self.coalition.name} "

@@ -389,8 +389,7 @@ def test_serve_cli_runs_on_cpu_and_needs_a_card(monkeypatch):
         serve_mod.build(serve_mod.parse_args(["--smoke", "--arch", ARCH]))
 
 
-@pytest.mark.parametrize("arch,what", [("whisper-base", "frames"),
-                                       ("pixtral-12b", "patches")])
+@pytest.mark.parametrize("arch,what", [("whisper-base", "frames")])
 def test_train_cli_refuses_the_lm_round(arch, what, tmp_path):
     with pytest.raises(SystemExit, match=f"item 16.*{what}"):
         train_build(train_args(["--device", "cpu", "--smoke", "--arch", arch,

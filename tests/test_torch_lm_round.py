@@ -479,8 +479,6 @@ def test_cli_builds_the_lm_round(tmp_path):
     (["--arch", "fedtest-cnn", "--dataset", "lm"], "do not go together"),
     (["--smoke", "--arch", "qwen2-0.5b", "--dataset", "cifar_like"],
      "do not go together"),
-    (["--smoke", "--arch", "qwen2-0.5b", "--dataset", "lm", "--population",
-      "8", "--cohort", "4"], "population"),
 ])
 def test_cli_refuses_an_lm_mismatch(argv, match):
     with pytest.raises(SystemExit, match=match):

@@ -65,6 +65,8 @@ from repro_torch.core.cross_testing import (  # noqa: E402
 from repro_torch.core.engine import (  # noqa: E402
     CohortPlan, FederatedTrainer, PopulationBackend, PopulationTrainer,
     RoundDraws, RoundState, cohort_from_mask, recruit_testers)
+from repro_torch.core.engine.population import (  # noqa: E402
+    KeyedNoise, RecordedNoise, client_noise, noise_key)
 from repro_torch.core.scoring import init_scores  # noqa: E402
 from repro_torch.data import (  # noqa: E402
     MNIST_LIKE, DensePopulationData, make_federated_image_dataset,
@@ -133,7 +135,7 @@ def test_testers_from_cohort_match_the_reference_remap(seed):
     pop_count = jnp.maximum(jnp.sum(valid).astype(jnp.int32), 1)
     want = np.asarray(jnp.minimum(idx[tester_ids % pop_count], n - 1))
     count = int(np.asarray(valid).sum())
-    got = recruit_testers(_t(tester_ids), _t(idx).long(), count, n)
+    got = recruit_testers(_t(tester_ids), _t(idx).long(), _t(valid), n)
     np.testing.assert_array_equal(got.numpy(), want)
     assert got.dtype == torch.int32
     if count:
@@ -301,10 +303,13 @@ def test_random_weights_matches_dense_on_one_noise_record(setup):
     sd, sp = dense.init(5), pop.init(5)
     ddraws, pdraws = dense.draw(sd, data), pop.draw(sp, pd)
     cohort_bad = [c for c in pdraws.cohort.ids if c in (5, 6, 7)]
-    assert sorted(pdraws.noise) == cohort_bad
-    # the population's record for its members, the dense draw elsewhere
-    ddraws = ddraws._replace(noise={c: pdraws.noise.get(c, z)
-                                    for c, z in ddraws.noise.items()})
+    assert cohort_bad and pdraws.noise == KeyedNoise(noise_key(5), 0)
+    # the population's keyed noise for its members, the dense draw
+    # elsewhere
+    leaves = tree_leaves(sd.global_params)
+    ddraws = ddraws._replace(noise={
+        c: client_noise(5, 0, c, leaves) if c in cohort_bad else z
+        for c, z in ddraws.noise.items()})
     sd, md = dense.run_round(sd, data, draws=ddraws)
     sp, mp = pop.run_round(sp, pd, draws=pdraws)
     bitwise = _hold_to_dense("random_weights", sd, md, sp, mp,
@@ -314,21 +319,37 @@ def test_random_weights_matches_dense_on_one_noise_record(setup):
 
 
 def test_client_noise_is_a_function_of_the_client_alone(setup):
+    """A malicious member's noise, as the slot-wise attack draws it for
+    the whole cohort at once, is the same whichever cohort samples it and
+    at whichever slot, and is :func:`client_noise`'s bitwise."""
     _, pop = _pair(setup, participation=0.5, cohort=4,
                    attack="random_weights", num_malicious=6)
     pd = DensePopulationData(setup[1])
     state = pop.init(0)
-    seen = {}
+    leaves = tree_leaves(state.global_params)
+    seen, slots = {}, set()
     for seed in range(6):
         # another generator state samples another cohort of this round
         state = state._replace(gen=torch.Generator().manual_seed(seed))
         draws = pop.draw(state, pd)
-        assert len(draws.noise) <= 4
-        for c, z in draws.noise.items():
+        assert isinstance(draws.noise, KeyedNoise)
+        plan = draws.cohort
+        clients = plan.idx.clamp(max=N - 1)
+        blocks = [draws.noise.block(i, range(4), clients, 0, leaf.numel())
+                  for i, leaf in enumerate(leaves)]
+        for s, c in enumerate(plan.ids):
+            if c < 2:            # the honest clients of 6 malicious of 8
+                continue
+            z = [b[s] for b in blocks]
             if c in seen:
                 assert all(torch.equal(a, b) for a, b in zip(z, seen[c]))
+            else:
+                want = client_noise(0, 0, c, leaves)
+                assert all(torch.equal(a, b.reshape(-1))
+                           for a, b in zip(z, want))
             seen[c] = z
-    assert len(seen) >= 3
+            slots.add((c, s))
+    assert len(seen) >= 3 and len(slots) > len(seen)
 
 
 # ------------------------------------------------------ int8 on the cohort
@@ -482,12 +503,14 @@ def _replay_population(tmp_path=None):
                         jax.tree_util.tree_leaves(jglobal)):
             np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
     ids = tuple(int(i) for i in np.asarray(idx)[np.asarray(valid) > 0])
+    # the reference's per-client noise, replayed by slot
     draws = RoundDraws(
         batch_idx=_t(bidx).long(), tester_ids=_t(tester_ids),
         part_mask=_t(eff),
-        noise={c: [_t(z) for z in zs] for c, zs in noise.items()
-               if c in ids},
-        cohort=CohortPlan(_t(idx).long(), _t(valid).float(), ids))
+        noise=RecordedNoise({s: [_t(z) for z in noise[c]]
+                             for s, c in enumerate(ids) if c in noise}),
+        cohort=CohortPlan(_t(idx).long(), _t(valid).float()))
+    assert draws.cohort.ids == ids
     ttrainer.backend = _Acc(ttrainer.backend)
     tnew, tmetrics = ttrainer.run_round(tstate, pd, draws=draws)
     np.testing.assert_array_equal(
@@ -556,8 +579,12 @@ def test_a_draw_at_100k_clients_holds_at_most_c_noise_records(mlp):
     state = trainer.init(0)
     draws = trainer.draw(state, pop)
     assert len(draws.cohort.ids) <= c and draws.batch_idx.shape == (c, 1, 2)
-    assert 0 < len(draws.noise) <= c
-    assert set(draws.noise) <= set(draws.cohort.ids) & set(range(80_000, n))
+    # the noise is keyed, not held: the draws hold nothing above [N]
+    assert draws.noise == KeyedNoise(noise_key(0), 0)
+    assert set(draws.cohort.ids) & set(range(80_000, n))
+    held = [t for t in draws if isinstance(t, torch.Tensor)]
+    held += list(draws.cohort)
+    assert max(t.numel() for t in held) <= n
     state, metrics = trainer.run_round(state, pop, draws=draws)
     w = metrics["weights"]
     outside = torch.ones(n, dtype=torch.bool)

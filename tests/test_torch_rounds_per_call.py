@@ -21,8 +21,8 @@ counter, in a loop. Here, at the reference tests' tiny CNN (and an MLP):
   boundaries: tester ids and participation masks those of single rounds;
 * the device counter ends at the host's round; one capture a trainer,
   so a chunk on another dataset is refused; eval rows follow each
-  chunk's seed; the population tier and ``--population`` refuse R > 1;
-  the train CLI takes the flag;
+  chunk's seed; the train CLI takes the flag (the population tier's
+  chunks are held in ``tests/test_torch_population_chunk.py``);
 * one LM round chunk (reduced ``qwen2-0.5b``) bitwise two single rounds.
 
 Torch runs on one thread here, as in ``tests/test_torch_lm_round.py``:
@@ -49,7 +49,6 @@ from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.config import FedConfig, TrainConfig  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import FederatedTrainer  # noqa: E402
-from repro_torch.core.engine import PopulationTrainer  # noqa: E402
 from repro_torch.data import (  # noqa: E402
     MNIST_LIKE, make_federated_image_dataset)
 from repro_torch.launch import train as train_mod  # noqa: E402
@@ -389,23 +388,6 @@ def test_a_second_capture_raises(mlp):
 def test_rounds_per_call_below_one_is_refused(mlp):
     with pytest.raises(ValueError, match="rounds_per_call"):
         _trainer(mlp, rounds_per_call=0)
-
-
-def test_population_tier_refuses_chunks(mlp):
-    model, _, tc = mlp
-    fed = FedConfig(num_users=12, cohort=4, participation=4 / 12,
-                    num_testers=2, local_steps=1)
-    with pytest.raises(ValueError, match="cohort plan"):
-        PopulationTrainer(model, fed, tc, device="cpu", rounds_per_call=2)
-
-
-def test_cli_refuses_population_with_rounds_per_call():
-    args = train_mod.parse_args([
-        "--device", "cpu", "--arch", "fedtest-mlp-mnist", "--dataset",
-        "mnist_like", "--population", "12", "--cohort", "4",
-        "--rounds-per-call", "2", "--samples", "600"])
-    with pytest.raises(SystemExit, match="cohort plan"):
-        train_mod.build(args)
 
 
 def test_cli_runs_chunks_on_the_cpu(tmp_path):

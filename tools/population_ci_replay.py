@@ -182,12 +182,10 @@ def port_state(jstate, ttrainer, round_idx: int) -> RoundState:
 
 def port_draws(draws, n: int) -> RoundDraws:
     tester_ids, eff, idx, valid, bidx = draws
-    ids = tuple(int(i) for i in np.asarray(idx)[np.asarray(valid) > 0])
-    assert all(i < n for i in ids)
+    plan = CohortPlan(_t(idx).long(), _t(valid).float())
+    assert all(i < n for i in plan.ids)
     return RoundDraws(batch_idx=_t(bidx).long(), tester_ids=_t(tester_ids),
-                      part_mask=_t(eff), noise=None,
-                      cohort=CohortPlan(_t(idx).long(), _t(valid).float(),
-                                        ids))
+                      part_mask=_t(eff), noise=None, cohort=plan)
 
 
 def compare(tstate, tmetrics, tacc, jstate, jmetrics, jacc):
