@@ -126,17 +126,30 @@ toolkit (``nvcc``), and exits non-zero on the first phase that fails.
    (8, 16, 16) channels over a synthetic MNIST-like population, 12
    rounds): ``weighted_aggregate`` once a round and no other kernel, and
    the mean malicious weight below the attackers' share (0.2002); the
-   CI's gate (the last round below 0.1) is printed, not held. Then the
+   CI's gate (the last round below 0.1) is printed, not held; the same
+   rounds again as 3 chunks of 4 replays of one CUDA graph, the state
+   and every round's malicious weight bitwise the eager run's; and once
+   more with its slots trained in groups of 8 (``train_block``, P3's
+   reference). Then the
    population phases:
    ``PopulationTrainer`` over ``make_synthetic_population`` (shards
-   drawn on gather), ``fedtest-cnn`` at full width, a cohort of 64, 8
+   drawn on gather from keyed Philox counters, on the card; a cohort's
+   draw equal to the CPU's, the labels bitwise), ``fedtest-cnn`` at full
+   width, a cohort of 64, 8
    testers from it, cross-testing in tiles of 16, ``random_weights``
-   from 20 % of the clients, 3 rounds at N = 1,000 and at N = 100,000:
+   from 20 % of the clients, 4 rounds at N = 1,000 and at N = 100,000:
    the checks of G (every honest member's slot left bitwise by the
    attack, every malicious member's corrupted), and the allocator's peak
    at N = 100,000 less than 1 GiB above the peak at N = 1,000; then int8 at N = 10,000: ``dequant_aggregate``
    once a round and no other kernel, and 1,000 error-feedback rows of
-   clients outside each round's cohort unchanged, bitwise. Then phase P,
+   clients outside each round's cohort unchanged, bitwise. At N = 100,000
+   and in int8 the 4 rounds run again from the same init as 1 eager
+   round (under ``torch.cuda.set_sync_debug_mode("error")``) and a chunk
+   of 3 replays of one CUDA graph of the round: bitwise (params, scores,
+   error feedback, generator, every round's metrics), one capture, the
+   aggregation kernel once a replay by the profiler and its output equal
+   to the plain version; eager, graphed and device ms a round, the
+   kernels a replay and the peak printed. Then phase P,
    the pod round (one client a rank of a ``torch.distributed`` group; 4
    ranks, each a process, share the card through gloo, every collective
    staged through host memory). P1: ``PodTrainer``, the pod CLI's
@@ -162,7 +175,10 @@ toolkit (``nvcc``), and exits non-zero on the first phase that fails.
    reference CI's pod-smoke commands (ring with sign_flip; allgather at
    participation 0.75; int8 for 6 rounds, ``dequant_aggregate`` once a
    round) and its population-smoke command (C = 32 over 4 ranks, 12
-   rounds, its malicious weights bitwise the unsharded CI run's above)
+   rounds, its malicious weights bitwise the unsharded CI run's above
+   with its slots trained in the 4 ranks' groups of 8: a vmap's width
+   changes how the card rounds a slot's training, and the one-group
+   run's series parts from the sharded one by rounding)
    through ``python -m repro_torch.launch.federated --dist-backend
    gloo``, each exiting 0 with rank 0's kernel once a round; meanwhile
    P1's round at world size 1 under nccl, whose collectives run on the
@@ -314,6 +330,10 @@ F_ARGS = RUN_ARGS + ["--scenario", "paper_lying_testers"]
 # count pays them
 CI_POPULATION, CI_COHORT, CI_TESTERS, CI_MALICIOUS = 4096, 32, 8, 820
 CI_STEPS, CI_BATCH, CI_LR, CI_ROUNDS, CI_GATE = 4, 8, 0.1, 12, 0.1
+CI_RPC = 4                # the job again as chunks of CI_RPC replays
+# the ranks the pod CLI shards the job's cohort over (P3); the unsharded
+# reference trains its slots in their groups of CI_COHORT // CI_RANKS
+CI_RANKS = 4
 # G: that job's population, cohort, testers, attack, dataset and lr
 # through the train CLI, which builds fedtest-cnn-mnist at full width over
 # the dense dataset (40 samples a client); its malicious weight is
@@ -335,7 +355,10 @@ FULL_WIDTH_PARAMS = {"fedtest-cnn": 188_810, "fedtest-cnn-mnist": 188_234}
 # POP_INT8_SIZE clients, where the [N, D] error feedback (7.6 GB) fits
 POP_SIZES = (1_000, 100_000)
 POP_INT8_SIZE = 10_000
-POP_COHORT, POP_TESTERS, POP_BLOCK, POP_ROUNDS = 64, 8, 16, 3
+POP_COHORT, POP_TESTERS, POP_BLOCK, POP_ROUNDS = 64, 8, 16, 4
+# the chunk phases (N = 100,000 and int8): 1 eager round and a chunk of
+# POP_RPC replays against the POP_ROUNDS eager rounds
+POP_RPC = POP_ROUNDS - 1
 POP_PER_CLIENT = 16
 POP_UNTOUCHED = 1_000     # non-cohort error-feedback rows checked a round
 TRIM = 0.2
@@ -578,7 +601,8 @@ POD_CLI = (
               "--attack", "sign_flip", "--attack-scale", "4",
               "--malicious", "1", "--min-classes", "8", "--local-steps",
               "10", "--batch", "16"], 6, "dequant_aggregate"),
-    ("population", ["--clients", "4", "--population", str(CI_POPULATION),
+    ("population", ["--clients", str(CI_RANKS), "--population",
+                    str(CI_POPULATION),
                     "--cohort", str(CI_COHORT), "--rounds", str(CI_ROUNDS),
                     "--attack", "sign_flip", "--malicious",
                     str(CI_MALICIOUS), "--testers", str(CI_TESTERS),
@@ -2849,8 +2873,13 @@ def phase_population_ci(torch, card):
     the run, must show one ``weighted_aggregate`` a round and no other
     kernel; every value must be finite, and the mean malicious weight
     over the rounds below the attackers' share of the population. The
-    CI's gate on the last round is printed beside it. Returns the
-    phase's numbers."""
+    CI's gate on the last round is printed beside it. Then the same
+    rounds from the same init as chunks of CI_RPC replays of one CUDA
+    graph: the state and every round's malicious weight bitwise the
+    eager run's. Then the same job with its slots trained in the groups
+    of CI_RANKS ranks (``train_block``), the run P3 holds the pod CLI's
+    sharded one to. Returns the phase's numbers."""
+    import dataclasses
     from repro_torch.kernels.weighted_aggregate import plan_launches
     from repro_torch.utils import tree_leaves
 
@@ -2892,11 +2921,58 @@ def phase_population_ci(torch, card):
     check(mean < share,
           f"CI population-smoke: mean malicious weight {mean:.5f} is not "
           f"below the attackers' share {share:.5f}")
+    # the same rounds as chunks of CI_RPC replays of one CUDA graph
+    chunked = dataclasses.replace(trainer, rounds_per_call=CI_RPC)
+    g_state, g_mal = chunked.init(), []
+    reset_counts(kernel_ops)
+    t0 = time.perf_counter()
+    for _ in range(CI_ROUNDS // CI_RPC):
+        g_state, stacked = chunked.run_chunk(g_state, data)
+        g_mal += [float(v) for v in stacked["malicious_weight"]]
+    torch.cuda.synchronize()
+    chunk_wall = (time.perf_counter() - t0) * 1e3
+    chunk_launches = kernel_ops["weighted_aggregate"].launches
+    check(chunk_launches == 2 * per_round,
+          f"CI population-smoke chunks: the wrapper counted "
+          f"{chunk_launches}, want {2 * per_round} (the warm-up's and the "
+          f"capture's)")
+    check(g_mal == mal, f"CI population-smoke: the malicious weights of "
+          f"{CI_ROUNDS // CI_RPC} chunks of {CI_RPC} {g_mal} equal the "
+          f"eager run's bitwise")
+    tensors = _bitwise(torch, state, g_state,
+                       f"CI population-smoke: {CI_ROUNDS // CI_RPC} chunks "
+                       f"of {CI_RPC} against {CI_ROUNDS} eager rounds")
+    print(f"CI population-smoke: {CI_ROUNDS // CI_RPC} chunks of {CI_RPC} "
+          f"graph replays bitwise the eager run ({tensors} tensors, every "
+          f"round's malicious weight) in {chunk_wall:.1f} ms, the capture "
+          f"included; {card}")
+    # P3's reference: the same job with its slots trained in the groups
+    # the pod CLI's CI_RANKS ranks train them in (a vmap's width changes
+    # how the card rounds a slot's training)
+    grouped = dataclasses.replace(trainer, train_block=c // CI_RANKS)
+    reset_counts(kernel_ops)
+    _, ghist = grouped.run(data)
+    grouped_launches = kernel_ops["weighted_aggregate"].launches
+    check(grouped_launches == per_round * CI_ROUNDS,
+          f"CI population-smoke in groups: {grouped_launches} launches, "
+          f"want {per_round * CI_ROUNDS}")
+    grouped_mal = [float(v) for v in ghist["malicious_weight"]]
+    parted = next((r + 1 for r, (a, b) in enumerate(zip(mal, grouped_mal))
+                   if a != b), None)
+    print(f"CI population-smoke with its slots trained in groups of "
+          f"{c // CI_RANKS}: malicious weight a round "
+          f"{[round(v, 5) for v in grouped_mal]}; the one-group run's "
+          f"series {'parts from it at round ' + str(parted) if parted else 'equals it bitwise'}; "
+          f"{card}")
     return {"clients": n, "cohort": c, "malicious_weight": mal,
             "global_acc": acc, "mean_malicious_weight": mean,
             "attackers_share": share, "ci_gate": CI_GATE,
             "ci_gate_held": held, "wall_ms": wall,
-            "launches": counts["weighted_aggregate"]}
+            "chunked_wall_ms": chunk_wall,
+            "grouped_malicious_weight": grouped_mal,
+            "grouped_parts_at_round": parted,
+            "launches": (counts["weighted_aggregate"] + chunk_launches
+                         + grouped_launches)}
 
 
 # ------------------------------------------------------------ phase P
@@ -3431,9 +3507,9 @@ def phase_pod_cli(torch, card, ci_malicious):
     (``pod_nccl``). Each must exit 0 with finite values and rank 0's
     kernel a round and no other; the population run's malicious weight a
     round must equal, bitwise, the unsharded ``PopulationTrainer`` run of
-    the same flags and seed (``ci_malicious``, from
-    ``phase_population_ci``). Each final malicious weight is printed
-    beside the CI's bar of 0.1."""
+    the same flags and seed with its slots trained in the ranks' groups
+    (``ci_malicious``, from ``phase_population_ci``). Each final
+    malicious weight is printed beside the CI's bar of 0.1."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     scratch = tempfile.mkdtemp(prefix="chip_smoke_pod_")
     t0 = time.perf_counter()
@@ -3491,8 +3567,9 @@ def phase_pod_cli(torch, card, ci_malicious):
         check(sharded == ci_malicious,
               f"P3: the sharded population's malicious weights {sharded} "
               f"equal the unsharded run's {ci_malicious}")
-        print(f"P3 population-smoke, C = {CI_COHORT} over 4 ranks: its "
-              f"{CI_ROUNDS} malicious weights equal the unsharded run's "
+        print(f"P3 population-smoke, C = {CI_COHORT} over {CI_RANKS} "
+              f"ranks: its {CI_ROUNDS} malicious weights equal the "
+              f"unsharded run's (its slots trained in the ranks' groups) "
               f"bitwise; last {sharded[-1]:.5f} against the CI's bar "
               f"{CI_GATE}")
         out["nccl"] = nccl
@@ -3502,10 +3579,12 @@ def phase_pod_cli(torch, card, ci_malicious):
         shutil.rmtree(scratch, ignore_errors=True)
 
 
-def phase_population(torch, card, n, compressor="identity"):
+def phase_population(torch, card, n, compressor="identity", chunk=False):
     """POP_ROUNDS rounds of ``PopulationTrainer`` over a synthetic
     population of ``n`` clients (``make_synthetic_population``, 16 rows a
-    client drawn on gather), ``fedtest-cnn`` at full width, a cohort of
+    client drawn on gather from keyed Philox counters, on the card; a
+    cohort's draw equal to the same draw on the CPU, the labels bitwise
+    and the images within 1e-5), ``fedtest-cnn`` at full width, a cohort of
     POP_COHORT, POP_TESTERS testers from it, cross-testing in tiles of
     POP_BLOCK models, ``random_weights`` from 20 % of the clients, 10
     local steps of batch 32. Each round is held to its draws
@@ -3515,16 +3594,15 @@ def phase_population(torch, card, n, compressor="identity"):
     step-7 output must equal the plain version. With ``int8``, POP_UNTOUCHED
     error-feedback rows of clients outside each round's cohort (drawn with
     a fixed seed) must come out of the round bitwise. The allocator's
-    peak is read from a reset before the population is built. Returns the
+    peak is read from a reset before the population is built. With
+    ``chunk``, the same rounds again from the same init as one eager round
+    and a chunk of POP_RPC replays (``population_chunk``). Returns the
     phase's numbers."""
     import numpy as np
     from repro_torch.config import FedConfig, TrainConfig
     from repro_torch.configs import get_config
     from repro_torch.core.engine import PopulationTrainer
     from repro_torch.data import make_synthetic_population
-    from repro_torch.kernels.dequant_aggregate import dequant_aggregate_ref
-    from repro_torch.kernels.weighted_aggregate import (
-        plan_launches, weighted_aggregate_ref)
     from repro_torch.models import build_model
     from repro_torch.utils import tree_leaves
 
@@ -3541,6 +3619,7 @@ def phase_population(torch, card, n, compressor="identity"):
     t0 = time.perf_counter()
     data = make_synthetic_population(n, per_client=POP_PER_CLIENT,
                                      image_size=32, channels=3, seed=0)
+    shards_err = keyed_shards_on_cpu(torch, label, data)
     fed = FedConfig(num_users=n, num_testers=POP_TESTERS,
                     num_malicious=n // 5, attack="random_weights",
                     local_steps=10, cohort=POP_COHORT,
@@ -3588,7 +3667,7 @@ def phase_population(torch, card, n, compressor="identity"):
     rng = np.random.default_rng(0)
     torch.cuda.synchronize()
     reset_counts(kernel_ops)
-    walls, corrupted, rows = [], [], []
+    walls, corrupted, rows, eager_metrics = [], [], [], []
     for _ in range(POP_ROUNDS):
         step_ms.clear()
         before = state.scores.scores
@@ -3603,6 +3682,7 @@ def phase_population(torch, card, n, compressor="identity"):
         state, metrics = trainer.run_round(state, data, draws=draws)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t) * 1e3)
+        eager_metrics.append(metrics)
         (_, _, models, *_), attacked = seen["attack"]
         corrupted.append(check_cohort_round(
             torch, label, trainer, draws, before, metrics,
@@ -3633,42 +3713,223 @@ def phase_population(torch, card, n, compressor="identity"):
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     counts = {name: op.launches for name, op in kernel_ops.items()}
-    if compressor == "identity":
-        op_name = "weighted_aggregate"
-        sizes = [p.numel() for p in tree_leaves(state.global_params)]
-        per_round = len(plan_launches(sizes, [True] * len(sizes), 4))
-        (models, weights, _), out = seen["aggregate"]
-        stack, w = cohort_operands(models, weights)
-        pairs = [(got.reshape(-1), weighted_aggregate_ref(
-            x.reshape(x.shape[0], -1), w))
-            for got, x in zip(tree_leaves(out), tree_leaves(stack))]
-    else:
-        op_name, per_round = "dequant_aggregate", 1
-        # the population backend's payloads go out tagged with the plan
-        (comp, (plan, payloads), _, weights), out = seen["aggregate"]
-        w = slot_weights(plan, weights)
-        pairs = [(out, dequant_aggregate_ref(
-            w, payloads["scales"], payloads["q"], comp.chunk)[:comp.dim])]
-        check(tuple(payloads["q"].shape) == (POP_COHORT, comp.padded_dim),
-              f"{label}: int8 payloads {tuple(payloads['q'].shape)}")
+    op_name = ("weighted_aggregate" if compressor == "identity"
+               else "dequant_aggregate")
+    per_round = aggregate_launches(op_name, state.global_params)
+    worst = held_to_plain(torch, label, op_name, *seen["aggregate"])
     want = {name: (per_round * POP_ROUNDS if name == op_name else 0)
             for name in kernel_ops}
     check(counts == want
           and kernel_ops["decode_attention"].merge_launches == 0,
           f"{label} launches {counts}, want {want}")
-    worst = 0.0
-    for got, want_t in pairs:
-        torch.testing.assert_close(got, want_t, rtol=1e-5, atol=1e-6)
-        worst = max(worst, float((got - want_t).abs().max()))
     print(f"{label}: launches {counts}; the last round's {op_name} output "
           f"== plain version on its own inputs (max |err| {worst:.3g}); "
           f"allocator peak {peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f}"
           f" GiB above the {base / 2**30:.3f} GiB held before it); {card}")
-    return {"clients": n, "cohort": POP_COHORT, "testers": POP_TESTERS,
-            "compressor": compressor, "rounds": rows,
-            "launches": counts[op_name], "op": op_name,
-            "max_abs_err": worst, "peak_bytes": peak,
-            "peak_above_base_bytes": peak - base}
+    out = {"clients": n, "cohort": POP_COHORT, "testers": POP_TESTERS,
+           "compressor": compressor, "rounds": rows,
+           "launches": counts[op_name], "op": op_name,
+           "max_abs_err": worst, "peak_bytes": peak,
+           "peak_above_base_bytes": peak - base,
+           "shards_cpu_max_abs_err": shards_err}
+    if chunk:
+        # the data's step timers synchronise, which a capture refuses
+        del data.cohort_train, data.tester_batches
+        seen.clear()
+        out["chunk"] = population_chunk(
+            torch, card, label, trainer, data, state, eager_metrics, walls,
+            op_name, per_round)
+    return out
+
+
+def aggregate_launches(op_name, params) -> int:
+    """Step 7's kernel launches a round: ``weighted_aggregate``'s grouped
+    launches over ``params``' leaves, or one ``dequant_aggregate``."""
+    from repro_torch.kernels.weighted_aggregate import plan_launches
+    from repro_torch.utils import tree_leaves
+    if op_name != "weighted_aggregate":
+        return 1
+    sizes = [p.numel() for p in tree_leaves(params)]
+    return len(plan_launches(sizes, [True] * len(sizes), 4))
+
+
+def held_to_plain(torch, label, op_name, args, out) -> float:
+    """A population round's step 7 (``weighted_sum`` or
+    ``compressed_sum``, called with ``args``, gave ``out``) against the
+    plain version on the same operands, rtol 1e-5, atol 1e-6; returns
+    the largest |error|."""
+    from repro_torch.kernels.dequant_aggregate import dequant_aggregate_ref
+    from repro_torch.kernels.weighted_aggregate import weighted_aggregate_ref
+    from repro_torch.utils import tree_leaves
+    if op_name == "weighted_aggregate":
+        models, weights, _ = args
+        stack, w = cohort_operands(models, weights)
+        pairs = [(got.reshape(-1), weighted_aggregate_ref(
+            x.reshape(x.shape[0], -1), w))
+            for got, x in zip(tree_leaves(out), tree_leaves(stack))]
+    else:
+        # the population backend's payloads go out tagged with the plan
+        comp, (plan, payloads), _, weights = args
+        w = slot_weights(plan, weights)
+        pairs = [(out, dequant_aggregate_ref(
+            w, payloads["scales"], payloads["q"], comp.chunk)[:comp.dim])]
+        check(tuple(payloads["q"].shape) == (POP_COHORT, comp.padded_dim),
+              f"{label}: int8 payloads {tuple(payloads['q'].shape)}")
+    worst = 0.0
+    for got, want in pairs:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+        worst = max(worst, float((got - want).abs().max()))
+    return worst
+
+
+def keyed_shards_on_cpu(torch, label, data) -> float:
+    """A cohort's keyed shards drawn on the card against the same draw
+    on the CPU (the population's prototypes copied there): the labels
+    bitwise, the images within 1e-5 (the normals' ``log``, ``cos`` and
+    ``sin`` may round apart by an ulp). Returns the images' largest
+    |error|."""
+    import dataclasses
+    n = data.num_clients
+    ids = torch.cat([torch.arange(4), torch.randperm(
+        n, generator=torch.Generator().manual_seed(1))[:POP_COHORT - 8],
+        torch.arange(n - 4, n)])
+    on_cpu = dataclasses.replace(data, protos=data.protos.cpu())
+    gx, gy = data.cohort_train(ids.to(data.protos.device))
+    cx, cy = on_cpu.cohort_train(ids)
+    check(torch.equal(gy.cpu(), cy),
+          f"{label}: the keyed labels on the card equal the CPU's")
+    torch.testing.assert_close(gx.cpu(), cx, rtol=1e-5, atol=1e-5)
+    err = float((gx.cpu() - cx).abs().max())
+    print(f"{label}: a cohort's keyed shards ({tuple(gx.shape)}) on the "
+          f"card against the CPU's: labels bitwise, images max |err| "
+          f"{err:.3g}")
+    return err
+
+
+def population_chunk(torch, card, label, trainer, data, state, eager,
+                     walls, op_name, per_round):
+    """The population phase's POP_ROUNDS eager rounds (``state`` after
+    them, ``eager`` their metrics) again from the same init through a
+    trainer at ``rounds_per_call`` = POP_RPC: one eager round, under
+    ``torch.cuda.set_sync_debug_mode("error")`` (the keyed gather and
+    the round read nothing to the host), then one chunk of POP_RPC
+    replays of one CUDA graph of the round. The end state (params,
+    scores, error feedback, generator) and every round's metrics must
+    equal the eager run's bitwise; one capture; the wrappers, set to 0
+    before the eager round, count its launches, the warm-up's and the
+    capture's, and no other kernel. Then POP_RPC replays back
+    to back (CUDA events around each: the device's ms of a round; the
+    host clock around them all: graphed), one replay profiled, which
+    must launch ``op_name``'s kernel ``per_round`` times, and that
+    replay's step-7 output (the operands the capture recorded, rewritten
+    by each replay) held to the plain version. The allocator's peak is
+    read from a reset before the chunk's trainer is built."""
+    import dataclasses
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    graphed = dataclasses.replace(trainer, rounds_per_call=POP_RPC)
+    captures, recorded = [], {}
+    capture = graphed._capture
+
+    def counting(buf):
+        captures.append(buf)
+        return capture(buf)
+    graphed._capture = counting
+    backend = graphed.backend
+    for method in ("weighted_sum", "compressed_sum"):
+        def record(*args, _fn=getattr(backend, method)):
+            out = _fn(*args)
+            recorded["aggregate"] = (args, out)
+            return out
+        setattr(backend, method, record)
+
+    g_state = graphed.init()
+    kernel_ops = ops()
+    torch.cuda.synchronize()
+    reset_counts(kernel_ops)
+    t = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        g_state, first = graphed.run_round(g_state, data)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    g_state, stacked = graphed.run_chunk(g_state, data)
+    torch.cuda.synchronize()
+    chunk_ms = (time.perf_counter() - t) * 1e3
+    counted = {name: op.launches for name, op in kernel_ops.items()}
+    want = {name: (3 * per_round if name == op_name else 0)
+            for name in kernel_ops}
+    check(counted == want,
+          f"{label}: the wrappers counted {counted} over the eager round "
+          f"and the chunk, want {want} (the eager round's, the warm-up's "
+          f"and the capture's; a replay calls no wrapper)")
+    check(len(captures) == 1 and graphed.chunk.graph is not None,
+          f"{label}: one CUDA graph captured, got {len(captures)}")
+    n = _bitwise(torch, state, g_state,
+                 f"{label}: 1 eager round and a chunk of {POP_RPC} replays "
+                 f"against {POP_ROUNDS} eager rounds")
+    rounds = [first] + [{k: v[i] for k, v in stacked.items()}
+                        for i in range(POP_RPC)]
+    differ = sorted({k for i, m in enumerate(rounds) for k, v in m.items()
+                     if not torch.equal(_bits(torch, v),
+                                        _bits(torch, eager[i][k]))})
+    check(not differ and len(rounds) == len(eager),
+          f"{label}: every round's metrics bitwise the eager rounds' "
+          f"(differ: {differ})")
+
+    graph = graphed.chunk.graph
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(POP_RPC)]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for start, end in events:
+        start.record()
+        graph.replay()
+        end.record()
+    torch.cuda.synchronize()
+    graphed_round = (time.perf_counter() - t) * 1e3 / POP_RPC
+    device_ms = [start.elapsed_time(end) for start, end in events]
+    counts, trace_ms, trace_launches = graph_launches(
+        torch, graph.replay, [GRAPH_KERNELS[op_name]])
+    want = {GRAPH_KERNELS[op_name]: per_round}
+    check(dict(counts) == want,
+          f"{label}: a replay launches {dict(counts)} by the profiler, "
+          f"want {want}")
+    worst = held_to_plain(torch, label, op_name, *recorded["aggregate"])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    steady = walls[1:]
+    eager_round = sum(steady) / len(steady)
+    device_round = sum(device_ms) / len(device_ms)
+    out = {"rounds": POP_ROUNDS, "rounds_per_call": POP_RPC,
+           "tensors_bitwise": n, "eager_round_ms": eager_round,
+           "chunk_first_eager_ms": first_ms, "first_chunk_ms": chunk_ms,
+           "graphed_round_ms": graphed_round, "device_round_ms": device_ms,
+           "device_round_mean_ms": device_round,
+           "replay_launches": dict(counts),
+           "replay_trace_launches": trace_launches,
+           "replay_trace_device_ms": trace_ms,
+           "launches": counted[op_name],
+           "replays": POP_RPC * 2 + 1,
+           "replay_max_abs_err": worst, "peak_bytes": peak,
+           "phase_s": time.perf_counter() - t0, "card": card}
+    print(f"{label} chunk: 1 eager round (no sync, {first_ms:.3f} ms) + "
+          f"{POP_RPC} replays bitwise {POP_ROUNDS} eager rounds ({n} "
+          f"tensors, every round's metrics); a round: eager "
+          f"{eager_round:.3f} ms, graphed {graphed_round:.3f} ms, device "
+          f"{device_round:.3f} ms; first chunk (warm-up + capture + "
+          f"{POP_RPC} replays) {chunk_ms:.1f} ms; a replay launches "
+          f"{dict(counts)} of {trace_launches} kernels ({trace_ms:.3f} ms "
+          f"by the profiler), its {op_name} output == plain version (max "
+          f"|err| {worst:.3g}); allocator peak {peak / 2**30:.3f} GiB; "
+          f"phase {out['phase_s']:.1f} s; {card}")
+    return out
 
 
 def phase_comparison(torch, card):
@@ -5149,13 +5410,17 @@ def run_phases(torch, card, t_start, dryruns, dry_dir) -> int:
     rows.update(phase_fold_times(torch, peaks, lm))
     population["ci"] = phase_population_ci(torch, card)
     launches["weighted_aggregate"] += population["ci"]["launches"]
-    # the population phases: memory flat in N, and int8 on the cohort
+    # the population phases: memory flat in N, and int8 on the cohort;
+    # the largest and int8 again as a chunk of CUDA graph replays
     for n in POP_SIZES:
-        population[str(n)] = phase_population(torch, card, n)
+        population[str(n)] = phase_population(torch, card, n,
+                                              chunk=n == POP_SIZES[-1])
     population["int8"] = phase_population(torch, card, POP_INT8_SIZE,
-                                          "int8")
+                                          "int8", chunk=True)
     for key in [str(n) for n in POP_SIZES] + ["int8"]:
-        launches[population[key]["op"]] += population[key]["launches"]
+        row = population[key]
+        launches[row["op"]] += row["launches"] + row.get(
+            "chunk", {}).get("launches", 0)
     small, large = (population[str(n)]["peak_bytes"] for n in POP_SIZES)
     print(f"population: allocator peak {small / 2**30:.3f} GiB at "
           f"N={POP_SIZES[0]:,}, {large / 2**30:.3f} GiB at "
@@ -5169,7 +5434,7 @@ def run_phases(torch, card, t_start, dryruns, dry_dir) -> int:
     free_memory(torch)
     pod = phase_pod(torch, card)
     pod["cli"] = phase_pod_cli(torch, card,
-                               population["ci"]["malicious_weight"])
+                               population["ci"]["grouped_malicious_weight"])
     for op, n in pod["launches"].items():
         launches[op] = launches.get(op, 0) + n
     # the nccl round's; the CLI runs' rank 0 (each rank launches as many)

@@ -4,9 +4,9 @@
 * atomic saves: a checkpoint is written to a temporary file in the same
   directory and moved into place with ``os.replace``, so a crash or a
   kill mid-write never leaves a truncated ``ckpt_*.npz``;
-* ``restore_with_step`` walks the steps newest-first and skips, with a
-  warning, a checkpoint that fails to load into the template (torn,
-  corrupt or foreign);
+* ``restore_with_step`` (and ``restore``, the tree alone) walks the
+  steps newest-first and skips, with a warning, a checkpoint that fails
+  to load into the template (torn, corrupt or foreign);
 * ``save`` writes the run manifest (:mod:`.manifest`) beside the first
   checkpoint and refuses, on a later save, a manifest that differs from
   the one on disk; the trainer checks it before restoring;
@@ -35,9 +35,9 @@ MANIFEST_NAME = "manifest.json"
 class CheckpointManager:
     """Keeps the ``keep`` newest round-state checkpoints in a directory.
 
-    ``save_every`` is the cadence policy of ``should_save``: the trainer
-    asks ``should_save(step)`` after every round, so it copies the state
-    to the host only for a save
+    ``save_every`` is the cadence policy of ``should_save`` and
+    ``maybe_save``: the trainer asks ``should_save(step)`` after every
+    round, so it copies the state to the host only for a save
     (``save_every <= 0`` disables periodic saves; ``save`` always
     writes). A state is a tree of numpy leaves
     (``FederatedTrainer.state_dict``).
@@ -115,6 +115,15 @@ class CheckpointManager:
         return (self.save_every > 0 and step > 0
                 and step % self.save_every == 0)
 
+    def maybe_save(self, step: int, state: Any,
+                   manifest: Optional[Dict[str, Any]] = None
+                   ) -> Optional[str]:
+        """:meth:`save` if the cadence policy asks for ``step``, else
+        ``None``."""
+        if not self.should_save(step):
+            return None
+        return self.save(step, state, manifest=manifest)
+
     # ---------------------------------------------------------- manifest
     def write_manifest(self, manifest: Dict[str, Any]) -> str:
         payload = json.dumps(manifest, indent=1, sort_keys=True)
@@ -129,6 +138,10 @@ class CheckpointManager:
             return json.load(f)
 
     # ------------------------------------------------------------ restore
+    def restore(self, template: Any, step: Optional[int] = None) -> Any:
+        """The tree of :meth:`restore_with_step`, without its step."""
+        return self.restore_with_step(template, step)[0]
+
     def restore_with_step(self, template: Any,
                           step: Optional[int] = None) -> Tuple[Any, int]:
         """``(tree, step)`` of the newest checkpoint that loads into

@@ -1,6 +1,7 @@
 from repro_torch.config.base import (
     INPUT_SHAPES, LM_FAMILIES, ROUND_LM_FAMILIES, FedConfig, InputShape,
-    ModelConfig, TrainConfig, reduce_for_smoke)
+    MeshConfig, ModelConfig, TrainConfig, reduce_for_smoke)
 
 __all__ = ["INPUT_SHAPES", "LM_FAMILIES", "ROUND_LM_FAMILIES", "FedConfig",
-           "InputShape", "ModelConfig", "TrainConfig", "reduce_for_smoke"]
+           "InputShape", "MeshConfig", "ModelConfig", "TrainConfig",
+           "reduce_for_smoke"]

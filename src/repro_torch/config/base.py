@@ -9,11 +9,12 @@ every field of the reference's, with its names, defaults and checks
 (``server_test_fraction`` is read by nothing, in the reference too, and
 comes over inert). ``cohort`` > 0 is the population tier's slot capacity
 (``repro_torch.core.engine.population``), checked as the reference
-checks it.
+checks it. ``MeshConfig`` is the reference's mesh shape and axis names.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Mapping, Optional, Tuple
 
 
@@ -410,3 +411,18 @@ class TrainConfig:
     grad_clip: float = 1.0
     batch_size: int = 32
     remat: bool = True             # a checkpoint a layer in launch/steps
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """A device mesh's shape and axis names."""
+
+    shape: Tuple[int, ...] = (16, 16)
+    axes: Tuple[str, ...] = ("data", "model")
+
+    def __post_init__(self) -> None:
+        _require(len(self.shape) == len(self.axes), "shape/axes mismatch")
+
+    @property
+    def num_devices(self) -> int:
+        return math.prod(self.shape)

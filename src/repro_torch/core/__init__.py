@@ -3,6 +3,7 @@ attacks, cross-testing, aggregation and the round engine (counterpart of
 ``repro.core``)."""
 from repro_torch.core.aggregation import (
     accuracy_based_weights, aggregate_models, fedavg_weights)
+from repro_torch.core.attacks import apply_attacks
 from repro_torch.core.cross_testing import (
     CROSSTEST_IMPLS, cross_test_accuracies, cross_test_batched,
     cross_test_reference, make_eval_fn)
@@ -13,7 +14,8 @@ from repro_torch.core.selection import select_testers, pick_testers
 
 __all__ = [
     "CROSSTEST_IMPLS", "FederatedTrainer", "RoundState", "ScoreState",
-    "accuracy_based_weights", "aggregate_models", "cross_test_accuracies",
+    "accuracy_based_weights", "aggregate_models", "apply_attacks",
+    "cross_test_accuracies",
     "cross_test_batched", "cross_test_reference", "fedavg_weights",
     "init_scores", "make_eval_fn", "score_weights", "select_testers",
     "pick_testers", "update_scores",

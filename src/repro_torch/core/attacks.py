@@ -1,6 +1,7 @@
 """Per-client corruption primitives of the malicious-user suite
 (counterpart of ``repro/core/attacks.py``); the registered strategies in
-``repro_torch.strategies.attacks`` apply them to the malicious slots.
+``repro_torch.strategies.attacks`` apply them to the malicious slots,
+and :func:`apply_attacks` to the last clients of a stack.
 
 ``noise`` is the client's list of standard-normal tensors, one per param
 leaf in ``tree_leaves`` order, taken from the round's draws.
@@ -9,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.utils import tree_map
+from repro_torch.utils import tree_leaves, tree_map
 
 # the most noise elements the slot-wise attack draws at once
 NOISE_SLICE = 1 << 24
@@ -77,3 +78,34 @@ def _scaled_update(noise, trained, reference, scale):
         lambda g, t: (g.float() + scale * (t.float() - g.float())
                       ).to(t.dtype),
         reference, trained)
+
+
+# apply_attacks' primitives by name ("none" returns the stack as it is)
+_PRIMITIVES = {"random_weights": _random_weights, "sign_flip": _sign_flip,
+               "scaled_update": _scaled_update}
+
+
+def apply_attacks(noise, stacked_params, global_params, *,
+                  num_malicious: int, attack: str = "random_weights",
+                  scale: float = 1.0):
+    """The stack ``[N, ...]`` with its last ``num_malicious`` clients'
+    models replaced by attacked ones. ``noise`` is each attacked client's
+    list of standard normals in ``tree_leaves`` order, in client order
+    (``None`` unless ``attack`` is ``random_weights``); the reference
+    draws them from its key here."""
+    if num_malicious == 0 or attack == "none":
+        return stacked_params
+    fn = _PRIMITIVES[attack]
+    n = tree_leaves(stacked_params)[0].shape[0]
+    bad = range(n - num_malicious, n)
+    attacked = [fn(None if noise is None else noise[i],
+                   tree_map(lambda a, c=c: a[c], stacked_params),
+                   global_params, scale)
+                for i, c in enumerate(bad)]
+
+    def merge(stack, *rows):
+        out = stack.clone()
+        out[n - num_malicious:] = torch.stack(rows)
+        return out
+
+    return tree_map(merge, stacked_params, *attacked)

@@ -50,10 +50,12 @@ sentinel slots hit and which is then dropped.
 **No host read.** The round reads nothing to the host: the cohort plan
 stays on the device (``CohortPlan.ids`` is for checks outside the round),
 the attack picks its slots with ``torch.where`` (``Attack.apply_slots``),
-and ``random_weights``' noise is :class:`KeyedNoise`, a counter-based
-draw keyed on (run seed, round, client) and made where it is used. So
-``rounds_per_call`` > 1 runs the driver's chunk on this round: one CUDA
-graph on the card, R replays bitwise R eager rounds.
+``random_weights``' noise is :class:`KeyedNoise`, a counter-based draw
+keyed on (run seed, round, client) and made where it is used, and both
+providers gather on the device (a ``SyntheticPopulation`` draws its
+shards from keyed Philox counters). So ``rounds_per_call`` > 1 runs the
+driver's chunk on this round: one CUDA graph on the card, R replays
+bitwise R eager rounds.
 """
 from __future__ import annotations
 
@@ -69,7 +71,6 @@ from repro_torch.core.engine.driver import (
     ChunkBuffers, FederatedTrainer, RoundState, _flat_state)
 from repro_torch.core.engine.program import RoundDraws
 from repro_torch.data.pipeline import batch_indices_from_uniforms
-from repro_torch.data.population import SyntheticPopulation
 from repro_torch.kernels.weighted_aggregate import aggregate_pytree
 from repro_torch.utils import tree_add_vector, tree_map
 from repro_torch.utils.seeding import keyed_normal, philox_key
@@ -77,14 +78,6 @@ from repro_torch.utils.seeding import keyed_normal, philox_key
 # the attack-noise stream's constant: a malicious cohort member's noise is
 # drawn from (run seed, NOISE_STREAM, round, client) alone
 NOISE_STREAM = 12
-
-# why a chunk refuses a provider that draws its shards on the host
-SYNTHETIC_CHUNK_REFUSAL = (
-    "a SyntheticPopulation draws each gathered client's shard from a "
-    "torch.Generator seeded on the host from derived_seed(seed, stream, "
-    "client), so its gather reads the cohort's ids to the host and cannot "
-    "be part of a CUDA graph; run it with rounds_per_call=1, or wrap a "
-    "materialised dataset in DensePopulationData")
 
 
 def cohort_from_mask(part_mask: torch.Tensor, capacity: int
@@ -211,7 +204,7 @@ class PopulationBackend:
 
     def __init__(self, num_users: int, capacity: int,
                  crosstest_impl: str = "batched", *, block: int = 0,
-                 group=None):
+                 train_block: int = 0, group=None):
         if crosstest_impl not in CROSSTEST_IMPLS:
             raise ValueError(f"crosstest_impl must be one of "
                              f"{CROSSTEST_IMPLS}, got {crosstest_impl!r}")
@@ -228,6 +221,7 @@ class PopulationBackend:
         self.capacity = capacity
         self.crosstest_impl = crosstest_impl
         self.block = block
+        self.train_block = train_block
         self.group = group
         # this rank's slots [lo, lo + shard) of the cohort
         self.shard = capacity // world
@@ -277,14 +271,16 @@ class PopulationBackend:
 
     # ------------------------------------------------------ backend protocol
     def train(self, local_train, global_params, bx, by):
-        """Broadcast to this rank's slots + local phase. ``bx`` packs the
-        cohort plan with the gathered batches of all C slots: ``(plan,
-        x)``."""
+        """Broadcast to this rank's slots + local phase, vmapped over
+        groups of ``train_block`` slots (0: all at once). ``bx`` packs
+        the cohort plan with the gathered batches of all C slots:
+        ``(plan, x)``."""
         plan, cx = bx
         stack = tree_map(
             lambda x: x[None].expand((self.shard,) + x.shape),
             global_params)
-        stack, loss = vmap(local_train)(stack, self._own(cx), self._own(by))
+        stack, loss = vmap(local_train, chunk_size=self.train_block or None)(
+            stack, self._own(cx), self._own(by))
         loss = self._gather(loss)
         models = CohortModels(stack, plan, global_params)
         # clients outside the cohort report 0; the program's loss metric
@@ -406,12 +402,17 @@ class PopulationTrainer(FederatedTrainer):
     ``rounds_per_call`` = R > 1 runs the inherited chunk driver on
     :meth:`_chunk_round`, this tier's round on the static buffers (one
     CUDA graph of it on the card, replayed R times), bitwise R
-    :meth:`run_round` calls. A chunk refuses a ``SyntheticPopulation``
-    (its gather seeds generators on the host) and a ``group``.
+    :meth:`run_round` calls. The chunk reads the provider it was
+    captured on (a ``SyntheticPopulation``'s Philox key is in the
+    capture), so a chunk on another raises; a ``group`` is refused.
 
     ``fed.cohort`` (0: ``fed.num_users``) is the slot capacity C, which
     ``FedConfig`` checks; ``crosstest_block`` tiles the tester eval in ``[K,
-    block]`` tiles; ``testers_from_cohort`` remaps the selector's tester
+    block]`` tiles; ``train_block`` trains the slots in vmapped groups of
+    that many (0: one group a rank). A vmap's width changes how the card
+    rounds a slot's training (its grouped convolutions), so a run at
+    ``train_block`` = C / W is bitwise the cohort sharded over W ranks,
+    and one at 0 parts from it by rounding; ``testers_from_cohort`` remaps the selector's tester
     ids onto cohort members (slot = id mod the cohort's size), since at
     C ≪ N a population-wide tester is almost never sampled and the
     scores degenerate to zero. Data comes from a population provider
@@ -421,6 +422,7 @@ class PopulationTrainer(FederatedTrainer):
     state."""
 
     crosstest_block: int = 0
+    train_block: int = 0
     testers_from_cohort: bool = False
     group: Any = None
 
@@ -450,6 +452,7 @@ class PopulationTrainer(FederatedTrainer):
     def _make_backend(self, impl: str):
         return PopulationBackend(self.fed.num_users, self.capacity, impl,
                                  block=self.crosstest_block,
+                                 train_block=self.train_block,
                                  group=self.group)
 
     def draw(self, state: RoundState, data, key=None) -> RoundDraws:
@@ -524,11 +527,6 @@ class PopulationTrainer(FederatedTrainer):
             dst.copy_(src)
         buf.counter.add_(1)
         return metrics
-
-    def _load_chunk(self, state: RoundState, data) -> ChunkBuffers:
-        if isinstance(data, SyntheticPopulation):
-            raise ValueError(SYNTHETIC_CHUNK_REFUSAL)
-        return super()._load_chunk(state, data)
 
     def _load_seed(self, buf: ChunkBuffers) -> None:
         """The noise key of ``buf.seed`` into the buffers' own, which the

@@ -17,29 +17,50 @@ population tier never reads more than the sampled cohort's rows. A
 return, bitwise, the rows the dense driver reads, so a small population
 run is held against ``FederatedTrainer``.
 
-:class:`SyntheticPopulation` holds nothing per client: client ``i``'s
-shard is drawn on gather from a generator seeded with
-``derived_seed(seed, TRAIN_STREAM, i)`` (its tester rows from
-``TEST_STREAM``) over shared class prototypes, so a shard is a pure
-function of ``(seed, stream, i)``, whichever cohort gathers it, and
-nothing of size ``[N, ...image]`` ever exists. The port does not draw
-threefry, so its values are its own, not the reference's.
+:class:`SyntheticPopulation` holds nothing per client. Row r of client
+``i``'s shard in stream s (``TRAIN_STREAM``, its tester rows
+``TEST_STREAM``) is Philox-4x32-10 under the population's key
+(``philox_key(seed, SHARD_STREAM)``) at counters that name the lane,
+the client and the row (:func:`draw_shards`): its label is one word of
+counter ``(0, 2s + LABEL_LANE, i, r)`` mapped to ``[0, num_classes)``
+by ``(w * num_classes) >> 32``, its image the label's class prototype
+plus ``noise`` times the normals of counters ``(q, 2s + IMAGE_LANE, i,
+r)``. A gather draws every id's rows in one pass on the ids' device,
+with no generator and no read to the host, so a shard is a pure
+function of ``(seed, stream, i)`` whichever cohort or slot gathers it,
+a row does not depend on how many rows are drawn, and the population
+round's chunk captures the gather in its CUDA graph. The global and
+server eval sets are clients 0 and 1 of ``GLOBAL_STREAM``; only the
+class prototypes come from a generator (``PROTO_STREAM``), once, at
+build time. Nothing of size ``[N, ...image]`` ever exists. The port
+does not draw threefry, so its values are its own, not the
+reference's; they are not those of the port's earlier per-client
+generators either, which read the ids to the host.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Tuple
 
 import torch
 
 from repro_torch.data.pipeline import FederatedDataset
-from repro_torch.utils import derived_seed
+from repro_torch.utils.seeding import (
+    box_muller, derived_seed, padded_quads, philox4x32, philox_key)
 
-# disjoint stream constants deriving the per-client draws from the seed
+# disjoint streams of a population's draws: the first three name a
+# shard's counters, PROTO_STREAM seeds the prototypes' generator and
+# SHARD_STREAM derives the shards' Philox key from the seed
 TRAIN_STREAM = 0
 TEST_STREAM = 1
 GLOBAL_STREAM = 2
 PROTO_STREAM = 3
+SHARD_STREAM = 4
+# a counter's second word is 2 * stream + lane
+LABEL_LANE, IMAGE_LANE = 0, 1
+# the most image elements one Philox pass draws
+SHARD_SLICE = 1 << 24
 
 
 @dataclasses.dataclass
@@ -76,25 +97,50 @@ class DensePopulationData:
                 self.dense.server_y[:eval_batch])
 
 
-def _draw_shard(protos: torch.Tensor, noise: float, seed: int, rows: int
+def draw_shards(philox, protos: torch.Tensor, noise: float, stream: int,
+                clients: torch.Tensor, rows: int
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``rows`` samples from a generator seeded with ``seed``: uniform
-    labels, each image its class prototype plus ``noise`` times a
-    standard normal."""
-    dev = protos.device
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    labels = torch.randint(0, protos.shape[0], (rows,), generator=gen,
-                           device=dev)
-    imgs = protos[labels] + noise * torch.randn(
-        (rows,) + protos.shape[1:], generator=gen, device=dev)
-    return imgs, labels.to(torch.int32)
+    """Rows ``0..rows`` of each of ``clients`` (``[K]``, any integer
+    dtype, on the device that draws) in ``stream`` under the Philox key
+    words ``philox`` (one key for every block and stream: the counters
+    tell them apart): images ``[K, rows, *protos.shape[1:]]`` f32 and labels
+    ``[K, rows]`` int32. Each row's image quads and its label's quad are
+    one Philox pass (a ``[rows, quads + 1]`` counter grid); a gather of
+    more than ``SHARD_SLICE`` image elements goes in blocks of whole
+    rows."""
+    dev = clients.device
+    shape = tuple(protos.shape[1:])
+    d, classes = math.prod(shape), protos.shape[0]
+    quads = padded_quads(d)
+    # a row's counters: its image's quads 0..quads, then its label's 0
+    q = torch.arange(quads + 1, dtype=torch.int64, device=dev)
+    image = q < quads
+    c0 = torch.where(image, q, 0)[None]
+    c1 = torch.where(image, 2 * stream + IMAGE_LANE,
+                     2 * stream + LABEL_LANE)[None]
+    k = clients.shape[0]
+    who = clients.long()[:, None].expand(k, rows).reshape(-1, 1)
+    row = torch.arange(rows, dtype=torch.int64,
+                       device=dev)[None].expand(k, rows).reshape(-1, 1)
+    per = max(1, SHARD_SLICE // d)
+    xs, ys = [], []
+    for r0 in range(0, k * rows, per):
+        x = philox4x32((c0, c1, who[r0:r0 + per], row[r0:r0 + per]),
+                       philox)
+        labels = (x[0][:, quads] * classes) >> 32
+        z = box_muller([w[:, :quads] for w in x])[:, :d]
+        xs.append(protos[labels] + noise * z.reshape((-1,) + shape))
+        ys.append(labels.to(torch.int32))
+    imgs = xs[0] if len(xs) == 1 else torch.cat(xs)
+    labels = ys[0] if len(ys) == 1 else torch.cat(ys)
+    return (imgs.reshape((k, rows) + shape), labels.reshape(k, rows))
 
 
 @dataclasses.dataclass
 class SyntheticPopulation:
     """Derive-on-gather population: a shard exists only while sampled."""
 
-    seed: int
+    philox: Tuple[int, int]          # the shards' Philox key words
     protos: torch.Tensor             # [num_classes, H, W, C] prototypes
     global_x: torch.Tensor
     global_y: torch.Tensor
@@ -109,20 +155,15 @@ class SyntheticPopulation:
         return torch.full((self.num_clients,), self.per_client,
                           dtype=torch.int32, device=self.protos.device)
 
-    def _shards(self, stream: int, ids: torch.Tensor, rows: int
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-        xs, ys = zip(*(_draw_shard(self.protos, self.noise,
-                                   derived_seed(self.seed, stream, i), rows)
-                       for i in ids.tolist()))
-        return torch.stack(xs), torch.stack(ys)
-
     def cohort_train(self, idx: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-        return self._shards(TRAIN_STREAM, idx, self.per_client)
+        return draw_shards(self.philox, self.protos, self.noise, TRAIN_STREAM,
+                           idx, self.per_client)
 
     def tester_batches(self, tester_ids: torch.Tensor, eval_batch: int
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-        return self._shards(TEST_STREAM, tester_ids, eval_batch)
+        return draw_shards(self.philox, self.protos, self.noise, TEST_STREAM,
+                           tester_ids, eval_batch)
 
     def server_batch(self, eval_batch: int
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -144,11 +185,14 @@ def make_synthetic_population(num_clients: int, *, per_client: int = 16,
         derived_seed(seed, PROTO_STREAM))
     protos = torch.randn((num_classes, image_size, image_size, channels),
                          generator=gen, device=dev)
-    gx, gy = _draw_shard(protos, noise, derived_seed(seed, GLOBAL_STREAM, 0),
-                         global_test)
-    sx, sy = _draw_shard(protos, noise, derived_seed(seed, GLOBAL_STREAM, 1),
-                         server)
+    philox = philox_key(seed, SHARD_STREAM)
+    gx, gy = (t[0] for t in draw_shards(
+        philox, protos, noise, GLOBAL_STREAM,
+        torch.zeros((1,), dtype=torch.int64, device=dev), global_test))
+    sx, sy = (t[0] for t in draw_shards(
+        philox, protos, noise, GLOBAL_STREAM,
+        torch.ones((1,), dtype=torch.int64, device=dev), server))
     return SyntheticPopulation(
-        seed=seed, protos=protos, global_x=gx, global_y=gy, server_x=sx,
+        philox=philox, protos=protos, global_x=gx, global_y=gy, server_x=sx,
         server_y=sy, num_clients=num_clients, per_client=per_client,
         noise=noise)

@@ -39,6 +39,59 @@ def tree_leaves(tree: Tree) -> List[Any]:
     return [tree]
 
 
+def tree_size(tree: Tree) -> int:
+    """The number of elements over the leaves."""
+    return sum(x.numel() for x in tree_leaves(tree))
+
+
+def tree_bytes(tree: Tree) -> int:
+    """The bytes the leaves hold."""
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
+
+
+def tree_zeros_like(tree: Tree) -> Tree:
+    return tree_map(torch.zeros_like, tree)
+
+
+def tree_add(a: Tree, b: Tree) -> Tree:
+    return tree_map(torch.add, a, b)
+
+
+def tree_scale(tree: Tree, s) -> Tree:
+    return tree_map(lambda x: x * s, tree)
+
+
+def tree_weighted_sum(trees, weights) -> Tree:
+    """``sum_i w_i * tree_i``, accumulated in f32 and cast back to each
+    leaf's dtype. ``trees`` is a list of trees, or one tree whose leaves
+    are stacked on a leading client axis; ``weights`` has one entry a
+    client."""
+    weights = torch.as_tensor(weights)
+    if isinstance(trees, (list, tuple)):
+        stacked = tree_map(lambda *xs: torch.stack(xs), *trees)
+    else:
+        stacked = trees
+
+    def comb(x):
+        w = weights.to(x.device, torch.float32).reshape(
+            (-1,) + (1,) * (x.dim() - 1))
+        return (x.float() * w).sum(0).to(x.dtype)
+
+    return tree_map(comb, stacked)
+
+
+def tree_l2_norm(tree: Tree) -> torch.Tensor:
+    """The f32 l2 norm of every leaf together."""
+    return torch.sqrt(sum(x.float().square().sum()
+                          for x in tree_leaves(tree)))
+
+
+def tree_cast(tree: Tree, dtype) -> Tree:
+    """The floating leaves cast to ``dtype``; the others as they are."""
+    return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x,
+                    tree)
+
+
 def flat_update_dim(model) -> int:
     """Width D of the flattened update vector: the params of ``model``,
     in the layout of ``_flatten_updates`` (``tree_leaves`` order, each

@@ -77,31 +77,47 @@ def _uniform(x: torch.Tensor) -> torch.Tensor:
     return ((x >> 9) * 2 + 1).to(torch.float32) * 2.0 ** -24
 
 
-def keyed_normal(key, words, lo: int, hi: int, device=None
-                 ) -> torch.Tensor:
-    """Standard normals ``[rows, hi - lo]`` of the elements ``lo..hi`` of
-    a stream named by ``words``, three counter words (int64 device
-    tensors of shape ``[rows, 1]`` or ``[]``, or ints), under the Philox
-    ``key``. Element i is lane ``i % 4`` of counter ``(i // 4, *words)``,
-    lanes 0, 1 and 2, 3 each a Box-Muller pair, so an element's value
-    does not depend on the slice that draws it. ``lo`` is a multiple of
-    4. The quads are padded to a multiple of ``QUAD_PAD``: on the CPU a
-    tensor's tail past its last full vector takes the scalar ``log`` and
-    ``cos``, which round otherwise than the vectorised ones, so every
-    element takes the vectorised path whatever the slice."""
-    if lo % 4:
-        raise ValueError(f"lo must be a multiple of 4, got {lo}")
-    dev = device if device is not None else next(
-        w.device for w in words if isinstance(w, torch.Tensor))
-    count = -(-(hi - lo) // 4)
-    count = -(-count // QUAD_PAD) * QUAD_PAD
-    quads = torch.arange(lo // 4, lo // 4 + count, dtype=torch.int64,
-                         device=dev)[None, :]
-    x = philox4x32((quads,) + tuple(words), key)
+def box_muller(x) -> torch.Tensor:
+    """The four Philox words ``x`` of each of ``[rows, quads]`` counters
+    -> ``[rows, 4 * quads]`` f32 standard normals: element i is lane
+    ``i % 4`` of quad ``i // 4``, lanes 0, 1 and 2, 3 each a Box-Muller
+    pair. The float ops run on contiguous ``[rows, quads]`` tensors (the
+    first integer op makes a strided ``x`` dense), so with ``quads`` a
+    multiple of ``QUAD_PAD`` an element's value on the CPU does not
+    depend on the row it sits in."""
     out = []
     for a, b in ((x[0], x[1]), (x[2], x[3])):
         r = torch.sqrt(-2.0 * torch.log(_uniform(a)))
         theta = (2.0 * np.pi) * _uniform(b)
         out += [r * torch.cos(theta), r * torch.sin(theta)]
     z = torch.stack(out, dim=-1)                   # [rows, quads, 4]
-    return z.reshape(z.shape[0], -1)[:, :hi - lo]
+    return z.reshape(z.shape[0], -1)
+
+
+def padded_quads(elements: int) -> int:
+    """The quads that hold ``elements`` normals, padded to a multiple of
+    ``QUAD_PAD``: on the CPU a tensor's tail past its last full vector
+    takes the scalar ``log`` and ``cos``, which round otherwise than the
+    vectorised ones, so every element takes the vectorised path whatever
+    the slice."""
+    quads = -(-elements // 4)
+    return -(-quads // QUAD_PAD) * QUAD_PAD
+
+
+def keyed_normal(key, words, lo: int, hi: int, device=None
+                 ) -> torch.Tensor:
+    """Standard normals ``[rows, hi - lo]`` of the elements ``lo..hi`` of
+    a stream named by ``words``, three counter words (int64 device
+    tensors of shape ``[rows, 1]`` or ``[]``, or ints), under the Philox
+    ``key``. Element i is lane ``i % 4`` of counter ``(i // 4, *words)``
+    (:func:`box_muller`), so an element's value does not depend on the
+    slice that draws it. ``lo`` is a multiple of 4; the quads are padded
+    (:func:`padded_quads`)."""
+    if lo % 4:
+        raise ValueError(f"lo must be a multiple of 4, got {lo}")
+    dev = device if device is not None else next(
+        w.device for w in words if isinstance(w, torch.Tensor))
+    quads = torch.arange(lo // 4, lo // 4 + padded_quads(hi - lo),
+                         dtype=torch.int64, device=dev)[None, :]
+    x = philox4x32((quads,) + tuple(words), key)
+    return box_muller(x)[:, :hi - lo]

@@ -12,11 +12,14 @@ in one spawned group (``_torch_pod_ranks.replay_rank``).
   (N = 64, sign_flip, testers from the cohort, 3 rounds) against the
   unsharded ``PopulationTrainer`` on the same draws: the counts, every
   discrete field, the scores, the weights and the malicious weight
-  bitwise, the params within rtol 1e-5 / atol 1e-6.
+  bitwise, the params within rtol 1e-5 / atol 1e-6; and bitwise, the
+  params too, against the unsharded run that trains its slots in the
+  ranks' groups (``train_block`` = C / W).
 
 Torch runs one thread a process.
 """
 import concurrent.futures
+import dataclasses
 
 import numpy as np
 import pytest
@@ -138,8 +141,11 @@ def replayed():
                               tinit, draws, threads=1, timeout_s=120,
                               join_timeout_s=300)
             trainer, data = ranks.population_trainer()
-            unsharded, _ = ranks.play(trainer, data,
-                                      ranks.population_fed()["rounds"])
+            rounds = ranks.population_fed()["rounds"]
+            unsharded, _ = ranks.play(trainer, data, rounds)
+            grouped = dataclasses.replace(
+                trainer, train_block=trainer.capacity // ranks.N)
+            unsharded["grouped"], _ = ranks.play(grouped, data, rounds)
             pod = pod.result()
     finally:
         torch.set_num_threads(threads)
@@ -204,3 +210,13 @@ def test_sharded_population_state_matches_unsharded(replayed):
         for a, b in zip(got["params"], unsharded["params"]):
             np.testing.assert_allclose(a, b, **OWN)
     assert any(m["malicious_weight"] > 0 for m in unsharded["metrics"])
+
+
+def test_sharded_population_is_the_unsharded_in_the_ranks_groups(replayed):
+    """Trained in the ranks' groups of C / W slots, the unsharded tier is
+    the sharded one bitwise: params, scores, generator, the accuracy
+    matrices and every round's metrics."""
+    _, pod, unsharded = replayed
+    for rank in range(ranks.N):
+        ranks.same_run(pod[rank]["population"], unsharded["grouped"],
+                       f"rank {rank}")

@@ -14,9 +14,14 @@ N <= 16, C <= 8, on the CPU):
 * int8 on the cohort leaves every other client's error feedback bitwise
   and decodes nothing for masked and sentinel slots;
 * a population run resumes bitwise from a checkpoint;
-* ``SyntheticPopulation`` draws a client's shard from its id alone and
-  builds nothing of size N x image; a draw at N = 100,000 with 20,000
-  attackers holds noise for at most C clients;
+* ``SyntheticPopulation`` draws a client's shard from its id alone
+  (keyed Philox counters), whichever cohort or slot gathers it; a row
+  does not depend on how many rows are drawn; the train, test and
+  global streams are disjoint; labels are in range and near uniform; a
+  gather of 100,000 ids reads nothing to the host; a gather past
+  ``SHARD_SLICE`` goes in blocks, equal to one pass; it builds nothing of
+  size N x image; a draw at N = 100,000 with 20,000 attackers holds
+  noise for at most C clients;
 * every refusal, and the CLI on the CPU.
 
 Against the reference: ``cohort_from_mask``, the tester remap,
@@ -74,6 +79,7 @@ from repro_torch.data import (  # noqa: E402
 from repro_torch.launch import train as train_mod  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.utils import tree_leaves, tree_map  # noqa: E402
+from test_torch_population_chunk import NoHostRead  # noqa: E402
 from test_torch_round import _Recorder, _client_noise, _t  # noqa: E402
 
 N = 8
@@ -538,10 +544,14 @@ def test_reference_population_checkpoint_converts_and_plays_on(tmp_path):
 
 
 # ------------------------------------------------------ SyntheticPopulation
+def _small_population(n=1000, **kw):
+    return make_synthetic_population(
+        n, **{**dict(per_client=5, image_size=8, channels=3, global_test=20,
+                     server=10, seed=4, device="cpu"), **kw})
+
+
 def test_synthetic_population_derives_a_shard_from_its_client():
-    pop = make_synthetic_population(1000, per_client=5, image_size=8,
-                                    channels=3, global_test=20, server=10,
-                                    seed=4, device="cpu")
+    pop = _small_population()
     a = pop.cohort_train(torch.tensor([3, 17, 999]))
     b = pop.cohort_train(torch.tensor([17, 2, 3, 3]))
     assert torch.equal(a[0][1], b[0][0]) and torch.equal(a[1][1], b[1][0])
@@ -558,10 +568,111 @@ def test_synthetic_population_derives_a_shard_from_its_client():
     assert sx.shape == (4, 8, 8, 3) and sy.dtype == torch.int32
     assert pop.train_counts.dtype == torch.int32
     assert (pop.train_counts == 5).all() and pop.train_counts.shape == (1000,)
-    again = make_synthetic_population(1000, per_client=5, image_size=8,
-                                      channels=3, global_test=20, server=10,
-                                      seed=4, device="cpu")
+    again = _small_population()
     assert torch.equal(again.cohort_train(torch.tensor([3]))[0][0], a[0][0])
+    # the image is its label's prototype plus noise x a standard normal
+    z = (a[0] - pop.protos[a[1].long()]) / pop.noise
+    assert abs(float(z.mean())) < 0.1 and abs(float(z.std()) - 1) < 0.1
+
+
+@pytest.mark.parametrize("dtype", [torch.int64, torch.int32])
+def test_a_keyed_shard_is_the_same_in_every_cohort_and_slot(dtype):
+    """A client's shard is a function of (seed, stream, client): the same
+    in a cohort plan's every slot, padded or not, and in a tester
+    gather; a sentinel slot (clamped to N - 1, as the round gathers it)
+    draws client N - 1's shard."""
+    pop = _small_population(n=50)
+    rng = np.random.default_rng(0)
+    alone = {c: pop.cohort_train(torch.tensor([c], dtype=dtype))
+             for c in (0, 7, 49)}
+    for _ in range(3):
+        ids = rng.permutation(50)[:8]
+        ids[rng.integers(8)] = 7
+        idx = torch.tensor(np.append(ids, [50, 50]), dtype=torch.int64)
+        xs, ys = pop.cohort_train(idx.clamp(max=49).to(dtype))
+        for slot, c in enumerate(idx.clamp(max=49).tolist()):
+            if c in alone:
+                assert torch.equal(xs[slot], alone[c][0][0])
+                assert torch.equal(ys[slot], alone[c][1][0])
+    tx, ty = pop.tester_batches(torch.tensor([49, 0], dtype=torch.int32), 5)
+    test_alone = pop.tester_batches(torch.tensor([0], dtype=dtype), 5)
+    assert torch.equal(tx[1], test_alone[0][0])
+    assert torch.equal(ty[1], test_alone[1][0])
+
+
+def test_a_shards_rows_do_not_depend_on_how_many_are_drawn():
+    pop = _small_population(image_size=5, channels=1)   # 25: a padded quad
+    ids = torch.tensor([4, 0, 999, 4])
+    full = pop.tester_batches(ids, 9)
+    for b in (1, 3, 8):
+        part = pop.tester_batches(ids, b)
+        assert torch.equal(full[0][:, :b], part[0])
+        assert torch.equal(full[1][:, :b], part[1])
+    again = _small_population(image_size=5, channels=1, per_client=9)
+    train = again.cohort_train(ids)
+    assert torch.equal(pop.cohort_train(ids)[0], train[0][:, :5])
+
+
+def test_the_shard_streams_are_disjoint():
+    """The train, test and global streams (and the label and image lanes
+    within one) draw different values for one client, and a seed changes
+    every shard."""
+    pop = _small_population(global_test=5, server=5)
+    ids = torch.tensor([0, 1])
+    train = pop.cohort_train(ids)
+    test = pop.tester_batches(ids, 5)
+    glob_ = (torch.stack([pop.global_x, pop.server_x]),
+             torch.stack([pop.global_y, pop.server_y]))
+    for one, two in ((train, test), (train, glob_), (test, glob_)):
+        assert not torch.equal(one[0], two[0])
+        assert not torch.equal(one[1], two[1])
+    other = _small_population(seed=5)
+    assert not torch.equal(other.cohort_train(ids)[0], train[0])
+    assert torch.equal(other.protos, _small_population(seed=5).protos)
+
+
+def test_keyed_labels_are_in_range_and_near_uniform():
+    pop = _small_population(image_size=2, channels=1, per_client=10)
+    ys = pop.cohort_train(torch.arange(1000))[1].reshape(-1).long()
+    assert ys.numel() == 10_000
+    assert int(ys.min()) == 0 and int(ys.max()) == 9
+    counts = torch.bincount(ys, minlength=10)
+    # 1,000 a class; 4.5 standard deviations (30 each) either side
+    assert int(counts.min()) > 865 and int(counts.max()) < 1135, counts
+    chi2 = float(((counts - 1000.0) ** 2 / 1000.0).sum())
+    assert chi2 < 27.9              # chi-square, 9 dof, p = 0.001
+
+
+def test_a_gather_of_100k_ids_reads_nothing_to_the_host():
+    pop = make_synthetic_population(100_000, per_client=1, image_size=2,
+                                    channels=1, global_test=4, server=4,
+                                    seed=0, device="cpu")
+    ids = torch.randperm(100_000, generator=torch.Generator().manual_seed(0))
+    with NoHostRead():
+        xs, ys = pop.cohort_train(ids)
+        tx, ty = pop.tester_batches(ids[:8].to(torch.int32), 3)
+    assert xs.shape == (100_000, 1, 2, 2, 1) and ys.shape == (100_000, 1)
+    assert tx.shape == (8, 3, 2, 2, 1)
+    assert torch.equal(xs[:8], pop.cohort_train(ids[:8])[0])
+
+
+def test_a_gather_past_the_slice_is_drawn_in_blocks(monkeypatch):
+    import repro_torch.data.population as population
+    pop = _small_population()
+    ids = torch.tensor([3, 17, 999, 5])
+    whole = pop.cohort_train(ids)
+    calls = []
+    philox = population.philox4x32
+
+    def spy(counter, key):
+        calls.append(counter[2].shape[0])
+        return philox(counter, key)
+    monkeypatch.setattr(population, "philox4x32", spy)
+    # 7 rows of 192 elements a block: 20 rows in blocks of 7, 7, 6
+    monkeypatch.setattr(population, "SHARD_SLICE", 7 * 192 + 5)
+    got = pop.cohort_train(ids)
+    assert calls == [7, 7, 6]
+    assert torch.equal(got[0], whole[0]) and torch.equal(got[1], whole[1])
 
 
 def test_a_draw_at_100k_clients_holds_at_most_c_noise_records(mlp):
@@ -590,6 +701,40 @@ def test_a_draw_at_100k_clients_holds_at_most_c_noise_records(mlp):
     outside = torch.ones(n, dtype=torch.bool)
     outside[list(draws.cohort.ids)] = False
     assert (w[outside] == 0).all() and abs(float(w.sum()) - 1) < 1e-5
+
+
+def test_train_block_trains_the_slots_in_groups(mlp):
+    """``train_block`` = k vmaps the local phase over groups of k slots
+    (C / k calls of the local step, each on k slots), the grouping of a
+    cohort sharded over C / k ranks; the round is the one-group round's
+    to rounding."""
+    data = make_synthetic_population(16, per_client=20, seed=0,
+                                     device="cpu")
+    fed = FedConfig(num_users=16, num_testers=2, participation=0.5,
+                    cohort=8, local_steps=1, attack="sign_flip",
+                    num_malicious=3)
+    widths = {}
+
+    def run(block):
+        trainer = PopulationTrainer(mlp, fed, TrainConfig(**TC),
+                                    eval_batch=8, device="cpu",
+                                    train_block=block)
+        train = trainer.backend.train
+
+        def spy(local_train, global_params, bx, by):
+            def counted(params, x, y):
+                widths.setdefault(block, []).append(x.shape)
+                return local_train(params, x, y)
+            return train(counted, global_params, bx, by)
+        trainer.backend.train = spy
+        return trainer.run_round(trainer.init(0), data)
+
+    (one, m1), (two, m2) = run(0), run(2)
+    assert len(widths[0]) == 1 and len(widths[2]) == 4
+    assert torch.equal(m1["weights"], m2["weights"])
+    for a, b in zip(tree_leaves(one.global_params),
+                    tree_leaves(two.global_params)):
+        torch.testing.assert_close(a, b, **OWN)
 
 
 # ---------------------------------------------------------------- refusals

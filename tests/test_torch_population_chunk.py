@@ -8,7 +8,9 @@ a small MLP (N = 12, C = 4):
 
 * a chunk of 4 equals 4 eager rounds bitwise (params, scores, trust, the
   generator, the error feedback) for ``sign_flip``, ``random_weights``
-  (the keyed noise), int8 with dropout and testers from the cohort;
+  (the keyed noise), int8 with dropout and testers from the cohort, and
+  over a ``SyntheticPopulation`` (its keyed shards drawn in the round)
+  with the identity exchange and with int8;
 * the rounds at which a chunked ``run`` reads the global accuracy are the
   reference ``PopulationTrainer``'s for the same ``rounds_per_call`` and
   ``eval_every`` (the values are the packages' own draws, not compared);
@@ -16,10 +18,11 @@ a small MLP (N = 12, C = 4):
 * the round runs under a dispatch mode that refuses every op that reads a
   tensor to the host (``aten._local_scalar_dense``, ``nonzero``,
   ``masked_select``, ``unique``, a boolean-mask index): the CPU stand-in
-  for a CUDA graph capture's refusal;
+  for a CUDA graph capture's refusal, over both providers;
 * the keyed noise is a function of the client alone and is drawn in
   blocks: no ``[C, D]`` tensor at a leaf of more than ``NOISE_SLICE``;
-* a ``SyntheticPopulation`` and a ``group`` under a chunk are refused;
+* a chunk refuses a provider other than the one it ran on (a second
+  ``SyntheticPopulation`` of the same seed), and a ``group``;
 * the train CLI's ``--assert-malicious-below`` under and over its bar,
   and ``--population`` with ``--rounds-per-call``.
 
@@ -94,6 +97,17 @@ def mlp():
     return model, data
 
 
+def _synthetic(seed=0):
+    """A keyed population of the MLP's MNIST-like shape: N clients of 100
+    rows, as the dense fixture's."""
+    return make_synthetic_population(N, per_client=100, global_test=64,
+                                     seed=seed, device="cpu")
+
+
+PROVIDERS = {"dense": lambda mlp: mlp[1], "synthetic": lambda mlp:
+             _synthetic()}
+
+
 def _trainer(mlp, case="sign_flip", rounds_per_call=1, **fed):
     return PopulationTrainer(
         mlp[0], FedConfig(**{**BASE, **CASES[case], **fed}), TrainConfig(**TC),
@@ -131,6 +145,27 @@ def test_population_chunk_is_bitwise_eager_rounds(mlp, case):
     assert chunked.chunk is not None and chunked.chunk.key is not None
     for k, v in stacked.items():
         assert v.shape[0] == R
+        for r in range(R):
+            assert torch.equal(v[r], singles[r][k]), (k, r)
+
+
+@pytest.mark.parametrize("case", ["random_weights", "int8_dropout"])
+def test_a_chunk_over_a_synthetic_population_is_its_eager_rounds(mlp,
+                                                                  case):
+    """The keyed shards are drawn inside the chunk's round: R rounds of
+    a chunk over a ``SyntheticPopulation`` are R eager rounds, bitwise,
+    with the identity exchange and with int8."""
+    data = _synthetic()
+    eager = _trainer(mlp, case)
+    state, singles = eager.init(5), []
+    for _ in range(R):
+        state, metrics = eager.run_round(state, data)
+        singles.append(metrics)
+    chunked = _trainer(mlp, case, rounds_per_call=R)
+    got, stacked = chunked.run_chunk(chunked.init(5), data)
+    _assert_bitwise(state, got)
+    assert chunked.chunk.data is data
+    for k, v in stacked.items():
         for r in range(R):
             assert torch.equal(v[r], singles[r][k]), (k, r)
 
@@ -199,8 +234,9 @@ class NoHostRead(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
-def test_the_population_round_reads_nothing_to_the_host(mlp):
-    data = mlp[1]
+@pytest.mark.parametrize("provider", sorted(PROVIDERS))
+def test_the_population_round_reads_nothing_to_the_host(mlp, provider):
+    data = PROVIDERS[provider](mlp)
     # every seam the round has: keyed noise, int8 error feedback, dropout,
     # trust, testers from the cohort, and a coalition's device routing
     trainer = _trainer(mlp, "int8_dropout", coalition="sybil_split",
@@ -277,11 +313,20 @@ def test_keyed_noise_is_the_clients_and_drawn_in_blocks(monkeypatch):
 
 # --------------------------------------------------------- (i) refusals
 def test_a_chunk_refuses_synthetic_populations_and_groups(mlp):
-    pop = make_synthetic_population(N, per_client=8, seed=0, device="cpu")
+    """A chunk reads the provider it ran on first (on the card its
+    capture holds the population's Philox key): another
+    ``SyntheticPopulation``, even one of the same seed, is refused, and
+    so is a ``group``."""
+    pop = _synthetic()
     chunked = _trainer(mlp, rounds_per_call=2)
-    with pytest.raises(ValueError, match="SyntheticPopulation"):
-        chunked.run_chunk(chunked.init(0), pop)
-    assert chunked.chunk is None
+    state, _ = chunked.run_chunk(chunked.init(0), pop)
+    with pytest.raises(ValueError, match="dataset it was captured on"):
+        chunked.run_chunk(state, _synthetic())
+    with pytest.raises(ValueError, match="dataset it was captured on"):
+        chunked.run_chunk(state, mlp[1])
+    assert chunked.chunk.data is pop
+    state, _ = chunked.run_chunk(state, pop)
+    assert state.round_idx == 4
 
     class Group:
         world_size, rank, device = 1, 0, "cpu"
