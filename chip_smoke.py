@@ -2980,12 +2980,13 @@ def pod_rank(group, runs):
     """One rank of phase P1 (spawned by ``run_ranks``): each of ``runs``,
     ``(label, FedConfig fields, exchange, rounds)``, through
     :class:`PodTrainer` (the pod CLI's driver) on ``fedtest-cnn`` at full
-    width from the seed. The launch counts, the group's exchange counters
-    and the allocator's peak are set to 0 before a run's rounds and read
-    after; the last round's step-7 output is held against the plain
+    width from the seed. The launch counts, the exchange's tracing
+    counters and the allocator's peak are set to 0 before a run's rounds
+    and read after; the last round's step-7 output is held against the plain
     version on its own inputs. Returns, for each run, numpy copies of
     what the parent compares."""
     import torch
+    from repro_torch import tracing
     from repro_torch.config import FedConfig, TrainConfig
     from repro_torch.configs import get_config
     from repro_torch.core.engine import PodTrainer
@@ -3023,16 +3024,24 @@ def pod_rank(group, runs):
         state = trainer.init(0)
         torch.cuda.synchronize(dev)
         reset_counts(kernel_ops)
-        group.reset_counters()
+        # the exchange's spans and counters (pod.exchange,
+        # pod.exchange.calls, pod.bytes_staged), read a round at a time
+        tracing.export()
+        tracing.enable()
         torch.cuda.reset_peak_memory_stats(dev)
         walls, exchange, rows, first = [], [], [], None
+        staged = calls = 0
         for r in range(rounds):
             torch.cuda.synchronize(dev)
-            t0, ex0 = time.perf_counter(), group.exchange_s
+            t0 = time.perf_counter()
             state, metrics = trainer.run_round(state, data)
             torch.cuda.synchronize(dev)
             walls.append((time.perf_counter() - t0) * 1e3)
-            exchange.append((group.exchange_s - ex0) * 1e3)
+            traced = tracing.export()
+            exchange.append(sum(s["host_ms"] for s in traced["spans"]
+                                if s["name"] == "pod.exchange"))
+            staged += traced["counters"].get("pod.bytes_staged", 0)
+            calls += traced["counters"].get("pod.exchange.calls", 0)
             if r == 0 and rank == 0 and "stack" in seen:
                 first = [t.cpu().numpy()
                          for t in tree_leaves(seen["stack"][1])]
@@ -3041,6 +3050,7 @@ def pod_rank(group, runs):
                 "malicious_weight": float(metrics["malicious_weight"]),
                 "counts": (seen["cross_test"][1] * POD_EVAL).round()
                 .to(torch.int64).cpu().numpy()})
+        tracing.enable(False)
         launches = {k: op.launches for k, op in kernel_ops.items()}
         # the last round's step 7 against the plain version
         if program.uses_combine:
@@ -3064,7 +3074,7 @@ def pod_rank(group, runs):
         out[label] = dict(
             walls=walls, rows=rows, launches=launches, err=err,
             shape=shape, exchange_ms=exchange,
-            bytes_staged=group.bytes_staged, calls=group.calls,
+            bytes_staged=staged, calls=calls,
             peak=torch.cuda.max_memory_allocated(dev),
             params=[p.cpu().numpy()
                     for p in tree_leaves(state.global_params)],

@@ -52,6 +52,7 @@ from typing import Any, Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.checkpoint import LeafSpec, check_manifest, run_manifest
 from repro_torch.checkpoint.serialization import conform, flatten_with_paths
 from repro_torch.config import FedConfig, TrainConfig
@@ -128,6 +129,9 @@ class ChunkBuffers:
     bucket: Any = None              # the (seed, eval bucket) eval_idx holds
     graph: Any = None               # torch.cuda.CUDAGraph on the card
     metrics: Any = None             # the captured round's metric outputs
+    # the captured round's spans (tracing.graph_spans); empty when the
+    # capture ran with tracing off
+    spans: Any = ()
     # [2] int64: the population tier's noise key of the seed
     key: Optional[torch.Tensor] = None
 
@@ -280,13 +284,14 @@ class FederatedTrainer:
              ) -> RoundDraws:
         """The round's draws: the program's from ``state.gen``, plus the
         eval rows of the round's bucket under eval resampling."""
-        draws = self.program.draw_round(
-            state.gen, data.train.counts, state.round_idx,
-            state.global_params, scores=state.scores.scores)
-        if self.eval_resample_every > 0:
-            draws = draws._replace(eval_idx=eval_batch_indices(
-                state.seed, data.test.counts, self.eval_batch,
-                state.round_idx // self.eval_resample_every))
+        with tracing.span("draw"):
+            draws = self.program.draw_round(
+                state.gen, data.train.counts, state.round_idx,
+                state.global_params, scores=state.scores.scores)
+            if self.eval_resample_every > 0:
+                draws = draws._replace(eval_idx=eval_batch_indices(
+                    state.seed, data.test.counts, self.eval_batch,
+                    state.round_idx // self.eval_resample_every))
         return draws
 
     def eval_batches(self, data: FederatedDataset, draws: RoundDraws):
@@ -302,8 +307,9 @@ class FederatedTrainer:
         """The training batches and tester eval rows of the clients this
         trainer plays: every client's, ``[N, steps, batch, ...]`` and
         ``[N, eval_batch, ...]``."""
-        bx, by = gather_client_batches(data.train, draws.batch_idx)
-        return (bx, by) + self.eval_batches(data, draws)
+        with tracing.span("batches"):
+            bx, by = gather_client_batches(data.train, draws.batch_idx)
+            return (bx, by) + self.eval_batches(data, draws)
 
     def _play(self, global_params, scores, comp_state, round_idx, data,
               draws: RoundDraws):
@@ -322,11 +328,12 @@ class FederatedTrainer:
                   draws: Optional[RoundDraws] = None):
         """One round; ``draws`` replaces the round's own draws (the parity
         tests replay the reference's)."""
-        if draws is None:
-            draws = self.draw(state, data)
-        new_global, new_scores, new_comp, metrics = self._play(
-            state.global_params, state.scores, state.comp_state,
-            state.round_idx, data, draws)
+        with tracing.span("round", state.round_idx):
+            if draws is None:
+                draws = self.draw(state, data)
+            new_global, new_scores, new_comp, metrics = self._play(
+                state.global_params, state.scores, state.comp_state,
+                state.round_idx, data, draws)
         return state._replace(global_params=new_global, scores=new_scores,
                               round_idx=state.round_idx + 1,
                               comp_state=new_comp), metrics
@@ -415,7 +422,9 @@ class FederatedTrainer:
         first-call set-up (library loads, cuBLAS handles, kernel
         attributes) outside the capture; its results and draws are then
         undone. The buffers' generator is registered with the graph, so
-        each replay draws on from where the generator stands."""
+        each replay draws on from where the generator stands. With tracing
+        on, the round's spans become event nodes of the graph
+        (``buf.spans``)."""
         saved = [t.clone() for t in buf.tensors()]
         counter, gen_state = buf.counter.clone(), buf.gen.get_state()
         main = torch.cuda.current_stream(self.device)
@@ -430,9 +439,9 @@ class FederatedTrainer:
         buf.gen.set_state(gen_state)
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(buf.gen)
-        with torch.cuda.graph(graph):
+        with tracing.graph_spans() as spans, torch.cuda.graph(graph):
             buf.metrics = self._chunk_round(buf)
-        buf.graph = graph
+        buf.graph, buf.spans = graph, spans
 
     def run_chunk(self, state: RoundState, data: FederatedDataset):
         """``rounds_per_call`` rounds with no read to the host between
@@ -440,19 +449,30 @@ class FederatedTrainer:
         one graph of a round, on the CPU the same round in a loop.
         Returns ``(state, metrics)``, each metric stacked ``[R, ...]``;
         the state and the generator are those of R :meth:`run_round`
-        calls, bitwise."""
-        buf = self._load_chunk(state, data)
-        rounds = []
-        for i in range(self.rounds_per_call):
-            self._load_eval_rows(buf, state.round_idx + i)
-            if buf.graph is not None:
-                buf.graph.replay()
-                metrics = buf.metrics
-            else:
-                metrics = self._chunk_round(buf)
-            # the graph's outputs (and a metric that is a static buffer)
-            # are overwritten by the next round
-            rounds.append({k: v.clone() for k, v in metrics.items()})
+        calls, bitwise. With tracing on, the spans of the chunk's last
+        replay are queued, and read at the next chunk or export once the
+        caller's own host read has waited for them."""
+        # the previous chunk's last replay, before this one overwrites it
+        tracing.settle()
+        with tracing.span("chunk", state.round_idx):
+            captures = self.chunk is None and self.device.type == "cuda"
+            with tracing.span("capture" if captures else "load"):
+                buf = self._load_chunk(state, data)
+            rounds = []
+            for i in range(self.rounds_per_call):
+                self._load_eval_rows(buf, state.round_idx + i)
+                if buf.graph is not None:
+                    with tracing.span("replay", state.round_idx + i):
+                        buf.graph.replay()
+                        if i == self.rounds_per_call - 1:
+                            tracing.replayed(buf.spans)
+                    metrics = buf.metrics
+                else:
+                    with tracing.span("round", state.round_idx + i):
+                        metrics = self._chunk_round(buf)
+                # the graph's outputs (and a metric that is a static
+                # buffer) are overwritten by the next round
+                rounds.append({k: v.clone() for k, v in metrics.items()})
         state.gen.set_state(buf.gen.get_state())
         stacked = {k: torch.stack([m[k] for m in rounds]) for k in rounds[0]}
         return state._replace(
@@ -466,9 +486,10 @@ class FederatedTrainer:
                         ) -> float:
         """Accuracy of the global model on the first 2048 global samples,
         as the reference measures it."""
-        return float(self.program.eval_fn(state.global_params,
-                                          data.global_x[:2048],
-                                          data.global_y[:2048]))
+        with tracing.span("global_eval", state.round_idx):
+            return float(self.program.eval_fn(state.global_params,
+                                              data.global_x[:2048],
+                                              data.global_y[:2048]))
 
     def run(self, data: FederatedDataset, rounds: Optional[int] = None,
             eval_every: int = 1, verbose: bool = False,

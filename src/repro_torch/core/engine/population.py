@@ -65,6 +65,7 @@ from typing import Any, Mapping, NamedTuple, Sequence, Tuple
 import torch
 from torch.func import vmap
 
+from repro_torch import tracing
 from repro_torch.core.cross_testing import CROSSTEST_IMPLS, cross_test_tiled
 from repro_torch.core.engine.backends import _flatten_updates
 from repro_torch.core.engine.driver import (
@@ -130,8 +131,9 @@ class KeyedNoise(NamedTuple):
         """Elements ``lo..hi`` of leaf ``leaf``'s noise for ``clients``
         (``[rows]`` int64, the clients of ``slots``): ``[rows, hi - lo]``
         f32."""
-        return keyed_normal(self.key, (leaf, clients[:, None],
-                                       self.round_idx), lo, hi)
+        with tracing.span("noise"):
+            return keyed_normal(self.key, (leaf, clients[:, None],
+                                           self.round_idx), lo, hi)
 
 
 class RecordedNoise(NamedTuple):
@@ -462,21 +464,23 @@ class PopulationTrainer(FederatedTrainer):
         run seed's :func:`noise_key`; a chunk passes its buffer)."""
         fed, program = self.fed, self.program
         n, gen = fed.num_users, state.gen
-        tester_ids, part_mask = program.draw_selection(
-            gen, state.round_idx, state.scores.scores)
-        idx, valid, eff_mask = cohort_from_mask(part_mask, self.capacity)
-        if self.testers_from_cohort:
-            tester_ids = recruit_testers(tester_ids, idx, valid, n)
-        safe = idx.clamp(max=n - 1)
-        u = torch.rand((n, fed.local_steps, self.train.batch_size),
-                       generator=gen, device=gen.device)
-        batch_idx = batch_indices_from_uniforms(u[safe],
-                                                data.train_counts[safe])
-        noise = None
-        if program.attack.needs_noise:
-            noise = KeyedNoise(noise_key(state.seed) if key is None else key,
-                               state.round_idx)
-        fault_draws, lies = program.draw_seams(gen)
+        with tracing.span("draw"):
+            tester_ids, part_mask = program.draw_selection(
+                gen, state.round_idx, state.scores.scores)
+            idx, valid, eff_mask = cohort_from_mask(part_mask,
+                                                    self.capacity)
+            if self.testers_from_cohort:
+                tester_ids = recruit_testers(tester_ids, idx, valid, n)
+            safe = idx.clamp(max=n - 1)
+            u = torch.rand((n, fed.local_steps, self.train.batch_size),
+                           generator=gen, device=gen.device)
+            batch_idx = batch_indices_from_uniforms(u[safe],
+                                                    data.train_counts[safe])
+            noise = None
+            if program.attack.needs_noise:
+                noise = KeyedNoise(noise_key(state.seed) if key is None
+                                   else key, state.round_idx)
+            fault_draws, lies = program.draw_seams(gen)
         return RoundDraws(batch_idx, tester_ids, eff_mask, noise,
                           fault_draws=fault_draws, lies=lies,
                           cohort=CohortPlan(idx, valid))
@@ -486,11 +490,13 @@ class PopulationTrainer(FederatedTrainer):
         """Steps 1-7 on the round's cohort; ``round_idx`` is the host int
         or the chunk's device counter."""
         plan = draws.cohort
-        cx, cy = data.cohort_train(plan.idx.clamp(max=self.fed.num_users - 1))
-        rows = torch.arange(self.capacity,
-                            device=plan.idx.device)[:, None, None]
-        bx, by = cx[rows, draws.batch_idx], cy[rows, draws.batch_idx]
-        tx, ty = data.tester_batches(draws.tester_ids, self.eval_batch)
+        with tracing.span("shards"):
+            cx, cy = data.cohort_train(
+                plan.idx.clamp(max=self.fed.num_users - 1))
+            rows = torch.arange(self.capacity,
+                                device=plan.idx.device)[:, None, None]
+            bx, by = cx[rows, draws.batch_idx], cy[rows, draws.batch_idx]
+            tx, ty = data.tester_batches(draws.tester_ids, self.eval_batch)
         return self.program.run(
             self.backend, global_params, scores,
             bx=(plan, bx), by=by, tx=tx, ty=ty, draws=draws,
@@ -502,11 +508,12 @@ class PopulationTrainer(FederatedTrainer):
         """One round on the cohort; ``draws`` replaces the round's own
         (its ``batch_idx`` the cohort's rows, its ``part_mask`` the
         honoured mask, its ``cohort`` that mask's :class:`CohortPlan`)."""
-        if draws is None:
-            draws = self.draw(state, data)
-        new_global, new_scores, new_comp, metrics = self._play_cohort(
-            state.global_params, state.scores, state.comp_state,
-            state.round_idx, data, draws)
+        with tracing.span("round", state.round_idx):
+            if draws is None:
+                draws = self.draw(state, data)
+            new_global, new_scores, new_comp, metrics = self._play_cohort(
+                state.global_params, state.scores, state.comp_state,
+                state.round_idx, data, draws)
         return state._replace(global_params=new_global, scores=new_scores,
                               round_idx=state.round_idx + 1,
                               comp_state=new_comp), metrics

@@ -48,6 +48,7 @@ from typing import Any, Dict, List, NamedTuple, Optional
 import torch
 from torch.func import grad_and_value
 
+from repro_torch import tracing
 from repro_torch.config import FedConfig, TrainConfig
 from repro_torch.core.cross_testing import make_eval_fn
 from repro_torch.core.scoring import score_weights
@@ -234,13 +235,20 @@ class RoundProgram:
         """One client's local phase: ``local_steps`` optimizer steps on
         ``bx [steps, batch, ...]``, differentiating ``train_model``. The
         backend runs it for every client at once under
-        ``torch.func.vmap``."""
+        ``torch.func.vmap``; each step runs in the span ``train.step``, its
+        gradient in ``train.step.grad`` and its update in
+        ``train.step.update``, opened once for all clients."""
         opt_state = self.opt.init(params)
         step_grad = grad_and_value(self.train_model.loss, has_aux=True)
         losses = []
         for s in range(bx.shape[0]):
-            grads, (loss, _) = step_grad(params, self.batchify(bx[s], by[s]))
-            params, opt_state = self.opt.update(grads, opt_state, params)
+            with tracing.span("train.step"):
+                with tracing.span("train.step.grad"):
+                    grads, (loss, _) = step_grad(
+                        params, self.batchify(bx[s], by[s]))
+                with tracing.span("train.step.update"):
+                    params, opt_state = self.opt.update(grads, opt_state,
+                                                        params)
             losses.append(loss)
         return params, torch.stack(losses).mean()
 
@@ -303,7 +311,10 @@ class RoundProgram:
         ``server_data`` is the server's ``(sx, sy)`` eval set, which an
         aggregator that ``needs_server_eval`` requires. ``comp_state`` is
         the ``[N, D]`` error-feedback buffer of a compressed exchange,
-        ``None`` (and ``new_comp_state`` too) otherwise."""
+        ``None`` (and ``new_comp_state`` too) otherwise. Steps 1-2, 3, 3b,
+        3c, 4, 6 and 7 run in the spans ``train``, ``attack``, ``mask``,
+        ``compress``, ``cross_test``, ``scores`` and ``aggregate``
+        (:mod:`repro_torch.tracing`)."""
         fed = self.fed
         pmask = draws.part_mask if self.use_participation else None
         tester_ids = draws.tester_ids
@@ -320,21 +331,24 @@ class RoundProgram:
                                 / torch.clamp(part.sum(), min=1.0))
 
         # 1-2. broadcast + local training
-        models, local_loss = backend.train(self.local_train, global_params,
-                                           bx, by)
+        with tracing.span("train"):
+            models, local_loss = backend.train(self.local_train,
+                                               global_params, bx, by)
 
         # 3. adversaries act; the AttackContext exposes the scores and
         # weights entering the round
-        actx = AttackContext(scores=scores.scores,
-                             weights=score_weights(scores),
-                             round_idx=round_idx)
-        models = backend.apply_attack(self.attack, draws.noise, models,
-                                      global_params, actx)
+        with tracing.span("attack"):
+            actx = AttackContext(scores=scores.scores,
+                                 weights=score_weights(scores),
+                                 round_idx=round_idx)
+            models = backend.apply_attack(self.attack, draws.noise, models,
+                                          global_params, actx)
 
         # 3b. non-participants transmit nothing: their slot holds the
         # stale global copy
         if pmask is not None:
-            models = backend.mask_models(models, global_params, pmask)
+            with tracing.span("mask"):
+                models = backend.mask_models(models, global_params, pmask)
 
         # 3c. compressed exchange: each participating client encodes its
         # flat update, with error feedback banked in comp_state, and every
@@ -343,13 +357,16 @@ class RoundProgram:
         new_comp_state = comp_state
         comp_payloads = comp_decoded = None
         if self.use_compression:
-            models, comp_payloads, comp_decoded, new_comp_state = (
-                backend.compress_exchange(self.compressor, models,
-                                          global_params, comp_state,
-                                          pmask))
+            with tracing.span("compress"):
+                models, comp_payloads, comp_decoded, new_comp_state = (
+                    backend.compress_exchange(self.compressor, models,
+                                              global_params, comp_state,
+                                              pmask))
 
         # 4. the round's testers measure accuracies on their own data
-        acc = backend.cross_test(self.eval_fn, models, tx, ty, tester_ids)
+        with tracing.span("cross_test"):
+            acc = backend.cross_test(self.eval_fn, models, tx, ty,
+                                     tester_ids)
 
         # 5. lying testers (Sec. V-C): a tester with id < lying_testers
         # reports uniform draws whenever it is selected
@@ -366,43 +383,46 @@ class RoundProgram:
         # 6. scores, then weights, via the aggregation strategy; the
         # [N, D] update matrix is built at most once a round, for
         # ctx.updates and the combine path alike
-        server_eval = None
-        if self.aggregator.needs_server_eval:
-            if server_data is None:
-                raise ValueError(
-                    f"aggregator {self.aggregator.name!r} needs a "
-                    "server-side eval set; pass server_data=(sx, sy)")
-            sx, sy = server_data
-            server_eval = backend.server_eval(self.eval_fn, models, sx, sy)
-        updates = (backend.updates(models, global_params)
-                   if self.needs_updates else None)
-        ctx = RoundContext(acc_matrix=acc, tester_ids=tester_ids,
-                           scores=scores, counts=counts,
-                           round_idx=round_idx, updates=updates,
-                           server_eval=server_eval, participation=pmask,
-                           report_mask=(pmask[tester_ids.long()]
-                                        if pmask is not None else None))
-        new_scores = self.aggregator.update_scores(ctx)
-        ctx = ctx._replace(scores=new_scores)
-        weights = self.aggregator.weights(ctx)
-        if pmask is not None:
-            weights = renormalize_over_subset(weights, pmask)
+        with tracing.span("scores"):
+            server_eval = None
+            if self.aggregator.needs_server_eval:
+                if server_data is None:
+                    raise ValueError(
+                        f"aggregator {self.aggregator.name!r} needs a "
+                        "server-side eval set; pass server_data=(sx, sy)")
+                sx, sy = server_data
+                server_eval = backend.server_eval(self.eval_fn, models, sx,
+                                                  sy)
+            updates = (backend.updates(models, global_params)
+                       if self.needs_updates else None)
+            ctx = RoundContext(acc_matrix=acc, tester_ids=tester_ids,
+                               scores=scores, counts=counts,
+                               round_idx=round_idx, updates=updates,
+                               server_eval=server_eval, participation=pmask,
+                               report_mask=(pmask[tester_ids.long()]
+                                            if pmask is not None else None))
+            new_scores = self.aggregator.update_scores(ctx)
+            ctx = ctx._replace(scores=new_scores)
+            weights = self.aggregator.weights(ctx)
+            if pmask is not None:
+                weights = renormalize_over_subset(weights, pmask)
 
         # 7. aggregation -> new global model: the per-coordinate combine
         # of the update matrix; compressed, the weighted sum of the
         # decoded updates taken from the wire representation; else the
         # weighted sum of the models
-        if self.uses_combine:
-            new_global = tree_add_vector(
-                global_params, self.aggregator.combine(ctx, updates))
-        elif self.use_compression:
-            new_global = tree_add_vector(
-                global_params,
-                backend.compressed_sum(self.compressor, comp_payloads,
-                                       comp_decoded, weights))
-        else:
-            new_global = backend.weighted_sum(models, weights,
-                                              global_params)
+        with tracing.span("aggregate"):
+            if self.uses_combine:
+                new_global = tree_add_vector(
+                    global_params, self.aggregator.combine(ctx, updates))
+            elif self.use_compression:
+                new_global = tree_add_vector(
+                    global_params,
+                    backend.compressed_sum(self.compressor, comp_payloads,
+                                           comp_decoded, weights))
+            else:
+                new_global = backend.weighted_sum(models, weights,
+                                                  global_params)
 
         # the malicious set comes from the attack strategy, so the metric
         # stays right for any placement (an empty set reads 0)

@@ -26,6 +26,8 @@ import tempfile
 from pathlib import Path
 from typing import List
 
+from repro_torch import tracing
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -56,9 +58,14 @@ def library_path(name: str) -> Path:
 
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless its library is already built;
-    raises with nvcc's output when the build fails."""
+    raises with nvcc's output when the build fails. Counts
+    ``kernels.loaded`` (and ``kernels.loaded.<name>``) for a library
+    found built, ``kernels.built`` (and ``kernels.built.<name>``) for one
+    compiled, in the span ``kernels.build``."""
     out = library_path(name)
     if out.exists():
+        tracing.count("kernels.loaded")
+        tracing.count(f"kernels.loaded.{name}")
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     # compile to a private name, then rename: concurrent builders never
@@ -66,7 +73,8 @@ def build(name: str) -> Path:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with tracing.span("kernels.build"):
+        proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed to build {name} "
@@ -74,6 +82,8 @@ def build(name: str) -> Path:
                            f"{proc.stdout}{proc.stderr}")
     out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, out)
+    tracing.count("kernels.built")
+    tracing.count(f"kernels.built.{name}")
     return out
 
 

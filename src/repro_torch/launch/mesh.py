@@ -52,6 +52,7 @@ from typing import Any, Callable, List
 import torch
 import torch.distributed as dist
 
+from repro_torch import tracing
 from repro_torch.utils import (
     PackedTree, pack_leaves, tree_leaves, tree_map, unpack_leaves)
 
@@ -96,10 +97,13 @@ class RankGroup:
 
     ``staged`` (gloo with the rank on the card) copies every tensor a
     collective sends to host memory and every tensor it receives back to
-    the card. ``bytes_staged`` counts those copies' bytes, both ways;
-    ``exchange_s`` the seconds spent inside the collectives (the device
-    is synchronised first, so queued compute is not counted), and
-    ``calls`` their number. :meth:`reset_counters` zeroes the three.
+    the card. With tracing on (:mod:`repro_torch.tracing`) each
+    collective is a ``pod.exchange`` span, ``pod.exchange.calls`` counts
+    them (a ring hop once, at its finish) and ``pod.bytes_staged`` the
+    staged copies' bytes, both ways. The device is synchronised around a
+    collective where the staging's host copies need it, and under nccl
+    only while tracing is on, so that a span's host time holds the
+    exchange and not queued compute.
     """
 
     def __init__(self, rank: int, world_size: int, device, backend: str):
@@ -108,7 +112,6 @@ class RankGroup:
         self.device = torch.device(device)
         self.backend = backend
         self.staged = backend == "gloo" and self.device.type == "cuda"
-        self.reset_counters()
 
     @property
     def transport(self) -> str:
@@ -117,25 +120,20 @@ class RankGroup:
             return "gloo, staged through host memory"
         return self.backend
 
-    def reset_counters(self) -> None:
-        self.bytes_staged = 0
-        self.exchange_s = 0.0
-        self.calls = 0
-
     def _sync(self) -> None:
-        if self.device.type == "cuda":
+        if self.device.type == "cuda" and (self.staged or tracing.enabled()):
             torch.cuda.synchronize(self.device)
 
     def _send(self, t: torch.Tensor) -> torch.Tensor:
         t = t.contiguous()
         if self.staged:
-            self.bytes_staged += t.numel() * t.element_size()
+            tracing.count("pod.bytes_staged", t.numel() * t.element_size())
             return t.cpu()
         return t
 
     def _recv(self, t: torch.Tensor) -> torch.Tensor:
         if self.staged:
-            self.bytes_staged += t.numel() * t.element_size()
+            tracing.count("pod.bytes_staged", t.numel() * t.element_size())
             return t.to(self.device)
         return t
 
@@ -144,20 +142,20 @@ class RankGroup:
         ``[W * t.shape[0], ...]``. Exact: no arithmetic touches the
         values."""
         self._sync()
-        start = time.perf_counter()
-        x = self._send(t)
-        if self.backend == "nccl":
-            out = x.new_empty((self.world_size * x.shape[0],)
-                              + tuple(x.shape[1:]))
-            dist.all_gather_into_tensor(out, x)
-        else:
-            parts = [torch.empty_like(x) for _ in range(self.world_size)]
-            dist.all_gather(parts, x)
-            out = torch.cat(parts)
-        out = self._recv(out)
-        self._sync()
-        self.exchange_s += time.perf_counter() - start
-        self.calls += 1
+        with tracing.span("pod.exchange"):
+            x = self._send(t)
+            if self.backend == "nccl":
+                out = x.new_empty((self.world_size * x.shape[0],)
+                                  + tuple(x.shape[1:]))
+                dist.all_gather_into_tensor(out, x)
+            else:
+                parts = [torch.empty_like(x)
+                         for _ in range(self.world_size)]
+                dist.all_gather(parts, x)
+                out = torch.cat(parts)
+            out = self._recv(out)
+            self._sync()
+        tracing.count("pod.exchange.calls")
         return out
 
     def gather_tree(self, tree):
@@ -177,27 +175,25 @@ class RankGroup:
         and the buffers of rank - 1 come in. Returns the handle
         :meth:`hop_finish` waits on."""
         self._sync()
-        start = time.perf_counter()
-        send = [self._send(f) for f in packed.flats]
-        recv = [torch.empty_like(s) for s in send]
-        nxt = (self.rank + 1) % self.world_size
-        prev = (self.rank - 1) % self.world_size
-        ops = ([dist.P2POp(dist.isend, s, nxt) for s in send]
-               + [dist.P2POp(dist.irecv, r, prev) for r in recv])
-        works = dist.batch_isend_irecv(ops)
-        self.exchange_s += time.perf_counter() - start
+        with tracing.span("pod.exchange"):
+            send = [self._send(f) for f in packed.flats]
+            recv = [torch.empty_like(s) for s in send]
+            nxt = (self.rank + 1) % self.world_size
+            prev = (self.rank - 1) % self.world_size
+            ops = ([dist.P2POp(dist.isend, s, nxt) for s in send]
+                   + [dist.P2POp(dist.irecv, r, prev) for r in recv])
+            works = dist.batch_isend_irecv(ops)
         return packed, send, recv, works
 
     def hop_finish(self, handle) -> PackedTree:
         """Wait for a hop: the tree that rank - 1 sent."""
         packed, _send, recv, works = handle
-        start = time.perf_counter()
-        for w in works:
-            w.wait()
-        out = packed._replace(flats=[self._recv(r) for r in recv])
-        self._sync()
-        self.exchange_s += time.perf_counter() - start
-        self.calls += 1
+        with tracing.span("pod.exchange"):
+            for w in works:
+                w.wait()
+            out = packed._replace(flats=[self._recv(r) for r in recv])
+            self._sync()
+        tracing.count("pod.exchange.calls")
         return out
 
     def barrier(self) -> None:
